@@ -1,0 +1,179 @@
+"""Unified model configuration covering all assigned architecture families."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+__all__ = ["ModelConfig", "LayerSpec"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One layer inside the repeating period.
+
+    mixer: 'attn' | 'attn_local' | 'mamba' | 'rwkv'
+    ffn:   'mlp' | 'moe' | None (rwkv has its own channel-mix; use 'rwkv_ffn')
+    cross_attn: insert a cross-attention sub-block (enc-dec / VLM layers).
+    """
+
+    mixer: str = "attn"
+    ffn: str = "mlp"
+    cross_attn: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None   # defaults to d_model // n_heads
+
+    # repeating layer structure; n_layers % len(period) == 0
+    period: Tuple[LayerSpec, ...] = (LayerSpec(),)
+
+    # attention details
+    rope_theta: float = 10_000.0
+    rope_fraction: float = 1.0       # chatglm3 rotates only half the head dim
+    qkv_bias: bool = False           # qwen1.5
+    attn_softcap: Optional[float] = None   # gemma2: 50.0
+    logit_softcap: Optional[float] = None  # gemma2: 30.0
+    sliding_window: Optional[int] = None   # gemma2 local layers: 4096
+    post_block_norm: bool = False    # gemma2 post-norms
+    attn_chunk_q: Optional[int] = None     # q-chunked attention block size
+
+    # MLP
+    act: str = "silu"                # silu (SwiGLU) | gelu (GeGLU / plain)
+    glu: bool = True
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_group_size: int = 128     # tokens per dispatch group
+
+    # Mamba (jamba defaults)
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_scan_dtype: str = "float32"  # dtype of the discretized scan elems
+
+    # RWKV6
+    rwkv_head_size: int = 64
+
+    # enc-dec (whisper): encoder stack config
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500          # post-conv audio frames (stub input)
+
+    # VLM: number of image tokens from the (stubbed) vision tower
+    n_image_tokens: int = 0
+
+    # embedding details
+    tie_embeddings: bool = True
+    scale_embeddings: bool = False   # gemma2 multiplies by sqrt(d_model)
+    pos_embedding: str = "rope"      # rope | learned | none
+    max_position_embeddings: int = 65536  # learned-pos table size (whisper)
+
+    # numeric
+    norm_eps: float = 1e-6
+    vocab_pad_multiple: int = 256
+    remat: bool = False              # gradient-checkpoint each layer period
+    unroll_layers: bool = False      # python-loop the periods (cost probes)
+
+    def __post_init__(self) -> None:
+        if self.n_layers % len(self.period) != 0:
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} not divisible by "
+                f"period length {len(self.period)}")
+
+    # ---- derived ---------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // len(self.period)
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def mamba_dt_rank(self) -> int:
+        return max(1, self.d_model // 16)
+
+    @property
+    def rwkv_n_heads(self) -> int:
+        return self.d_model // self.rwkv_head_size
+
+    @property
+    def is_attention_free(self) -> bool:
+        return all(s.mixer in ("mamba", "rwkv") for s in self.period)
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True when decode memory/compute is sub-quadratic-safe at 500k:
+        SSM/hybrid state-space layers, or sliding-window local attention."""
+        kinds = {s.mixer for s in self.period}
+        if kinds <= {"mamba", "rwkv"}:
+            return True
+        if "mamba" in kinds or "rwkv" in kinds:
+            return True  # hybrid: only a fraction of layers hold a cache
+        return "attn_local" in kinds  # sliding-window variants
+
+    @property
+    def has_encoder(self) -> bool:
+        return self.n_encoder_layers > 0
+
+    def param_count(self) -> int:
+        """Approximate parameter count (for roofline MODEL_FLOPS = 6ND)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        total = self.padded_vocab * d  # embed
+        if not self.tie_embeddings:
+            total += self.padded_vocab * d
+        for spec in self.period * self.n_periods:
+            if spec.mixer in ("attn", "attn_local"):
+                total += d * (self.n_heads + 2 * self.n_kv_heads) * hd
+                total += self.n_heads * hd * d
+            elif spec.mixer == "mamba":
+                di = self.mamba_d_inner
+                total += d * 2 * di + di * self.mamba_d_conv
+                total += di * (self.mamba_dt_rank + 2 * self.mamba_d_state)
+                total += self.mamba_dt_rank * di + di * d + di
+            elif spec.mixer == "rwkv":
+                total += 6 * d * d  # r,k,v,g,o,w projections (approx)
+            if spec.cross_attn:
+                total += d * (self.n_heads + 2 * self.n_kv_heads) * hd
+                total += self.n_heads * hd * d
+            if spec.ffn == "mlp":
+                total += d * self.d_ff * (3 if self.glu else 2)
+            elif spec.ffn == "moe":
+                total += self.n_experts * d * self.d_ff_expert * (3 if self.glu else 2)
+                total += d * self.n_experts
+            elif spec.ffn == "rwkv_ffn":
+                total += int(d * d * 3.5 * 2)
+        if self.has_encoder:
+            per_layer = 4 * d * d + 2 * d * self.d_ff
+            total += self.n_encoder_layers * per_layer
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE counts top_k of n_experts)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        total = self.param_count()
+        moe_layers = sum(1 for s in self.period if s.ffn == "moe") * self.n_periods
+        full = self.n_experts * self.d_model * self.d_ff_expert * (3 if self.glu else 2)
+        active = self.top_k * self.d_model * self.d_ff_expert * (3 if self.glu else 2)
+        return total - moe_layers * (full - active)
