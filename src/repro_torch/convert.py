@@ -4,7 +4,10 @@ The port keeps the JAX package's parameter layout, so conversion is a
 renaming: the flat '/'-keyed numpy dict that ``checkpoint.load_flat``
 returns for a raw params checkpoint (or that a test builds from
 ``jax.tree_util.tree_flatten_with_path(params)``) becomes the port's
-nested dict of tensors.
+nested dict of tensors. ``params_from_jax`` checks the keys and shapes
+of a transformer config; ``tree_from_jax`` carries any tree (the vision
+models' parameters, a node stack, an optimizer or method state) leaf for
+leaf, layouts unchanged (HWIO conv weights stay HWIO).
 """
 from __future__ import annotations
 
@@ -13,12 +16,13 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_mod
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.npz import as_float_array
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Params, flat_specs, unflatten
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "tree_from_jax"]
 
 
 def params_from_jax(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
@@ -40,3 +44,14 @@ def params_from_jax(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
                              f"{spec.shape} -- wrong config?")
         out[key] = torch.tensor(arr, dtype=dtype, device=dev)
     return unflatten(out)
+
+
+def tree_from_jax(flat: Dict[str, np.ndarray], *, device="cuda") -> Dict:
+    """The port's nested dict of tensors from a flat '/'-keyed numpy dict
+    of a JAX tree (``{"w": .., "b": ..}``, ``{"x/w": .., "s/w": ..}``).
+    Every leaf keeps its shape and dtype (bfloat16 void leaves are read
+    as float32); nothing is transposed."""
+    dev = resolve_device(device)
+    return tree_mod.from_flat(
+        flat, lambda a: torch.tensor(as_float_array(np.asarray(a)),
+                                     device=dev))

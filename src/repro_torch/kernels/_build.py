@@ -21,7 +21,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load_library", "nvcc_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("paged_decode",)
+SOURCES = ("paged_decode", "wire_compress")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

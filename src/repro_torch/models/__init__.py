@@ -1,1 +1,2 @@
-"""Model configuration, layers and the transformer stack (PyTorch)."""
+"""Model configuration, layers, the transformer stack and the paper's
+vision models (PyTorch)."""

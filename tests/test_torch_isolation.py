@@ -32,7 +32,11 @@ def test_every_module_imports_without_jax():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'repro_torch.kernels.flash_attn.decode' in names, names\n"
+        "for want in ('repro_torch.kernels.flash_attn.decode',\n"
+        "             'repro_torch.kernels.wire_compress.ops',\n"
+        "             'repro_torch.train.trainer',\n"
+        "             'repro_torch.core.sdm_dsgd', 'repro_torch.prng'):\n"
+        "    assert want in names, (want, names)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print(len(names))\n")
@@ -40,7 +44,7 @@ def test_every_module_imports_without_jax():
                          text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 35
 
 
 def test_no_source_imports_jax_or_repro():

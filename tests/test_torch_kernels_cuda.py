@@ -1,5 +1,8 @@
 """PyTorch port: the CUDA kernels against their plain versions, on the card.
 
+The paged decode kernel is held at f32/bf16 tolerances; the qsgd_pack
+kernel must equal its plain version bit for bit (``torch.equal``).
+
 Imports no jax (the card's machine has none). Every test here is marked
 ``cuda`` and skips without a GPU; run them on the card with
 
@@ -88,3 +91,75 @@ def test_paged_decode_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):   # head_dim not a multiple of 32
         paged_attention(t[0][..., :16], t[1][..., :16].contiguous(),
                         t[2][..., :16].contiguous(), *t[3:])
+
+
+# --------------------------------------------------------------------------
+# qsgd_pack (kernels/csrc/wire_compress.cu): bit-exact with the plain version
+# --------------------------------------------------------------------------
+
+QSGD_SHAPES = {
+    "resnet20_stack": ((50, 2128, 128), 1),
+    "mlr_stack": ((50, 62, 128), 1),
+    "flat_1001": ((1001,), 0),
+    "odd_stack": ((3, 1001), 1),
+}
+
+
+def _qsgd_inputs(shape, n_batch, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.random(size=shape).astype(np.float32)).to(dev)
+    batch = tuple(shape[:n_batch])
+    norm = torch.sqrt(torch.sum(torch.square(x.reshape(batch + (-1,))), -1))
+    return x, u, norm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(QSGD_SHAPES))
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qsgd_pack_kernel_equals_plain(case, bits):
+    from repro_torch.kernels.wire_compress import (qsgd_inv, qsgd_pack,
+                                                   qsgd_quantize_pack_ref)
+    dev = _cuda()
+    shape, nb = QSGD_SHAPES[case]
+    x, u, norm = _qsgd_inputs(shape, nb, bits, dev)
+    n0 = qsgd_pack.launches
+    got = qsgd_pack(x, u, norm, bits=bits)
+    torch.cuda.synchronize()
+    assert qsgd_pack.launches == n0 + 1
+    want = qsgd_quantize_pack_ref(x, u, qsgd_inv(norm, bits), bits=bits)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qsgd_pack_kernel_zero_plane_signed_zero_and_threshold(bits):
+    from repro_torch.kernels.wire_compress import (qsgd_inv, qsgd_pack,
+                                                   qsgd_quantize_pack_ref)
+    dev = _cuda()
+    x, u, _ = _qsgd_inputs((4, 62, 128), 1, 7, dev)
+    zeros = torch.zeros_like(x)
+    x = torch.where(torch.rand(x.shape, device=dev) < 0.3,
+                    torch.where(x < 0, -0.0, 0.0), x)
+    for vals in (zeros, x):
+        norm = torch.sqrt(torch.sum(torch.square(vals.reshape(4, -1)), -1))
+        inv = qsgd_inv(norm, bits)
+        ratio = torch.abs(vals) * inv.reshape(4, 1, 1)
+        uu = torch.where(torch.rand(x.shape, device=dev) < 0.5,
+                         ratio - torch.floor(ratio), u)   # u == frac
+        got = qsgd_pack(vals, uu, norm, bits=bits)
+        assert torch.equal(got, qsgd_quantize_pack_ref(vals, uu, inv,
+                                                       bits=bits))
+
+
+@pytest.mark.cuda
+def test_qsgd_pack_kernel_rejects_what_it_does_not_take():
+    from repro_torch.kernels.wire_compress import qsgd_pack
+    dev = _cuda()
+    x, u, norm = _qsgd_inputs((2, 62, 128), 1, 3, dev)
+    with pytest.raises(ValueError):            # f64 values
+        qsgd_pack(x.double(), u.double(), norm, bits=4)
+    with pytest.raises(ValueError):            # non-contiguous
+        qsgd_pack(x.transpose(1, 2), u.transpose(1, 2), norm, bits=4)
+    with pytest.raises(ValueError):            # mixed devices
+        qsgd_pack(x, u.cpu(), norm, bits=4)
