@@ -37,6 +37,7 @@ line, the card's name and power limit, and last
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -481,6 +482,378 @@ def step_breakdown(torch, np, state, ins, seq, cfg, n, reps=3):
     log(f"resnet20 step dispatches {OpCount.n} ATen ops")
 
 
+# ---- the distributed LM training slice (phases 8-10) ----------------------
+
+# the full-width slice: gemma2-2b at its published widths, depth cut to
+# LM_LAYERS so that LM_NODES nodes' state and one node's activations fit
+LM_NODES, LM_LAYERS, LM_STEPS, LM_SEQ, LM_BATCH = 2, 4, 6, 512, 2
+# executor vs reference on the card, small width: the parity sweep's
+# tolerance (tests/test_distributed.py)
+EXEC_RTOL = 1e-4
+
+
+def gather_pack_cases(torch, dev="cuda"):
+    """Phase 8a: the fixedk_gather_pack kernel against its plain version
+    (``torch.equal``) on ragged shapes: block 1 / 8 / 128, nb not a
+    multiple of 8, kb = nb, a scale f32 cannot hold, 1 and 4 nodes."""
+    from repro_torch.kernels.wire_compress import (fixedk_gather_pack,
+                                                   fixedk_gather_pack_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    results = []
+    for n, nb, kb, block in ((1, 1001, 333, 1), (4, 37, 11, 8),
+                             (4, 37, 37, 128), (3, 130, 26, 128),
+                             (2, 999, 100, 3)):
+        db = torch.randn(n, nb, block, generator=gen, device=dev)
+        idx = torch.stack([torch.randperm(nb, generator=gen, device=dev)[:kb]
+                           for _ in range(n)]).to(torch.int32)
+        n0 = fixedk_gather_pack.launches
+        got = fixedk_gather_pack(db, idx, scale=nb / kb)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        want = fixedk_gather_pack_ref(db, idx, scale=nb / kb)
+        same = torch.equal(got, want)
+        log(f"fixedk_gather_pack (L={n}, nb={nb}, kb={kb}, block={block}) "
+            f"scale {nb}/{kb}: kernel == plain (torch.equal) {same}; "
+            f"launches {fixedk_gather_pack.launches - n0}")
+        results.append((same, fixedk_gather_pack.launches - n0))
+    return results
+
+
+def executor_phase(torch, np, dev="cuda"):
+    """Phase 9: the per-node executor on a StackTransport against the
+    port's own ReferenceSimulator, on the card, small width (MLR 784 ->
+    10, 8 nodes): fixedk_packed on the ring, qsgdf:4 on the ring and
+    fixedk_packed on matchings:4 (time-varying, replica transport), 5
+    steps each. Counters: ppermute calls == wire_count, bytes sent per
+    node == transmitted_bits_per_step / 8 each step."""
+    from repro_torch import prng, tree as tree_mod
+    from repro_torch.core import (SDMConfig, gossip, method, sdm_dsgd,
+                                  transport as tr, wire_count)
+    from repro_torch.data import (classification_dataset,
+                                  node_partitioned_batches)
+    from repro_torch.models import vision_small as vs
+
+    n, steps, batch = 8, 5, 16
+    (x_tr, y_tr), _ = classification_dataset(784, 10, 2000, 10, seed=1)
+    grad_fn = vs.make_stacked_grad_fn(vs.mlr_apply)
+    key = prng.PRNGKey(42, device=dev)
+    p0 = vs.mlr_init(prng.PRNGKey(0, device=dev))
+    failures = []
+    for spec, comp in (("ring", "fixedk"), ("ring", "qsgdf:4"),
+                       ("matchings:4", "fixedk")):
+        seq = gossip.sequence_by_name(spec, n)
+        meth = method.get("sdm-dsgd")
+        cfg = SDMConfig(p=0.25, theta=0.15, gamma=0.2, sigma=0.0, clip_c=1.0,
+                        compressor=comp)
+        batches = node_partitioned_batches(x_tr, y_tr, n, batch, seed=1)
+        data = [tuple(torch.as_tensor(v, device=dev) for v in next(batches))
+                for _ in range(steps)]
+        stack = tree_mod.tree_map(
+            lambda v: v[None].expand((n,) + tuple(v.shape)).clone(), p0)
+        transport = tr.StackTransport(n, dev)
+        ex = meth.make_distributed(seq, cfg, transport)
+        state = ex.init(stack)
+        sim = meth.make_reference(seq, cfg)
+        ref = sim.init(tree_mod.tree_map(torch.clone, stack))
+        for t in range(steps):
+            state, _ = ex.step(state, lambda x: grad_fn(x, data[t]),
+                               base_key=key)
+            ref, _ = sim.advance(ref, key)
+            ref = sim.commit(ref, grad_fn(ref.x, data[t])[0], key)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        got, want = tree_mod.leaves(state.x), tree_mod.leaves(ref.x)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        scale = max(b.abs().max().item() for b in want)
+        mode = wire_count.mode_of(meth.name, cfg)
+        calls = sum(wire_count.permutes_per_step(meth.name, mode, seq, t)
+                    for t in range(steps))
+        static = seq.length == 1 and calls == steps * \
+            wire_count.expected_permutes(meth.name, mode, seq)
+        counts_ok = static or seq.length > 1
+        per_node = p0
+        bits = sdm_dsgd.transmitted_bits_per_step(per_node, cfg, seq=seq)
+        want_bytes = wire_count.expected_bytes_sent(meth, per_node, cfg, seq,
+                                                    steps)
+        ok = (err <= EXEC_RTOL * max(scale, 1.0) and scale > 0
+              and transport.permutes == calls
+              and transport.bytes_sent == want_bytes
+              and counts_ok)
+        log(f"executor vs reference on {dev}: sdm-dsgd MLR 784->10, n={n}, "
+            f"{spec} ({seq.name}, replicas={gossip.needs_replicas(seq)}), "
+            f"{comp}, {steps} steps: max|exec - ref| {err:.3e} (scale "
+            f"{scale:.3e}, tol {EXEC_RTOL} x max(scale, 1)); ppermute calls "
+            f"{transport.permutes} == wire_count {calls}"
+            + (f" == {steps} x expected_permutes" if static else "")
+            + f"; bytes sent per node {sorted(set(transport.bytes_sent.values()))}"
+            f" == expected {sorted(set(want_bytes.values()))} "
+            f"(transmitted_bits_per_step {bits} / 8 = {bits / 8} per step); "
+            f"ok {ok}")
+        if not ok:
+            failures.append(f"{spec}/{comp}")
+    return failures
+
+
+def _profile_busy(torch, fn, reps):
+    """(device busy ms per call, wall ms per call) of ``fn`` from a
+    ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events) / reps / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:8]
+    return busy, wall, [(e.key[:60], dev_us(e) / reps / 1e3,
+                         e.count // reps) for e in top]
+
+
+def lm_phase(torch, np, card, dev="cuda", smoke=False):
+    """Phase 10: the slice at full width through the launcher's step
+    function: gemma2-2b at its published widths (d_model 2304, 8 / 4
+    heads, head_dim 256, d_ff 9216, vocab 256000), depth cut to
+    LM_LAYERS, LM_NODES nodes as one node block on the card, sdm-dsgd
+    with fixedk:128 on the ring, sigma > 0 with clipping, seq LM_SEQ.
+    Then the fixedk_gather_pack kernel against its plain version on the
+    run's own final differential, and its time."""
+    import dataclasses
+    import math
+
+    from repro_torch import configs, prng, tree as tree_mod
+    from repro_torch.core import (SDMConfig, method, sdm_dsgd,
+                                  transport as tr, wire_count)
+    from repro_torch.core.plane import ParamPlane, ShapeDtype
+    from repro_torch.core import gossip, sparsifier
+    from repro_torch.core.privacy import PrivacyAccountant, PrivacyParams
+    from repro_torch.kernels.wire_compress import (fixedk_gather_pack,
+                                                   fixedk_gather_pack_ref)
+    from repro_torch.kernels.wire_compress.ops import \
+        _fixedk_gather_pack_cuda
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer
+    from repro_torch.train import steps as steps_mod
+
+    base = (configs.get_smoke_config("gemma2-2b") if smoke
+            else configs.get_config("gemma2-2b"))
+    cfg = dataclasses.replace(base, n_layers=LM_LAYERS)
+    # sigma^2 >= 1/1.25 is Theorem 1's precondition; G = clip_c sqrt(d)
+    n, clip_c, sigma, m_local = LM_NODES, 1e-4, 1.0, 10_000
+    sdm = SDMConfig(p=0.2, theta=0.5, gamma=1e-3, sigma=sigma, clip_c=clip_c,
+                    compressor="fixedk:128")
+    tc = steps_mod.DistributedTrainConfig(
+        model=cfg, sdm=sdm, topology="ring", method="sdm-dsgd",
+        param_dtype=torch.bfloat16)
+    meth, mcfg = tc.resolved()
+    seq = steps_mod.gossip_schedule(tc, n)
+    template = transformer.unflatten({
+        k: ShapeDtype(s, torch.bfloat16)
+        for k, s in transformer.param_shapes(cfg).items()})
+    d = sum(math.prod(v.shape) for v in tree_mod.leaves(template))
+    plane = ParamPlane.for_tree(template)
+    stacked = tree_mod.tree_map(
+        lambda v: ShapeDtype((n,) + v.shape, v.dtype), template)
+    layout = method.state_shape_dtype(meth, stacked, mcfg, seq)
+    state_b = sum(math.prod(v.shape) * (2 if v.dtype == torch.bfloat16
+                                        else 4)
+                  for v in tree_mod.leaves(layout))
+    plane_b = n * plane.padded_size * 4
+    # the step's transients, unfreed at their peak (commit): the packed x
+    # and g planes, the mixing temporary, the new d (4 planes), the
+    # noised gradient block twice and the gradient block (bf16), plus
+    # one node's activations and f32 logits
+    act_b = 6 * LM_BATCH * LM_SEQ * cfg.padded_vocab * 4
+    predicted = state_b + 4 * plane_b + 3 * n * d * 2 + act_b
+    log(f"lm slice: gemma2-2b widths (d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth cut "
+        f"{base.n_layers} -> {cfg.n_layers} layers; {d / 1e9:.4f} B params "
+        f"per node ({plane.buckets[0].rows} x 128 wire plane); {n} nodes; predicted "
+        f"peak {predicted / 1e9:.2f} GB = state {state_b / 1e9:.2f} GB "
+        f"(x bf16 + s, d f32 planes) + 4 f32 planes {4 * plane_b / 1e9:.2f}"
+        f" + 3 bf16 blocks {3 * n * d * 2 / 1e9:.2f} + activations/logits "
+        f"{act_b / 1e9:.2f}")
+
+    transport = tr.StackTransport(n, dev)
+    t0 = time.monotonic()
+    state = steps_mod.init_distributed_state(tc, transport, seed=0)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    log(f"lm slice init {time.monotonic() - t0:.1f} s")
+    fixedk_gather_pack.launches = 0
+    run = train(tc, transport, steps=LM_STEPS, global_batch=n * LM_BATCH,
+                seq_len=LM_SEQ, seed=0, state=state,
+                on_step=lambda t, loss, sec: log(
+                    f"  lm step {t} loss {loss:.5f} ({sec * 1e3:.1f} ms)"))
+    launches = fixedk_gather_pack.launches
+    peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
+    ms = np.asarray(run.step_s) * 1e3
+    bits = sdm_dsgd.transmitted_bits_per_step(template, mcfg, seq=seq)
+    mode = wire_count.mode_of(meth.name, mcfg)
+    calls = LM_STEPS * wire_count.expected_permutes(meth.name, mode, seq)
+    want_bytes = {i: LM_STEPS * bits // 8 for i in range(n)}
+    comp = sdm_dsgd.compressor_of(mcfg)
+    acct = PrivacyAccountant(PrivacyParams.from_compressor(
+        comp, G=clip_c * math.sqrt(d), m=m_local, tau=LM_BATCH / m_local,
+        sigma=sigma), eps_target=1.0)
+    acct.step(LM_STEPS)
+    tok_s = run.tokens_per_step / (ms[1:].mean() / 1e3)
+    log(f"train gemma2-2b x{cfg.n_layers} layers bf16, sdm-dsgd "
+        f"{seq.name} n={n}, fixedk:128, sigma {sigma} clip_c {clip_c}, seq "
+        f"{LM_SEQ}, batch {LM_BATCH}/node, {LM_STEPS} steps on {card}: "
+        f"step ms mean {ms.mean():.3f} p50 {np.percentile(ms, 50):.3f} p99 "
+        f"{np.percentile(ms, 99):.3f} (first {ms[0]:.3f}; steps 2.. mean "
+        f"{ms[1:].mean():.3f}); {tok_s:.1f} tokens/s over steps 2..; peak "
+        f"memory {peak / 1e9:.3f} GB (predicted {predicted / 1e9:.2f}); "
+        f"losses {[round(v, 5) for v in run.losses]}; wire bits per node "
+        f"per step {bits} (bytes sent per node "
+        f"{sorted(set(transport.bytes_sent.values()))} == {LM_STEPS} x "
+        f"{bits // 8}: {transport.bytes_sent == want_bytes}); ppermute "
+        f"calls {transport.permutes} == {LM_STEPS} x expected_permutes "
+        f"{calls // LM_STEPS}; eps {acct.epsilon:.6e} (G = clip_c sqrt(d) "
+        f"{clip_c * math.sqrt(d):.3f}, m {m_local}, tau {LM_BATCH}/"
+        f"{m_local}, delta 1e-5); fixedk_gather_pack launches {launches} "
+        f"({plane.n_buckets} bucket)")
+    failures = []
+    if not all(math.isfinite(v) for v in run.losses):
+        failures.append("non-finite loss")
+    if transport.permutes != calls or transport.bytes_sent != want_bytes:
+        failures.append("wire counters disagree with the accounting")
+    if launches != LM_STEPS * plane.n_buckets:
+        failures.append(f"fixedk_gather_pack launched {launches} times, "
+                        f"expected steps x buckets "
+                        f"{LM_STEPS * plane.n_buckets}")
+
+    out = dict(launches=launches, failures=failures)
+    if dev == "cpu":
+        return out
+    # device busy share over two more steps (profiler window)
+    step_fn = steps_mod.make_distributed_train(tc, transport)
+    from repro_torch.data import TokenStream
+    stream = TokenStream(vocab_size=cfg.vocab_size, batch=n * LM_BATCH,
+                         seq_len=LM_SEQ, seed=0)
+    tokens, labels = (torch.as_tensor(a, device=dev)
+                      for a in stream.batch_at(LM_STEPS))
+    holder = {"state": run.state}
+    del run, state
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], tokens, labels)
+
+    busy, wall, top = _profile_busy(torch, one_step, 2)
+    log(f"lm step device time {busy:.3f} ms of {wall:.3f} ms wall: device "
+        f"busy share {busy / wall:.3f}; top kernels by device time (ms per "
+        f"step): " + "; ".join(f"{k} {v:.3f} (x{c})" for k, v, c in top))
+
+    # ---- 8b. the kernel on the run's own differential -------------------
+    st = holder["state"]
+    (dplane,) = st.d
+    db = dplane.reshape(n, -1, 128)
+    nb = db.shape[1]
+    kb = math.ceil(0.2 * nb)
+    key = prng.fold_in(prng.PRNGKey(0, device=dev), 0)   # bucket 0
+    idx = sparsifier.fixedk_indices(
+        gossip.node_round_key(key, transport.me, st.step), nb, kb
+    ).to(torch.int32)
+    scale = nb / kb
+    got = fixedk_gather_pack(db, idx, scale=scale)
+    want = fixedk_gather_pack_ref(db, idx, scale=scale)
+    same = torch.equal(got, want)
+    err = (got - want).abs().max().item()
+    del got, want
+    flat = db.reshape(n * nb, 128)
+    gidx = (idx.long() + (torch.arange(n, device=dev) * nb)[:, None]
+            ).reshape(-1)
+    ker_ms, ker_host = cuda_ms(torch, lambda i: _fixedk_gather_pack_cuda(
+        db, idx, scale=scale), iters=20)
+    plain_ms, _ = cuda_ms(torch, lambda i: fixedk_gather_pack_ref(
+        db, idx, scale=scale), iters=10)
+    lib_ms, _ = cuda_ms(torch, lambda i: torch.index_select(flat, 0, gidx),
+                        iters=20)
+    nbytes = n * (kb * 128 * 4 * 2 + kb * 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"fixedk_gather_pack on the run's final d, (L={n}, nb={nb}, kb={kb}, "
+        f"block 128), step {st.step}: kernel == plain (torch.equal) {same}; "
+        f"kernel {ker_ms * 1e3:.2f} us on the device ({ker_host * 1e3:.2f} us"
+        f" per call on the host), plain {plain_ms * 1e3:.2f} us, "
+        f"index_select (gather only, no scale; yardstick) "
+        f"{lib_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({nbytes} "
+        f"bytes, bytes); {nbytes / (ker_ms * 1e-3) / 1e12:.3f} TB/s achieved")
+    if not same:
+        failures.append("fixedk_gather_pack disagrees with its plain version "
+                        "on the run's differential")
+    out.update(ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by="bytes", library_ms=lib_ms,
+               library="torch.index_select (gather only, no scale)",
+               max_abs_err=float(err), host_ms_per_call=ker_host)
+    lm_breakdown(torch, holder, mcfg, seq, transport, float(ms[1:].mean()),
+                 one_step)
+    return out
+
+
+def lm_breakdown(torch, holder, mcfg, seq, transport, step_ms, whole,
+                 reps=2):
+    """Where an LM step's time goes: the executor's parts timed alone
+    (host wall around synchronised calls) on the run's final state;
+    gradients = the whole step less the two phases."""
+    from repro_torch import prng, tree as tree_mod
+    from repro_torch.core import sdm_dsgd
+
+    st = holder["state"]
+    grads = tree_mod.tree_map(torch.zeros_like, st.x)
+    key = prng.PRNGKey(0, device=transport.device)
+    kw = dict(base_key=key, transport=transport, cfg=mcfg, schedule=seq)
+    noise_key = sdm_dsgd._node_noise_key(key, transport.me, st.step)
+    parts = {
+        "masked_grad (clip + threefry/erfinv noise, both nodes)": lambda:
+            sdm_dsgd.masked_grad(grads, noise_key, sigma=mcfg.sigma,
+                                 clip_c=mcfg.clip_c),
+        "distributed_commit (incl. masked_grad, pack, mix)": lambda:
+            sdm_dsgd.distributed_commit(st, grads, **kw),
+        "distributed_advance (selection, kernel, exchange, unpack)": lambda:
+            sdm_dsgd.distributed_advance(st, **kw),
+    }
+    parts_mem_only = {"whole step": whole}
+    ms, peak = {}, {}
+    for name, fn in {**parts, **parts_mem_only}.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+        if name in parts_mem_only:
+            continue
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / reps * 1e3
+    log("lm step parts' memory above the state (GB, peak of one call): "
+        + "; ".join(f"{k} {v / 1e9:.3f}" for k, v in peak.items())
+        + f"; state and zero gradients {base / 1e9:.3f} allocated")
+    rest = step_ms - ms["distributed_commit (incl. masked_grad, pack, mix)"] \
+        - ms["distributed_advance (selection, kernel, exchange, unpack)"]
+    log("lm step breakdown (ms, each part alone, synchronised): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; gradients (2 nodes' forward + backward) and the rest = step "
+        f"{step_ms:.3f} less advance and commit = {rest:.3f}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -494,7 +867,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn.decode import (paged_attention,
                                                        paged_attention_ref)
-    from repro_torch.kernels.wire_compress import qsgd_pack
+    from repro_torch.kernels.wire_compress import (fixedk_gather_pack,
+                                                   qsgd_pack)
     from repro_torch.models import transformer
     from repro_torch.serving import PagedKVCache, Request, ServingEngine
 
@@ -510,6 +884,11 @@ def main() -> int:
             source="src/repro_torch/kernels/csrc/wire_compress.cu",
             replaces="src/repro/kernels/wire_compress/wire_compress.py:80"),
             qsgd_pack),
+        "fixedk_gather_pack": (dict(
+            name="fixedk_gather_pack", route="cuda",
+            source="src/repro_torch/kernels/csrc/wire_compress.cu",
+            replaces="src/repro/kernels/wire_compress/wire_compress.py:112"),
+            fixedk_gather_pack),
     }
 
     # ---- 1. card and build ----------------------------------------------
@@ -746,6 +1125,28 @@ def main() -> int:
     # ---- 5.-7. the training path (Algorithm 1, qsgdf wire) ----------------
     timing["qsgd_pack"] = qsgd_pack_phase(torch)
     launches.update(training_phases(torch, np, kernels, card))
+    torch.cuda.empty_cache()
+
+    # ---- 8.-10. the distributed LM slice (fixedk_packed wire) --------------
+    # earlier phases' objects can sit in reference cycles: collect them so
+    # the full-width slice starts from an empty card
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before the LM slice: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated")
+    bad = [r for r in gather_pack_cases(torch) if r != (True, 1)]
+    if bad:
+        raise AssertionError("fixedk_gather_pack disagrees with its plain "
+                             "version")
+    failures = executor_phase(torch, np)
+    if failures:
+        raise AssertionError(f"executor vs reference failed: {failures}")
+    torch.cuda.empty_cache()
+    lm = lm_phase(torch, np, card)
+    if lm.pop("failures"):
+        raise AssertionError(f"lm slice failed: {lm}")
+    launches["fixedk_gather_pack"] = lm.pop("launches")
+    timing["fixedk_gather_pack"] = lm
 
     # ---- results -----------------------------------------------------------
     rows = [dict(rec, launches=launches[key], **timing[key])

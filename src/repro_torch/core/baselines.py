@@ -8,8 +8,9 @@ Port of the reference half of ``repro.core.baselines``:
 * DC-DSGD (Tang et al. 2018) is exactly ``SDMConfig(theta=1.0)``.
 
 Both may use the same clipping and Gaussian masking as SDM-DSGD through
-``sdm_dsgd.masked_grad``. ``dsgd_distributed_step`` comes with the
-distributed executor.
+``sdm_dsgd.masked_grad``. ``dsgd_distributed_step`` is DSGD's per-node
+step on a node block (``core/transport.py``): the full wire plane
+crosses every round.
 """
 from __future__ import annotations
 
@@ -18,11 +19,12 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch import tree as tree_mod
-from repro_torch.core import gossip
+from repro_torch import prng, tree as tree_mod
+from repro_torch.core import gossip, plane as plane_mod
 from repro_torch.core.sdm_dsgd import SDMConfig, masked_grad
 
-__all__ = ["DSGDConfig", "DSGDState", "DSGDReference", "dcdsgd_config"]
+__all__ = ["DSGDConfig", "DSGDState", "DSGDReference", "dcdsgd_config",
+           "dsgd_distributed_step"]
 
 PyTree = Any
 
@@ -79,3 +81,26 @@ class DSGDReference:
 
     def eval_params(self, state: DSGDState) -> PyTree:
         return state.x
+
+
+def dsgd_distributed_step(state: DSGDState, grads: PyTree, *, base_key,
+                          transport, cfg: DSGDConfig, schedule=None,
+                          self_weight: float | None = None) -> DSGDState:
+    """Per-node DSGD step on a node block: x <- W_ii x + sum_j W_ij x_j
+    - gamma g, the whole wire plane crossing every round of the step's
+    schedule (``None``: the ring with scalar ``self_weight``)."""
+    seq = gossip.resolve_sequence(schedule, transport, self_weight)
+    me = transport.me
+    base_key = prng.key_data(base_key).to(me.device)
+    sw = seq.self_weight_of(me, state.step)
+    noise_key = prng.fold_in(
+        gossip.node_round_key(base_key, me, state.step), 0x5eed)
+    g = masked_grad(grads, noise_key, sigma=cfg.sigma, clip_c=cfg.clip_c)
+    spec = plane_mod.ParamPlane.for_stacked(state.x)
+    mixed = spec.unpack_stacked(tuple(
+        p * gossip.per_node(sw, p)
+        + gossip.exchange(seq, p, transport, step=state.step)
+        for p in spec.pack_stacked(state.x)))
+    x = tree_mod.tree_map(lambda m, gr: m - cfg.gamma * gr.to(m.dtype),
+                          mixed, g)
+    return DSGDState(x=x, step=state.step + 1)

@@ -1,6 +1,6 @@
-"""Gossip schedules and the dense-W mixing the reference executors use.
+"""Gossip schedules, dense-W mixing and the per-node exchanges.
 
-Port of the reference half of ``repro.core.gossip``:
+Port of ``repro.core.gossip``:
 
 * ``mix_dense`` / ``apply_weights_dense`` -- (W x)_i over a node-stacked
   leading axis, the single-host reference's gossip;
@@ -8,19 +8,32 @@ Port of the reference half of ``repro.core.gossip``:
   ``ScheduleSequence``, ``UnionSchedule``) a ``Topology`` compiles into,
   and the per-link wire accounting read off them (``mean_out_degree``);
 * ``node_round_key``, the per-(node, round) key both endpoints of a link
-  regenerate.
+  regenerate;
+* the per-node exchanges of the distributed executor: ``exchange``
+  (dense payload), ``exchange_payload`` (any compressor payload),
+  ``exchange_packed`` / ``exchange_packed_rows`` (seed-synchronized
+  fixed-k: only the kept values cross, receivers regenerate the index
+  sets) and their replica (union-graph) siblings ``union_exchange*``.
+
+The exchanges work on a NODE BLOCK (``core/transport.py``): every tensor
+has a leading dim L of the nodes the caller holds and ``transport.me``
+is their (L,) index tensor. Every buffer put on the wire goes through
+``transport.ppermute``, the port's counterpart of the JAX package's one
+wire call site ``_wire_ppermute``. The step counter is a host int, so a
+time-varying sequence picks its round's schedule in Python
+(``lax.switch`` in the JAX package) with no device sync.
 
 The schedules are plain Python/numpy, identical to the JAX package's, so
 both packages mix with the same dense matrices and charge the same wire
-cost. The ppermute exchanges of the distributed executor (``exchange*``,
-``union_exchange*``) are not ported yet; they come with the distributed
-executor on ``torch.distributed``. The JAX package's ``wire_payload``
-tag (an identity its analyzer reads) has no counterpart here.
+cost. The legacy ``ring_exchange*`` helpers have no caller in the
+executor and are not ported. The JAX package's ``wire_payload`` tag (an
+identity its analyzer reads) has no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from fractions import Fraction
 from typing import Tuple
 
@@ -28,13 +41,18 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import sparsifier
 
 __all__ = ["mix_dense", "apply_weights_dense", "PermuteSchedule",
            "ScheduleRound", "ScheduleSequence", "UnionRound", "UnionSchedule",
            "union_schedule", "needs_replicas", "weight_invariant",
-           "mean_out_degree", "schedule_from_topology",
+           "mean_out_degree", "replica_recv_weights", "schedule_from_topology",
            "sequence_from_topologies", "sequence_by_name", "ensure_sequence",
-           "sequence_of", "node_round_key"]
+           "sequence_of", "ring_schedule", "resolve_schedule",
+           "resolve_sequence", "exchange", "exchange_payload",
+           "exchange_packed", "exchange_packed_rows", "union_exchange",
+           "union_exchange_payload", "union_exchange_packed",
+           "union_exchange_packed_rows", "node_round_key"]
 
 
 # --------------------------------------------------------------------------
@@ -79,6 +97,23 @@ class PermuteSchedule:
     self_weights: Tuple[float, ...]
     rounds: Tuple[ScheduleRound, ...]
 
+    @property
+    def n_rounds(self) -> int:
+        return len(self.rounds)
+
+    def self_weight_of(self, me: torch.Tensor) -> torch.Tensor:
+        """W_ii of the nodes ``me`` (an index tensor), f32."""
+        return _table(self.self_weights, me)
+
+    def neighbor_weight_sums(self) -> Tuple[float, ...]:
+        """sum_{j != i} W_ij per node (1 - W_ii for doubly stochastic W)."""
+        n = self.n_nodes
+        sums = [0.0] * n
+        for rnd in self.rounds:
+            for r in range(n):
+                sums[r] += rnd.recv_weights[r]
+        return tuple(sums)
+
     def dense_weights(self) -> np.ndarray:
         """The full (n, n) consensus matrix W the rounds encode."""
         n = self.n_nodes
@@ -108,6 +143,21 @@ class ScheduleSequence:
     @property
     def length(self) -> int:
         return len(self.schedules)
+
+    @property
+    def n_rounds(self) -> int:
+        """Worst-case rounds per gossip step."""
+        return max(s.n_rounds for s in self.schedules)
+
+    def at(self, t: int) -> PermuteSchedule:
+        """The schedule active at iteration t."""
+        return self.schedules[int(t) % self.length]
+
+    def self_weight_of(self, me: torch.Tensor, step=None) -> torch.Tensor:
+        """W_ii(step) of the nodes ``me``, f32."""
+        if self.length == 1 or step is None:
+            return self.schedules[0].self_weight_of(me)
+        return self.at(step).self_weight_of(me)
 
     def weights_stack(self) -> np.ndarray:
         """(L, n, n) stacked dense matrices (reference-executor mixing)."""
@@ -201,6 +251,11 @@ class UnionSchedule:
     length: int
     rounds: Tuple[UnionRound, ...]
 
+    @property
+    def n_replicas(self) -> int:
+        """Replica slots per node: one per union shift round."""
+        return len(self.rounds)
+
 
 @functools.lru_cache(maxsize=None)
 def union_schedule(seq: ScheduleSequence) -> UnionSchedule:
@@ -270,3 +325,308 @@ def node_round_key(base_key, node_index, step) -> torch.Tensor:
     """Sparsifier seed both endpoints can regenerate: f(base, node, round).
     ``node_index`` may be an index tensor: one key per node."""
     return prng.fold_in(prng.fold_in(base_key, node_index), step)
+
+
+# --------------------------------------------------------------------------
+# Per-node exchanges (the distributed executor's transport).
+# --------------------------------------------------------------------------
+
+def _table(values, me: torch.Tensor) -> torch.Tensor:
+    """An f32 per-node table read at the nodes ``me``."""
+    return torch.tensor(values, dtype=torch.float32, device=me.device)[me]
+
+
+def per_node(v, like: torch.Tensor):
+    """A (L,) per-node tensor shaped to broadcast over ``like``'s node
+    block (a python float as it is)."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    return v.to(like.dtype).reshape((v.shape[0],) + (1,) * (like.dim() - 1))
+
+
+def _active(seq: ScheduleSequence, step) -> PermuteSchedule:
+    """The schedule of the step's round (``lax.switch`` in JAX)."""
+    if seq.length == 1:
+        return seq.schedules[0]
+    if step is None:
+        raise ValueError("time-varying ScheduleSequence needs step=")
+    return seq.at(step)
+
+
+@functools.lru_cache(maxsize=None)
+def ring_schedule(n: int, self_weight: float | None = None) -> PermuteSchedule:
+    """The symmetric ring as a schedule (shifts +1 and n-1)."""
+    from repro_torch.core import topology as topology_mod
+
+    return schedule_from_topology(topology_mod.ring(n, self_weight))
+
+
+def resolve_schedule(schedule, transport,
+                     self_weight: float | None = None) -> PermuteSchedule:
+    """A single static schedule; ``None`` is the ring over all nodes."""
+    if schedule is not None:
+        if isinstance(schedule, ScheduleSequence):
+            if schedule.length != 1:
+                raise ValueError(
+                    "time-varying sequence passed where a single static "
+                    "schedule is required; use resolve_sequence")
+            return schedule.schedules[0]
+        return schedule
+    return ring_schedule(transport.n, self_weight)
+
+
+def resolve_sequence(schedule, transport,
+                     self_weight: float | None = None) -> ScheduleSequence:
+    """PermuteSchedule | ScheduleSequence | None as a sequence; ``None``
+    is the symmetric ring over all nodes with scalar ``self_weight``."""
+    if schedule is None:
+        schedule = ring_schedule(transport.n, self_weight)
+    return ensure_sequence(schedule)
+
+
+def _round_weight(rnd: ScheduleRound, me: torch.Tensor) -> torch.Tensor:
+    return _table(rnd.recv_weights, me)
+
+
+def _ppermute_payload(transport, payload, perm):
+    """Every tensor field of a compressor payload across one round (one
+    ppermute per field, as the JAX package permutes each pytree leaf)."""
+    def pp(v):
+        return None if v is None else transport.ppermute(v, perm)
+
+    return dataclasses.replace(payload, values=pp(payload.values),
+                               indices=pp(payload.indices),
+                               scale=pp(payload.scale))
+
+
+def exchange(schedule, x: torch.Tensor, transport, step=None
+             ) -> torch.Tensor:
+    """sum_{j in N_i(t)} W_ij(t) x_j per held node i, dense payload: one
+    ppermute per round of the step's schedule."""
+    me = transport.me
+    total = torch.zeros_like(x)
+    for rnd in _active(ensure_sequence(schedule), step).rounds:
+        recv = transport.ppermute(x, rnd.perm)
+        total = total + per_node(_round_weight(rnd, me), x) * recv
+    return total
+
+
+def exchange_payload(schedule, payload, decompress, transport, *,
+                     step=None) -> torch.Tensor:
+    """Weighted neighbour sum of decompressed compressor payloads: every
+    tensor of the payload crosses as it is, the receiver decompresses
+    and weighs locally (non-destinations get zero payloads and weight)."""
+    me = transport.me
+    total = None
+    for rnd in _active(ensure_sequence(schedule), step).rounds:
+        dec = decompress(_ppermute_payload(transport, payload, rnd.perm))
+        if total is None:
+            total = torch.zeros_like(dec)
+        total = total + per_node(_round_weight(rnd, me), dec) * dec
+    if total is None:
+        total = torch.zeros_like(decompress(payload))
+    return total
+
+
+def _batched_sender_indices(schedule: PermuteSchedule, me: torch.Tensor, *,
+                            base_key, step, nb: int, kb: int
+                            ) -> torch.Tensor:
+    """All this step's senders' index sets from one batched draw:
+    (L, R, kb), row [l, i] for the shift-i sender ``(me_l - shift_i) % n``
+    of node l. Bit-equal to one ``fixedk_indices`` call per sender."""
+    shifts = torch.tensor([rnd.shift for rnd in schedule.rounds],
+                          dtype=torch.long, device=me.device)
+    senders = torch.remainder(me[:, None] - shifts[None, :],
+                              schedule.n_nodes)
+    keys = node_round_key(base_key, senders, step)          # (L, R, 2)
+    return sparsifier.fixedk_indices(keys, nb, kb)
+
+
+def _packed_selection(db: torch.Tensor, p, me: torch.Tensor, *, base_key,
+                      step) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """Sender-side packed payload of a (L, nb, block) block view:
+    (kb, my_idx (L, kb), my_vals (L, kb, block)).
+
+    Scalar p on an f32 view goes through the fixed-k gather-pack kernel
+    (``kernels/wire_compress``; its plain version for CPU tensors). A
+    per-node p pads to k_max = max_i ceil(p_i nb): node i zeroes rows
+    beyond its own k_i and scales kept rows by nb / k_i, in torch ops (a
+    per-node mask, not a scalar scale), as the JAX package does.
+    """
+    nb = db.shape[-2]
+    if isinstance(p, tuple):
+        k_table = tuple(sparsifier.num_kept(nb, pi) for pi in p)
+        kb = max(k_table)
+        kb_me = torch.tensor(k_table, dtype=torch.int32,
+                             device=me.device)[me]
+        keep = torch.arange(kb, device=me.device)[None, :] < kb_me[:, None]
+        scale = torch.div(torch.tensor(float(nb), device=me.device),
+                          kb_me.to(torch.float32))[:, None] * keep
+        scale = scale[..., None]                                # (L, kb, 1)
+    else:
+        kb = sparsifier.num_kept(nb, p)
+        scale = nb / kb
+    my_idx = sparsifier.fixedk_indices(node_round_key(base_key, me, step),
+                                       nb, kb)
+    if not isinstance(p, tuple) and db.dtype == torch.float32:
+        from repro_torch.kernels import wire_compress
+
+        my_vals = wire_compress.fixedk_gather_pack(
+            db, my_idx.to(torch.int32), scale=scale)
+    else:
+        my_vals = (_gather_rows(db, my_idx) * scale).to(db.dtype)
+    return kb, my_idx, my_vals
+
+
+def _gather_rows(db: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """db (L, nb, block), idx (L, k) -> (L, k, block)."""
+    return torch.gather(db, 1, idx.unsqueeze(-1).expand(
+        tuple(idx.shape) + (db.shape[-1],)))
+
+
+def _unpack(db: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor
+            ) -> torch.Tensor:
+    """Zeros shaped like ``db`` with ``vals`` at rows ``idx`` (distinct)."""
+    return torch.zeros_like(db).scatter_(
+        1, idx.unsqueeze(-1).expand(vals.shape), vals)
+
+
+def _scatter_weighted(acc: torch.Tensor, w: torch.Tensor, vals: torch.Tensor,
+                      idx: torch.Tensor) -> None:
+    """acc += w * unpack(vals, idx), in place: the kept rows only (the
+    others gain w * 0)."""
+    acc.scatter_add_(1, idx.unsqueeze(-1).expand(vals.shape),
+                     per_node(w, vals) * vals)
+
+
+def _packed_exchange(seq: ScheduleSequence, db: torch.Tensor, transport, *,
+                     base_key, step, p) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed gossip on a (L, nb, block) view: (own S(d), weighted
+    neighbour sum), both shaped like ``db``. Only the packed (kb, block)
+    values cross the wire."""
+    me = transport.me
+    nb = db.shape[-2]
+    kb, my_idx, my_vals = _packed_selection(db, p, me, base_key=base_key,
+                                            step=step)
+    own = _unpack(db, my_vals, my_idx)
+    nb_sum = torch.zeros_like(own)
+    sched = _active(seq, step)
+    if sched.rounds:
+        sender_idx = _batched_sender_indices(
+            sched, me, base_key=base_key, step=step, nb=nb, kb=kb)
+        for i, rnd in enumerate(sched.rounds):
+            vals = transport.ppermute(my_vals, rnd.perm)
+            _scatter_weighted(nb_sum, _round_weight(rnd, me), vals,
+                              sender_idx[:, i])
+    return own, nb_sum
+
+
+def _flat_block_view(d: torch.Tensor, block: int) -> torch.Tensor:
+    return sparsifier.block_view(d.reshape(d.shape[0], -1), block)
+
+
+def _from_block_view(v: torch.Tensor, shape) -> torch.Tensor:
+    """(B, nb, block) back to (B, *shape[1:]), the block pad dropped."""
+    per_node = tuple(shape[1:])
+    dim = math.prod(per_node)
+    return v.reshape(v.shape[0], -1)[:, :dim].reshape((v.shape[0],)
+                                                      + per_node)
+
+
+def exchange_packed(schedule, d: torch.Tensor, transport, *, base_key,
+                    step, p, block: int = 1
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One packed gossip round over flat ``block``-coordinate blocks of
+    each node's row of ``d`` (L, ...): (own S(d), sum_j W_ij S(d_j))."""
+    own, nb_sum = _packed_exchange(
+        ensure_sequence(schedule), _flat_block_view(d, block), transport,
+        base_key=base_key, step=step, p=p)
+    return _from_block_view(own, d.shape), _from_block_view(nb_sum, d.shape)
+
+
+def _rows_view(d: torch.Tensor) -> torch.Tensor:
+    cols = d.shape[-1] if d.dim() > 2 else 1
+    return d.reshape(d.shape[0], -1, cols)
+
+
+def exchange_packed_rows(schedule, d: torch.Tensor, transport, *, base_key,
+                         step, p) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed gossip with blocks = trailing-dim rows of each node's
+    tensor (the sharding-aligned selection)."""
+    own, nb_sum = _packed_exchange(
+        ensure_sequence(schedule), _rows_view(d), transport,
+        base_key=base_key, step=step, p=p)
+    return own.reshape(d.shape), nb_sum.reshape(d.shape)
+
+
+# --------------------------------------------------------------------------
+# Replica (union-graph) transport for genuinely time-varying sequences.
+# --------------------------------------------------------------------------
+
+def replica_recv_weights(useq: UnionSchedule, me: torch.Tensor, step: int
+                         ) -> torch.Tensor:
+    """(L, n_replicas) weights W_{me, sender_k}(step) of the replica slots."""
+    t = int(step) % useq.length
+    table = torch.tensor([[rnd.recv_weights[t][r] for rnd in useq.rounds]
+                          for r in range(useq.n_nodes)],
+                         dtype=torch.float32, device=me.device)  # (n, R)
+    return table[me]
+
+
+def union_exchange(useq: UnionSchedule, x: torch.Tensor, transport
+                   ) -> torch.Tensor:
+    """``x`` over every union round: (L, n_replicas, ...), slot k the
+    increment from the shift-s_k sender (zeros where there is none)."""
+    return torch.stack([transport.ppermute(x, rnd.perm)
+                        for rnd in useq.rounds], dim=1)
+
+
+def union_exchange_payload(useq: UnionSchedule, payload, decompress,
+                           transport) -> torch.Tensor:
+    """Each union round's payload decompressed into its own slot:
+    (L, n_replicas, ...)."""
+    return torch.stack([
+        decompress(_ppermute_payload(transport, payload, rnd.perm))
+        for rnd in useq.rounds], dim=1)
+
+
+def _union_packed_exchange(useq: UnionSchedule, db: torch.Tensor, transport,
+                           *, base_key, step, p
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed replica transport on a (L, nb, block) view: (own S(d),
+    per-slot increments (L, R, nb, block)); one batched sender draw."""
+    me = transport.me
+    nb = db.shape[-2]
+    kb, my_idx, my_vals = _packed_selection(db, p, me, base_key=base_key,
+                                            step=step)
+    own = _unpack(db, my_vals, my_idx)
+    sender_idx = _batched_sender_indices(useq, me, base_key=base_key,
+                                         step=step, nb=nb, kb=kb)
+    incr = torch.stack([
+        _unpack(db, transport.ppermute(my_vals, rnd.perm), sender_idx[:, i])
+        for i, rnd in enumerate(useq.rounds)], dim=1)
+    return own, incr
+
+
+def union_exchange_packed(useq: UnionSchedule, d: torch.Tensor, transport, *,
+                          base_key, step, p, block: int = 1
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replica-transport packed gossip; (own S(d), (L, R, ...) incr)."""
+    own, incr = _union_packed_exchange(
+        useq, _flat_block_view(d, block), transport, base_key=base_key,
+        step=step, p=p)
+    r = incr.shape[1]
+    incr = _from_block_view(incr.reshape((-1,) + tuple(incr.shape[2:])),
+                            d.shape)
+    return _from_block_view(own, d.shape), incr.reshape(
+        (d.shape[0], r) + tuple(d.shape[1:]))
+
+
+def union_exchange_packed_rows(useq: UnionSchedule, d: torch.Tensor,
+                               transport, *, base_key, step, p
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replica-transport packed gossip with blocks = trailing-dim rows."""
+    own, incr = _union_packed_exchange(useq, _rows_view(d), transport,
+                                       base_key=base_key, step=step, p=p)
+    return own.reshape(d.shape), incr.reshape(
+        (d.shape[0], incr.shape[1]) + d.shape[1:])

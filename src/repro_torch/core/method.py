@@ -1,21 +1,33 @@
 """The method registry: one name per decentralized-learning algorithm.
 
-Port of the reference faces of ``repro.core.method``:
+Port of ``repro.core.method``:
 
     meth = method.get("sdm-dsgd")           # registry lookup (aliases ok)
     cfg  = meth.coerce_config(cfg_like)     # each method owns its config
     sim  = meth.make_reference(seq, cfg)    # stacked single-device executor
+    ex   = meth.make_distributed(seq, cfg, transport)   # per-node executor
 
-with ``init(params_stack)``, ``step(state, grad_fn, batch_stack, key)``,
-``consensus(state)`` and ``eval_params(state)`` on the executor, and the
-exact per-step wire accounting (``transmitted_elements`` /
-``transmitted_bits``).
+Both executors are built from the same schedule object, so their mixing
+matrices cannot diverge. Reference executors expose ``init(params_stack)``,
+``step(state, grad_fn, batch_stack, key)``, ``consensus(state)`` and
+``eval_params(state)``. The per-node executor works on a node block
+(``core/transport.py``: the nodes a process holds, on one transport) and
+exposes
 
-Registered: ``sdm-dsgd``, ``sdm-dsgd-fused`` (the same reference; the
-fused layout only changes the distributed state), ``dc-dsgd`` (theta
-pinned to 1), ``dsgd`` and ``allreduce``. ``make_distributed`` stays
-unset until the distributed executor is ported; ``gradient-push`` comes
-with its own slice.
+    init(params_block) -> state          # every node at the same x_0
+    step(state, grads_at, *, base_key) -> (state, aux)
+
+where ``grads_at(params_block) -> (grads_block, aux)`` evaluates the
+gradient where the method wants it. ``init_stacked(stack, seq, cfg)``
+builds the state of all n nodes as one block (what the JAX package
+materializes before sharding it), ``state_fields_of`` and
+``state_shape_dtype`` describe its layout.
+
+Registered: ``sdm-dsgd``, ``sdm-dsgd-fused`` (commit+advance fused: two
+state buffers), ``dc-dsgd`` (theta pinned to 1), ``dsgd`` and
+``allreduce``, each with its per-node face. ``gradient-push`` comes with
+its own slice. The JAX package's sharding builders (``state_shardings``)
+and the simulator's stale-gossip helpers are not ported.
 """
 from __future__ import annotations
 
@@ -28,10 +40,27 @@ import torch
 from repro_torch import tree as tree_mod
 from repro_torch.core import baselines, gossip, plane as plane_mod, sdm_dsgd
 
-__all__ = ["Method", "register", "get", "names", "normalize",
-           "transmitted_elements", "transmitted_bits", "AllreduceReference"]
+__all__ = ["Method", "DistributedExecutor", "register", "get", "names",
+           "normalize", "PARAM", "SCALAR", "COUNTER", "PLANE", "REPLICA",
+           "state_fields_of", "state_shape_dtype", "transmitted_elements",
+           "transmitted_bits", "AllreduceReference"]
 
 PyTree = Any
+
+# State-field kinds (the layout ``state_shape_dtype`` describes).
+PARAM = "param"      # shaped like the parameter tree
+SCALAR = "scalar"    # one f32 per node
+COUNTER = "counter"  # the iteration counter
+PLANE = "plane"      # a tuple of f32 (rows, LANE) wire planes per node
+REPLICA = "replica"  # wire planes with a leading (n_replicas,) axis
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedExecutor:
+    """The per-node face of a method, bound to one transport."""
+
+    init: Callable[[PyTree], Any]                # (params_block) -> state
+    step: Callable[..., Tuple[Any, Any]]         # (state, grads_at, *, base_key)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,13 +68,20 @@ class Method:
     """A registered decentralized-learning method (see module docstring)."""
 
     name: str
+    config_cls: type
+    state_cls: type
+    state_fields: Tuple[Tuple[str, str], ...]
     coerce_config: Callable[[Any], Any]
     make_reference: Callable[[Any, Any], Any]
+    # (seq, cfg, transport) -> DistributedExecutor
+    make_distributed: "Callable | None"
+    init_stacked: "Callable | None"
     # (params, cfg, seq=None) -> int; ``seq`` makes the count per-link.
     transmitted_elements: Callable[..., int]
-    transmitted_bits_fn: "Callable[..., int] | None" = None
-    make_distributed: "Callable | None" = None
     description: str = ""
+    # (cfg, seq) -> layout where it depends on them; None: state_fields
+    state_fields_for: "Callable | None" = None
+    transmitted_bits_fn: "Callable[..., int] | None" = None
 
 
 _REGISTRY: Dict[str, Method] = {}
@@ -81,6 +117,46 @@ def names() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def state_fields_of(meth: Method, cfg=None,
+                    seq=None) -> Tuple[Tuple[str, str], ...]:
+    """The method's state layout; genuinely time-varying schedules add a
+    REPLICA stack, ``overlap`` a pending PLANE buffer."""
+    if meth.state_fields_for is not None and cfg is not None:
+        return meth.state_fields_for(cfg, seq)
+    return meth.state_fields
+
+
+def _n_replicas(seq) -> int:
+    return gossip.union_schedule(gossip.ensure_sequence(seq)).n_replicas
+
+
+def state_shape_dtype(meth: Method, x_stack: PyTree, cfg=None, seq=None):
+    """The stacked state's shapes and dtypes (``plane.ShapeDtype``
+    leaves) from the stacked params (tensors or ShapeDtypes): PLANE
+    fields are (n, rows, lane) f32 planes, REPLICA fields (n, n_replicas,
+    rows, lane), the counter (n,) int32 as in the JAX package."""
+    n = tree_mod.leaves(x_stack)[0].shape[0]
+    spec = plane_mod.ParamPlane.for_stacked(x_stack)
+    sd = plane_mod.ShapeDtype
+    kw = {}
+    for fname, kind in state_fields_of(meth, cfg, seq):
+        if kind == PARAM:
+            kw[fname] = tree_mod.tree_map(
+                lambda v: sd(tuple(v.shape), v.dtype), x_stack)
+        elif kind == PLANE:
+            kw[fname] = tuple(sd((n,) + b.shape, torch.float32)
+                              for b in spec.buckets)
+        elif kind == REPLICA:
+            r = _n_replicas(seq)
+            kw[fname] = tuple(sd((n, r) + b.shape, torch.float32)
+                              for b in spec.buckets)
+        elif kind == SCALAR:
+            kw[fname] = sd((n,), torch.float32)
+        else:
+            kw[fname] = sd((n,), torch.int32)
+    return meth.state_cls(**kw)
+
+
 def transmitted_elements(meth: Method, params: PyTree, cfg, seq=None) -> int:
     """Elements one node transmits per step, per-link when ``seq`` given."""
     return meth.transmitted_elements(params, cfg, seq=seq)
@@ -96,11 +172,94 @@ def transmitted_bits(meth: Method, params: PyTree, cfg,
     return meth.transmitted_elements(params, cfg, seq=seq) * value_bits
 
 
+# --------------------------------------------------------------------------
+# SDM-DSGD (and its derivations: fused layout, DC-DSGD).
+# --------------------------------------------------------------------------
+
 def _coerce_sdm(cfg) -> sdm_dsgd.SDMConfig:
     if isinstance(cfg, sdm_dsgd.SDMConfig):
         return cfg
     raise TypeError(f"sdm-dsgd needs an SDMConfig, got {type(cfg).__name__}")
 
+
+_SDM_FIELDS = (("x", PARAM), ("s", PLANE), ("d", PLANE), ("step", COUNTER))
+_FUSED_FIELDS = (("x", PARAM), ("s", PLANE), ("step", COUNTER))
+
+
+def _with_buffers(base, cfg, seq):
+    if seq is not None and gossip.needs_replicas(seq):
+        return base + (("xhat", REPLICA),)
+    if cfg is not None and getattr(cfg, "overlap", False):
+        return base + (("nb", PLANE),)
+    return base
+
+
+def _sdm_fields(cfg, seq=None):
+    return _with_buffers(_SDM_FIELDS, cfg, seq)
+
+
+def _fused_fields(cfg, seq=None):
+    return _with_buffers(_FUSED_FIELDS, cfg, seq)
+
+
+def _replicas_for(seq):
+    return _n_replicas(seq) if gossip.needs_replicas(seq) else None
+
+
+def _sdm_init_stacked(stack: PyTree, seq, cfg) -> sdm_dsgd.SDMState:
+    n = tree_mod.leaves(stack)[0].shape[0]
+    me = torch.arange(n, device=tree_mod.leaves(stack)[0].device)
+    return sdm_dsgd.init_distributed_state(
+        stack, seq.self_weight_of(me, 0), n_replicas=_replicas_for(seq),
+        overlap=getattr(cfg, "overlap", False))
+
+
+def _fused_init_stacked(stack: PyTree, seq, cfg) -> sdm_dsgd.SDMFusedState:
+    full = _sdm_init_stacked(stack, seq, cfg)
+    return sdm_dsgd.SDMFusedState(x=full.x, s=full.s, step=full.step,
+                                  xhat=full.xhat, nb=full.nb)
+
+
+def _sdm_distributed(seq, cfg, transport) -> DistributedExecutor:
+    def init(params):
+        return sdm_dsgd.init_distributed_state(
+            params, seq.self_weight_of(transport.me, 0),
+            n_replicas=_replicas_for(seq),
+            overlap=getattr(cfg, "overlap", False))
+
+    def step(state, grads_at, *, base_key):
+        state = sdm_dsgd.distributed_advance(
+            state, base_key=base_key, transport=transport, cfg=cfg,
+            schedule=seq)
+        grads, aux = grads_at(state.x)
+        state = sdm_dsgd.distributed_commit(
+            state, grads, base_key=base_key, transport=transport, cfg=cfg,
+            schedule=seq)
+        return state, aux
+
+    return DistributedExecutor(init=init, step=step)
+
+
+def _fused_distributed(seq, cfg, transport) -> DistributedExecutor:
+    def init(params):
+        return sdm_dsgd.init_fused_state(
+            params, seq.self_weight_of(transport.me, 0),
+            n_replicas=_replicas_for(seq),
+            overlap=getattr(cfg, "overlap", False))
+
+    def step(state, grads_at, *, base_key):
+        grads, aux = grads_at(state.x)
+        state = sdm_dsgd.distributed_step_fused(
+            state, grads, base_key=base_key, transport=transport, cfg=cfg,
+            schedule=seq)
+        return state, aux
+
+    return DistributedExecutor(init=init, step=step)
+
+
+# --------------------------------------------------------------------------
+# DSGD (full-state baseline) and allreduce (non-gossip upper bound).
+# --------------------------------------------------------------------------
 
 def _coerce_dsgd(cfg) -> baselines.DSGDConfig:
     if isinstance(cfg, baselines.DSGDConfig):
@@ -109,6 +268,24 @@ def _coerce_dsgd(cfg) -> baselines.DSGDConfig:
         return baselines.DSGDConfig(gamma=cfg.gamma, sigma=cfg.sigma,
                                     clip_c=cfg.clip_c)
     raise TypeError(f"dsgd needs DSGDConfig/SDMConfig, got {type(cfg).__name__}")
+
+
+def _dsgd_init_stacked(stack, seq, cfg) -> baselines.DSGDState:
+    return baselines.DSGDState(x=stack, step=0)
+
+
+def _dsgd_distributed(seq, cfg, transport) -> DistributedExecutor:
+    def init(params):
+        return baselines.DSGDState(x=params, step=0)
+
+    def step(state, grads_at, *, base_key):
+        grads, aux = grads_at(state.x)
+        state = baselines.dsgd_distributed_step(
+            state, grads, base_key=base_key, transport=transport, cfg=cfg,
+            schedule=seq)
+        return state, aux
+
+    return DistributedExecutor(init=init, step=step)
 
 
 class AllreduceReference:
@@ -140,6 +317,25 @@ class AllreduceReference:
         return state.x
 
 
+def _allreduce_distributed(seq, cfg, transport) -> DistributedExecutor:
+    def init(params):
+        return baselines.DSGDState(x=params, step=0)
+
+    def step(state, grads_at, *, base_key):
+        del base_key
+        grads, aux = grads_at(state.x)
+        grads = tree_mod.tree_map(transport.pmean, grads)
+        x = tree_mod.tree_map(
+            lambda p, g: p - cfg.gamma * g.to(p.dtype), state.x, grads)
+        return baselines.DSGDState(x=x, step=state.step + 1), aux
+
+    return DistributedExecutor(init=init, step=step)
+
+
+# --------------------------------------------------------------------------
+# Default registrations.
+# --------------------------------------------------------------------------
+
 def _full_state_elements(params: PyTree, cfg, seq=None) -> int:
     # full-state methods gossip the packed wire plane: plane-PADDED size.
     d = plane_mod.ParamPlane.for_tree(params).padded_size
@@ -155,14 +351,25 @@ def _allreduce_elements(params: PyTree, cfg, seq=None) -> int:
 
 _SDM = register(Method(
     name="sdm-dsgd",
+    config_cls=sdm_dsgd.SDMConfig,
+    state_cls=sdm_dsgd.SDMState,
+    state_fields=_SDM_FIELDS,
+    state_fields_for=_sdm_fields,
     coerce_config=_coerce_sdm,
     make_reference=sdm_dsgd.ReferenceSimulator,
+    make_distributed=_sdm_distributed,
+    init_stacked=_sdm_init_stacked,
     transmitted_elements=sdm_dsgd.transmitted_elements_per_step,
     transmitted_bits_fn=sdm_dsgd.transmitted_bits_per_step,
     description="Algorithm 1: sparse differential Gaussian-masking DSGD"))
 
 register(dataclasses.replace(
     _SDM, name="sdm-dsgd-fused",
+    state_cls=sdm_dsgd.SDMFusedState,
+    state_fields=_FUSED_FIELDS,
+    state_fields_for=_fused_fields,
+    make_distributed=_fused_distributed,
+    init_stacked=_fused_init_stacked,
     description="SDM-DSGD with commit+advance fused (2 state buffers)"))
 
 register(dataclasses.replace(
@@ -173,14 +380,24 @@ register(dataclasses.replace(
 
 register(Method(
     name="dsgd",
+    config_cls=baselines.DSGDConfig,
+    state_cls=baselines.DSGDState,
+    state_fields=(("x", PARAM), ("step", COUNTER)),
     coerce_config=_coerce_dsgd,
     make_reference=baselines.DSGDReference,
+    make_distributed=_dsgd_distributed,
+    init_stacked=_dsgd_init_stacked,
     transmitted_elements=_full_state_elements,
     description="full-state gossip DSGD (Lian et al. 2017)"))
 
 register(Method(
     name="allreduce",
+    config_cls=baselines.DSGDConfig,
+    state_cls=baselines.DSGDState,
+    state_fields=(("x", PARAM), ("step", COUNTER)),
     coerce_config=_coerce_dsgd,
     make_reference=AllreduceReference,
+    make_distributed=_allreduce_distributed,
+    init_stacked=_dsgd_init_stacked,
     transmitted_elements=_allreduce_elements,
     description="conventional all-reduce data parallelism (upper bound)"))

@@ -134,13 +134,16 @@ class ParamPlane:
                              f"{len(self.shapes)}")
         out = []
         for b in self.buckets:
-            batch = tuple(leaves[b.leaves[0]].shape[:lead])
-            parts = [leaves[i].reshape(batch + (-1,)).to(torch.float32)
-                     for i in b.leaves]
-            flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-            pad = b.padded_size - b.size
-            if pad:
-                flat = torch.nn.functional.pad(flat, (0, pad))
+            first = leaves[b.leaves[0]]
+            batch = tuple(first.shape[:lead])
+            # each leaf is converted straight into its slice of the zero
+            # plane: no f32 copy of the leaves beside the plane
+            flat = torch.zeros(batch + (b.padded_size,), dtype=torch.float32,
+                               device=first.device)
+            off = 0
+            for i, size in zip(b.leaves, b.sizes):
+                flat[..., off:off + size] = leaves[i].reshape(batch + (-1,))
+                off += size
             out.append(flat.reshape(batch + b.shape))
         return tuple(out)
 

@@ -1,7 +1,7 @@
-"""SDM-DSGD (Algorithm 1): the stacked-node reference simulator.
+"""SDM-DSGD (Algorithm 1): the stacked reference and the per-node executor.
 
-Port of the reference half of ``repro.core.sdm_dsgd``. Per node i, per
-iteration t (paper Eq. (3)):
+Port of ``repro.core.sdm_dsgd``. Per node i, per iteration t (paper
+Eq. (3)):
 
     x_t = x_{t-1} + S(d_{t-1})                 # everyone advances public copies
     y_t = (1-theta) x_t
@@ -15,10 +15,21 @@ roundtrip over its zero-padded wire plane, drawn with the same keys as
 the JAX package (``node_round_key(fold_in(key, bucket), node, step)``),
 so the two packages sparsify the same coordinates.
 
-The ``distributed_*`` per-node functions come with the distributed
-executor and are not ported yet. The JAX package's ``tagging`` marks
-(``sanitize``, ``pending_buffer``) are identities that only its static
-analyzer reads; the port does not carry them.
+The per-node executor (``init_distributed_state``, ``distributed_advance``,
+``distributed_commit``, ``distributed_step_fused``) is the counterpart of
+the JAX package's shard_map code. It works on a NODE BLOCK
+(``core/transport.py``): every state tensor has a leading dim L of the
+nodes the caller holds, ``transport.me`` their indices, and the gossip
+rides ``transport.ppermute``. The state keeps the JAX layout: ``x`` the
+parameter tree, ``s`` / ``d`` (and the replica stack ``xhat``, the
+overlap buffer ``nb``) f32 wire planes. The step counter is a host int
+shared by the block. Where the JAX functions return a new state, the
+port updates the state's buffers in place (x, s, the replicas, and d's
+storage for the next differential): the same numbers, without a second
+copy of every buffer at full width. ``init_*`` copy the params they are
+given into the state. The JAX package's ``tagging`` marks (``sanitize``,
+``pending_buffer``) are identities that only its static analyzer reads;
+the port does not carry them.
 """
 from __future__ import annotations
 
@@ -33,10 +44,13 @@ from repro_torch.core import clipping, compressor as compressor_mod, gossip
 from repro_torch.core import plane as plane_mod
 from repro_torch.core.topology import Topology
 
-__all__ = ["SDMConfig", "SDMState", "ReferenceSimulator", "masked_grad",
-           "compressor_of", "wire_shape_tree", "sparsify_planes_stacked",
-           "schedule_degree_factor", "transmitted_elements_per_step",
-           "transmitted_bits_per_step", "check_per_node_p"]
+__all__ = ["SDMConfig", "SDMState", "SDMFusedState", "ReferenceSimulator",
+           "masked_grad", "compressor_of", "wire_shape_tree",
+           "sparsify_planes_stacked", "schedule_degree_factor",
+           "transmitted_elements_per_step", "transmitted_bits_per_step",
+           "check_per_node_p", "init_distributed_state", "init_fused_state",
+           "distributed_advance", "distributed_commit",
+           "distributed_step_fused"]
 
 PyTree = Any
 
@@ -127,12 +141,12 @@ class SDMConfig:
 
 
 class SDMState(NamedTuple):
-    x: PyTree         # public copies, stacked (n, ...)
-    s: PyTree         # incremental neighbour sum (time-varying / overlap)
-    d: PyTree         # differential pending transmission
+    x: PyTree         # public copies, stacked (n, ...) / node block (L, ...)
+    s: PyTree         # neighbour sum (the executor: a tuple of f32 planes)
+    d: PyTree         # differential pending transmission (planes likewise)
     step: int         # iteration counter
-    e: PyTree = None  # error-feedback residual
-    xhat: PyTree = None   # distributed-executor replicas (unused here)
+    e: PyTree = None  # error-feedback residual (reference only)
+    xhat: PyTree = None   # executor replica planes (L, n_replicas, rows, lane)
     nb: PyTree = None     # overlap double buffer
 
 
@@ -140,14 +154,21 @@ def _zeros_like(t: PyTree) -> PyTree:
     return tree_mod.tree_map(torch.zeros_like, t)
 
 
-def _noise_like(key, tree: PyTree, sigma: float) -> PyTree:
-    """sigma * N(0, 1) per leaf, leaf i drawn with ``fold_in(key, i)`` at
-    the leaf's full (stacked) shape, in JAX's flatten order."""
+def _add_noise(key, tree: PyTree, sigma: float) -> PyTree:
+    """x + sigma * N(0, 1) per leaf, leaf i drawn with ``fold_in(key, i)``
+    in JAX's flatten order, one leaf at a time (one leaf's noise alive at
+    once). One key draws at the leaf's full (stacked) shape; a batch of
+    L keys (the executor's node block) draws each node's row at the
+    per-node shape."""
+    key = prng.key_data(key)
+    lead = key.dim() - 1
     leaves, struct = tree_mod.flatten(tree)
-    noise = [sigma * prng.normal(prng.fold_in(key, i), tuple(x.shape)
-                                 ).to(x.device, x.dtype)
-             for i, x in enumerate(leaves)]
-    return tree_mod.unflatten(struct, noise)
+    out = []
+    for i, x in enumerate(leaves):
+        noise = prng.normal(prng.fold_in(key, i), tuple(x.shape[lead:]),
+                            dtype=x.dtype).to(x.device)
+        out.append(x + sigma * noise)
+    return tree_mod.unflatten(struct, out)
 
 
 def check_per_node_p(cfg, n_nodes: int) -> None:
@@ -178,8 +199,7 @@ def masked_grad(grads: PyTree, key, *, sigma: float,
     if clip_c is not None:
         grads = clipping.clip_tree(grads, clip_c)
     if sigma > 0.0:
-        noise = _noise_like(key, grads, sigma)
-        grads = tree_mod.tree_map(torch.add, grads, noise)
+        grads = _add_noise(key, grads, sigma)
     return grads
 
 
@@ -386,3 +406,310 @@ class ReferenceSimulator:
 
     def eval_params(self, state: SDMState) -> PyTree:
         return state.x
+
+
+# ==========================================================================
+# Per-node executor on a node block (the JAX package's shard_map code).
+# ==========================================================================
+
+def _replica_planes(planes: Tuple[torch.Tensor, ...], n_replicas: int
+                    ) -> Tuple[torch.Tensor, ...]:
+    """(L, n_replicas, rows, lane) replica planes, every slot at x_0 (the
+    identical-start assumption of the s_0 formula)."""
+    return tuple(p[:, None].expand((p.shape[0], n_replicas)
+                                   + tuple(p.shape[1:])).clone()
+                 for p in planes)
+
+
+def _start_planes(params: PyTree, self_weight, n_replicas, overlap):
+    """(x_0, its planes, s_0, xhat_0, nb_0) of a node block's state; x_0
+    a contiguous copy of ``params`` (the step updates it in place)."""
+    if overlap and n_replicas:
+        raise ValueError("overlap=True needs a static (non-replica) "
+                         "schedule")
+    params = tree_mod.tree_map(
+        lambda v: torch.clone(v, memory_format=torch.contiguous_format),
+        params)
+    xp = plane_mod.ParamPlane.for_stacked(params).pack_stacked(params)
+    s0 = tuple(p * (1.0 - gossip.per_node(self_weight, p)) for p in xp)
+    xhat = _replica_planes(xp, n_replicas) if n_replicas else None
+    nb0 = tuple(torch.zeros_like(p) for p in xp) if overlap else None
+    return params, xp, s0, xhat, nb0
+
+
+def init_distributed_state(params: PyTree, self_weight,
+                           n_replicas: int | None = None,
+                           overlap: bool = False) -> SDMState:
+    """A node block's state. ``params`` leaves have the block's leading
+    dim L, every node at the SAME x_0 (same-seed init); then s_0 =
+    (1 - W_ii) x_0. ``self_weight`` is a float or the (L,) W_ii of the
+    block's nodes. ``n_replicas`` (genuinely time-varying schedules)
+    allocates the per-neighbour replica planes."""
+    x0, xp, s0, xhat, nb0 = _start_planes(params, self_weight, n_replicas,
+                                          overlap)
+    d0 = tuple(torch.zeros_like(p) for p in xp)
+    return SDMState(x=x0, s=s0, d=d0, step=0, xhat=xhat, nb=nb0)
+
+
+class SDMFusedState(NamedTuple):
+    """Two-buffer state of the fused step (``distributed_step_fused``)."""
+    x: PyTree
+    s: PyTree
+    step: int
+    xhat: PyTree = None
+    nb: PyTree = None
+
+
+def init_fused_state(params: PyTree, self_weight,
+                     n_replicas: int | None = None,
+                     overlap: bool = False) -> SDMFusedState:
+    x0, _, s0, xhat, nb0 = _start_planes(params, self_weight, n_replicas,
+                                         overlap)
+    return SDMFusedState(x=x0, s=s0, step=0, xhat=xhat, nb=nb0)
+
+
+def _plane_payload_exchange(planes, comp: compressor_mod.Compressor,
+                            transport, *, base_key, step, schedule=None,
+                            useq=None):
+    """Compressor-payload transport over wire planes: one compress per
+    bucket plane (key ``node_round_key(fold_in(base, bucket), me,
+    step)``); the payload crosses the static schedule's rounds (weighted
+    sum) or every union round (``useq``: per-slot increments). Returns
+    (own decompressed planes, received planes)."""
+    me = transport.me
+    own, recv = [], []
+    for b, dp in enumerate(planes):
+        key = gossip.node_round_key(prng.fold_in(base_key, b), me, step)
+        pl = comp.compress(key, dp, node=me)
+        own.append(comp.decompress(pl))
+        if useq is not None:
+            recv.append(gossip.union_exchange_payload(
+                useq, pl, comp.decompress, transport))
+        else:
+            recv.append(gossip.exchange_payload(
+                schedule, pl, comp.decompress, transport, step=step))
+    return tuple(own), tuple(recv)
+
+
+def _plane_exchange(d_planes, *, schedule, transport, base_key, step,
+                    cfg: SDMConfig):
+    """Static-schedule plane exchange: (own S(d) planes, weighted
+    neighbour-sum planes); each bucket's plane compressed / drawn /
+    top-k'd once with key ``fold_in(base, bucket)``."""
+    comp = compressor_of(cfg)
+    if cfg.mode in ("qsgd", "payload"):
+        return _plane_payload_exchange(d_planes, comp, transport,
+                                       base_key=base_key, step=step,
+                                       schedule=schedule)
+    me = transport.me
+    own, nb = [], []
+    for b, dp in enumerate(d_planes):
+        bkey = prng.fold_in(base_key, b)
+        if cfg.mode == "fixedk_rows":
+            o, s = gossip.exchange_packed_rows(
+                schedule, dp, transport, base_key=bkey, step=step, p=cfg.p)
+        elif cfg.mode == "fixedk_packed":
+            o, s = gossip.exchange_packed(
+                schedule, dp, transport, base_key=bkey, step=step, p=cfg.p,
+                block=cfg.pack_block)
+        else:   # bernoulli: dense masked plane payload
+            key = gossip.node_round_key(bkey, me, step)
+            o = comp.decompress(comp.compress(key, dp, node=me))
+            s = gossip.exchange(schedule, o, transport, step=step)
+        own.append(o)
+        nb.append(s)
+    return tuple(own), tuple(nb)
+
+
+def _replica_plane_exchange(d_planes, *, useq, transport, base_key, step,
+                            cfg: SDMConfig):
+    """Replica (union) plane transport: (own planes, per-slot increment
+    planes (L, n_replicas, rows, lane)), keys as ``_plane_exchange``."""
+    comp = compressor_of(cfg)
+    if cfg.mode in ("qsgd", "payload"):
+        return _plane_payload_exchange(d_planes, comp, transport,
+                                       base_key=base_key, step=step,
+                                       useq=useq)
+    me = transport.me
+    own, incr = [], []
+    for b, dp in enumerate(d_planes):
+        bkey = prng.fold_in(base_key, b)
+        if cfg.mode == "fixedk_rows":
+            o, inc = gossip.union_exchange_packed_rows(
+                useq, dp, transport, base_key=bkey, step=step, p=cfg.p)
+        elif cfg.mode == "fixedk_packed":
+            o, inc = gossip.union_exchange_packed(
+                useq, dp, transport, base_key=bkey, step=step, p=cfg.p,
+                block=cfg.pack_block)
+        else:
+            key = gossip.node_round_key(bkey, me, step)
+            o = comp.decompress(comp.compress(key, dp, node=me))
+            inc = gossip.union_exchange(useq, o, transport)
+        own.append(o)
+        incr.append(inc)
+    return tuple(own), tuple(incr)
+
+
+def _replica_advance_exchange(d_planes, xhat, *, seq, transport, base_key,
+                              step, cfg: SDMConfig):
+    """Replica-transport advance: (own planes, new xhat, fresh s). Every
+    union in-neighbour's increment advances its replica slot, and s is
+    recomputed with the CURRENT round's weights (exact W(t)-mixing)."""
+    useq = gossip.union_schedule(seq)
+    own, incr = _replica_plane_exchange(
+        d_planes, useq=useq, transport=transport, base_key=base_key,
+        step=step, cfg=cfg)
+    for xh, inc in zip(xhat, incr):
+        xh.add_(inc)
+    del incr
+    wv = gossip.replica_recv_weights(useq, transport.me, step)   # (L, R)
+    s = []
+    for xh in xhat:
+        acc = torch.zeros_like(xh[:, 0])
+        for k in range(xh.shape[1]):
+            acc = acc + gossip.per_node(wv[:, k], acc) * xh[:, k]
+        s.append(acc)
+    return own, xhat, tuple(s)
+
+
+def _add_planes_to_tree(x: PyTree, spec, planes) -> None:
+    """x += the planes sliced back into x's leaves (each cast to its
+    leaf's dtype, as ``unpack`` does), in place, one leaf at a time."""
+    leaves = tree_mod.leaves(x)
+    for b, plane in zip(spec.buckets, planes):
+        flat = plane.reshape(plane.shape[0], -1)
+        off = 0
+        for i, size in zip(b.leaves, b.sizes):
+            leaf = leaves[i]
+            leaf.add_(flat[:, off:off + size].reshape(leaf.shape)
+                      .to(leaf.dtype))
+            off += size
+
+
+def _add_planes(acc, planes) -> None:
+    for a, p in zip(acc, planes):
+        a.add_(p)
+
+
+def distributed_advance(state: SDMState, *, base_key, transport,
+                        cfg: SDMConfig, schedule=None,
+                        self_weight: float | None = None) -> SDMState:
+    """Phase 1 on the node block: sparsify d, exchange, update x and s.
+
+    ``schedule`` is a PermuteSchedule or a time-varying ScheduleSequence
+    (round picked by the state's step); ``None`` is the symmetric ring
+    with scalar ``self_weight``.
+    """
+    seq = gossip.resolve_sequence(schedule, transport, self_weight)
+    check_per_node_p(cfg, seq.n_nodes)
+    base_key = _key_on(base_key, transport.me.device)
+    spec = plane_mod.ParamPlane.for_stacked(state.x)
+    if gossip.needs_replicas(seq):
+        if cfg.overlap:
+            raise ValueError("overlap=True needs a static (non-replica) "
+                             "schedule")
+        own, xhat, s = _replica_advance_exchange(
+            state.d, state.xhat, seq=seq, transport=transport,
+            base_key=base_key, step=state.step, cfg=cfg)
+        _add_planes_to_tree(state.x, spec, own)
+        return state._replace(s=s, xhat=xhat)
+    own, nb = _plane_exchange(state.d, schedule=seq, transport=transport,
+                              base_key=base_key, step=state.step, cfg=cfg)
+    _add_planes_to_tree(state.x, spec, own)
+    del own
+    if cfg.overlap:
+        # this step mixes the PENDING buffer (last step's exchange); the
+        # fresh exchange waits in the double buffer for the next step
+        _add_planes(state.s, state.nb)
+        return state._replace(nb=nb)
+    _add_planes(state.s, nb)
+    return state
+
+
+def _node_noise_key(base_key, me: torch.Tensor, step) -> torch.Tensor:
+    """fold_in(node_round_key(base, me, step), 0x5eed): (L, 2) keys."""
+    return prng.fold_in(gossip.node_round_key(base_key, me, step), 0x5eed)
+
+
+def _mix(xp, sp, gp, sw, cfg: SDMConfig, out=None
+         ) -> Tuple[torch.Tensor, ...]:
+    """theta * (W_ii x + s - gamma g) per plane, in the JAX expression's
+    rounding order, into fresh buffers or into ``out``'s."""
+    res = []
+    for i, (x_, s_, g_) in enumerate(zip(xp, sp, gp)):
+        t = torch.mul(x_, gossip.per_node(sw, x_),
+                      out=None if out is None else out[i])
+        t.add_(s_)
+        t.sub_(g_ * cfg.gamma)
+        res.append(t.mul_(cfg.theta))
+    return tuple(res)
+
+
+def distributed_step_fused(state: SDMFusedState, grads: PyTree, *, base_key,
+                           transport, cfg: SDMConfig, schedule=None,
+                           self_weight: float | None = None
+                           ) -> SDMFusedState:
+    """Whole-iteration step, commit_t + advance_{t+1} fused: the
+    differential only lives inside the step, so the persistent state is
+    (x, s). The gradient is taken at ``state.x`` (already post-advance).
+    The sparsifier keys, and a time-varying sequence's round, use
+    counter step + 1, as the unfused flow's next advance does."""
+    seq = gossip.resolve_sequence(schedule, transport, self_weight)
+    check_per_node_p(cfg, seq.n_nodes)
+    base_key = _key_on(base_key, transport.me.device)
+    me = transport.me
+    sw = seq.self_weight_of(me, state.step)
+    g = masked_grad(grads, _node_noise_key(base_key, me, state.step),
+                    sigma=cfg.sigma, clip_c=cfg.clip_c)
+    spec = plane_mod.ParamPlane.for_stacked(state.x)
+    xp = spec.pack_stacked(state.x)
+    gp = spec.pack_stacked(g)
+    del g
+    # theta (W_ii x + s - gamma g) - theta x
+    d = tuple(t.sub_(x_ * cfg.theta)
+              for t, x_ in zip(_mix(xp, state.s, gp, sw, cfg), xp))
+    del xp, gp
+    sp_step = state.step + 1
+    if gossip.needs_replicas(seq):
+        if cfg.overlap:
+            raise ValueError("overlap=True needs a static (non-replica) "
+                             "schedule")
+        own, xhat, s = _replica_advance_exchange(
+            d, state.xhat, seq=seq, transport=transport, base_key=base_key,
+            step=sp_step, cfg=cfg)
+        _add_planes_to_tree(state.x, spec, own)
+        return SDMFusedState(x=state.x, s=s, step=sp_step, xhat=xhat)
+    own, nb = _plane_exchange(d, schedule=seq, transport=transport,
+                              base_key=base_key, step=sp_step, cfg=cfg)
+    del d
+    _add_planes_to_tree(state.x, spec, own)
+    del own
+    if cfg.overlap:
+        _add_planes(state.s, state.nb)
+        return SDMFusedState(x=state.x, s=state.s, step=sp_step, nb=nb)
+    _add_planes(state.s, nb)
+    return SDMFusedState(x=state.x, s=state.s, step=sp_step)
+
+
+def distributed_commit(state: SDMState, grads: PyTree, *, base_key,
+                       transport, cfg: SDMConfig, schedule=None,
+                       self_weight: float | None = None) -> SDMState:
+    """Phase 2 on the node block: masked gradient + generalized mixing,
+    the differential produced directly as wire planes:
+    y = (1 - theta) x + theta (W_ii x + s - gamma g), d = y - x."""
+    seq = gossip.resolve_sequence(schedule, transport, self_weight)
+    base_key = _key_on(base_key, transport.me.device)
+    me = transport.me
+    sw = seq.self_weight_of(me, state.step)
+    g = masked_grad(grads, _node_noise_key(base_key, me, state.step),
+                    sigma=cfg.sigma, clip_c=cfg.clip_c)
+    spec = plane_mod.ParamPlane.for_stacked(state.x)
+    xp = spec.pack_stacked(state.x)
+    gp = spec.pack_stacked(g)
+    del g
+    # d was sent by this step's advance: its storage takes the next one
+    d = _mix(xp, state.s, gp, sw, cfg, out=state.d)
+    del gp
+    for d_, x_ in zip(d, xp):
+        d_.add_(x_ * (1.0 - cfg.theta)).sub_(x_)
+    return state._replace(d=d, step=state.step + 1)

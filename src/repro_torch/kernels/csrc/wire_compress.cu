@@ -1,5 +1,8 @@
-// Fused QSGD quantize + offset-encode + sub-byte pack for Hopper (sm_90a).
+// Wire-compressor kernels for Hopper (sm_90a): the fused QSGD quantize +
+// offset-encode + sub-byte pack (qsgd_pack) and the fixed-k sender pack
+// (fixedk_gather_pack, below).
 //
+// qsgd_pack:
 // Replaces the TPU kernel repro/kernels/wire_compress/wire_compress.py:80
 // (qsgd_pack_pallas, body _qsgd_kernel at :42). Same function, per node i
 // of a stack and element e of its flat plane:
@@ -87,7 +90,100 @@ int launch(const float* x, const float* u, const float* inv, uint8_t* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fixedk_gather_pack
+//
+// Replaces the TPU kernel repro/kernels/wire_compress/wire_compress.py:112
+// (fixedk_gather_pack_pallas, body _gather_kernel at :106), the sender-side
+// pack of the fixedk_packed exchange (repro/core/gossip.py:781-788). Per
+// node l of a block, kept row r and column c:
+//   out[l, r, c] = db[l, idx[l, r], c] * scale
+// with scale the f32 rounding of nb/kb: one f32 multiply per element,
+// rounded once (__fmul_rn), so the result is bit-exact with
+// jnp.take(db, idx, 0) * scale and with the plain version.
+//
+// What bounds it: bytes. Each node reads kb rows of block f32 values and
+// kb int32 indices and writes kb rows: (8 block + 4) bytes per kept row
+// over the card's 3.35 TB/s; one multiply per element is nothing.
+//
+// Design: ONE launch over the whole node block (the TPU kernel packs one
+// node per call); neighbouring threads take neighbouring columns of one
+// row, so a row is read and written in whole sectors; where block is a
+// multiple of 4 each thread moves one 16-byte float4 (the rows of a
+// contiguous f32 view then start 16-byte aligned). A grid-stride loop
+// covers any size. The indices come from fixedk_indices (distinct, in
+// [0, nb)); one that is not in range gives a NaN row instead of a read
+// out of bounds.
+// Left for later: TMA / cp.async bulk copies of whole rows.
+template <int VEC>
+__global__ void fixedk_gather_pack_kernel(const float* __restrict__ db,
+                                          const int* __restrict__ idx,
+                                          float* __restrict__ out,
+                                          long long n_nodes, long long nb,
+                                          long long block, long long kb,
+                                          float scale) {
+  const long long vpr = block / VEC;   // vectors per row
+  const long long total = n_nodes * kb * vpr;
+  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       t < total; t += (long long)gridDim.x * blockDim.x) {
+    const long long row = t / vpr;      // node * kb + r
+    const long long c = (t - row * vpr) * VEC;
+    const long long node = row / kb;
+    const int i = idx[row];
+    float* o = out + row * block + c;
+    if (i < 0 || (long long)i >= nb) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) o[j] = __int_as_float(0x7fc00000);
+      continue;
+    }
+    const float* src = db + (node * nb + i) * block + c;
+    if (VEC == 4) {
+      float4 v = *reinterpret_cast<const float4*>(src);
+      v.x = __fmul_rn(v.x, scale);
+      v.y = __fmul_rn(v.y, scale);
+      v.z = __fmul_rn(v.z, scale);
+      v.w = __fmul_rn(v.w, scale);
+      *reinterpret_cast<float4*>(o) = v;
+    } else {
+      o[0] = __fmul_rn(src[0], scale);
+    }
+  }
+}
+
+template <int VEC>
+int launch_gather(const float* db, const int* idx, float* out,
+                  long long n_nodes, long long nb, long long block,
+                  long long kb, float scale, cudaStream_t stream) {
+  const int threads = 256;
+  const long long total = n_nodes * kb * (block / VEC);
+  long long blocks = (total + threads - 1) / threads;
+  const long long cap = 132LL * 16;
+  if (blocks > cap) blocks = cap;
+  fixedk_gather_pack_kernel<VEC><<<(unsigned int)blocks, threads, 0,
+                                   stream>>>(db, idx, out, n_nodes, nb,
+                                             block, kb, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int fixedk_gather_pack(const void* db, const void* idx, void* out,
+                                  long long n_nodes, long long nb,
+                                  long long block, long long kb, float scale,
+                                  void* stream) {
+  const float* d = static_cast<const float*>(db);
+  const int* ix = static_cast<const int*>(idx);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_nodes <= 0 || nb <= 0 || block <= 0 || kb <= 0)
+    return cudaErrorInvalidValue;
+  const bool vec4 = block % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(db) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec4) return launch_gather<4>(d, ix, o, n_nodes, nb, block, kb, scale,
+                                    st);
+  return launch_gather<1>(d, ix, o, n_nodes, nb, block, kb, scale, st);
+}
 
 extern "C" int qsgd_pack(const void* x, const void* u, const void* inv,
                          void* out, long long n_nodes, long long d,

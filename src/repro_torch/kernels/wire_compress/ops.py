@@ -1,6 +1,17 @@
-"""Entry point of the fused QSGD quantize-and-pack kernel.
+"""Entry points of the wire-compressor kernels.
 
-Port of ``repro.kernels.wire_compress.ops.qsgd_pack``. The caller draws
+``fixedk_gather_pack`` (port of ``repro.kernels.wire_compress.ops.
+fixedk_gather_pack``) is the sender-side pack of the ``fixedk_packed``
+exchange: rows ``idx`` of each node's (nb, block) plane view times the
+f32 rounding of the static scale nb/kb, bit-exact with ``jnp.take(db,
+idx, 0) * scale``. For CUDA tensors it launches the hand-written kernel
+in ``kernels/csrc/wire_compress.cu`` (which replaces the TPU kernel
+``fixedk_gather_pack_pallas``) once over the whole node block, or
+raises; for CPU tensors it runs ``fixedk_gather_pack_ref``.
+``fixedk_gather_pack.launches`` counts kernel launches.
+
+``qsgd_pack`` (port of ``repro.kernels.wire_compress.ops.qsgd_pack``)
+is the fused QSGD quantize-and-pack. The caller draws
 the stochastic-rounding uniforms at the canonical plane shape and passes
 each node's raw l2 norm; this wrapper derives ``inv = s / max(norm,
 1e-30)`` exactly as the unfused compressor does (a true f32 division)
@@ -23,9 +34,10 @@ import ctypes
 
 import torch
 
-from .ref import levels, pack_factor, qsgd_quantize_pack_ref
+from .ref import (f32_scale, fixedk_gather_pack_ref, levels, pack_factor,
+                  qsgd_quantize_pack_ref)
 
-__all__ = ["qsgd_pack", "qsgd_inv"]
+__all__ = ["qsgd_pack", "qsgd_inv", "fixedk_gather_pack"]
 
 _BITS = (2, 4, 8)
 
@@ -67,13 +79,17 @@ def qsgd_pack(xf: torch.Tensor, u: torch.Tensor, norm: torch.Tensor, *,
 qsgd_pack.launches = 0
 
 
-def _kernel_fn():
+def _kernel_fn(name: str = "qsgd_pack"):
     from repro_torch.kernels._build import load_library
 
-    fn = load_library("wire_compress").qsgd_pack
+    fn = getattr(load_library("wire_compress"), name)
     if fn.argtypes is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, p, p, p, ll, ll, ll, i, p]
+        fn.argtypes = {
+            "qsgd_pack": [p, p, p, p, ll, ll, ll, i, p],
+            "fixedk_gather_pack": [p, p, p, ll, ll, ll, ll, ctypes.c_float,
+                                   p],
+        }[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -102,4 +118,55 @@ def _qsgd_pack_cuda(xf, u, inv, *, bits) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"qsgd_pack kernel launch failed: CUDA error {rc}")
     qsgd_pack.launches += 1
+    return out
+
+
+def fixedk_gather_pack(db: torch.Tensor, idx: torch.Tensor, *,
+                       scale: float) -> torch.Tensor:
+    """Rows ``idx`` of each node's block view, times f32(scale).
+
+    ``db`` (*batch, nb, block) f32, ``idx`` (*batch, kb) int32 with
+    entries in [0, nb) (``fixedk_indices`` draws them; on the card an
+    index out of range gives a NaN row, never a read out of bounds);
+    returns (*batch, kb, block) f32.
+    """
+    if db.dim() < 2 or tuple(idx.shape[:-1]) != tuple(db.shape[:-2]):
+        raise ValueError(f"indices {tuple(idx.shape)} do not batch the "
+                         f"block view {tuple(db.shape)}")
+    if db.device.type == "cpu":
+        return fixedk_gather_pack_ref(db, idx, scale=scale)
+    if db.device.type != "cuda":
+        raise ValueError(f"fixedk_gather_pack: unsupported device "
+                         f"{db.device}")
+    return _fixedk_gather_pack_cuda(db, idx, scale=scale)
+
+
+fixedk_gather_pack.launches = 0
+
+
+def _fixedk_gather_pack_cuda(db, idx, *, scale: float) -> torch.Tensor:
+    if db.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise ValueError(f"fixedk_gather_pack: takes float32 values and "
+                         f"int32 indices, got {db.dtype} and {idx.dtype}")
+    if idx.device != db.device:
+        raise ValueError("fixedk_gather_pack: values and indices must be on "
+                         "one device")
+    if not (db.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("fixedk_gather_pack: inputs must be contiguous")
+    nb, block = db.shape[-2], db.shape[-1]
+    kb = idx.shape[-1]
+    n = idx.numel() // kb if kb else 0
+    out = torch.empty(tuple(idx.shape) + (block,), dtype=torch.float32,
+                      device=db.device)
+    if out.numel() == 0:
+        return out
+    fn = _kernel_fn("fixedk_gather_pack")
+    with torch.cuda.device(db.device):
+        stream = torch.cuda.current_stream(db.device).cuda_stream
+        rc = fn(db.data_ptr(), idx.data_ptr(), out.data_ptr(), n, nb, block,
+                kb, float(f32_scale(scale)), stream)
+    if rc != 0:
+        raise RuntimeError(f"fixedk_gather_pack kernel launch failed: CUDA "
+                           f"error {rc}")
+    fixedk_gather_pack.launches += 1
     return out

@@ -2,18 +2,21 @@
 
 Port of ``repro.kernels.wire_compress.ref``. ``qsgd_quantize_pack_ref``
 repeats the CUDA kernel's arithmetic op for op (``|x| * inv``, floor,
-stochastic carry, clamp, sign, offset-encode, sub-byte pack); the CPU
-tests hold it against the JAX kernel and ``chip_smoke.py`` holds the
-CUDA kernel against it.
+stochastic carry, clamp, sign, offset-encode, sub-byte pack);
+``fixedk_gather_pack_ref`` is the fixed-k sender pack (a row gather and
+one f32 multiply). The CPU tests hold them against the JAX kernels and
+``chip_smoke.py`` holds the CUDA kernels against them.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 __all__ = ["pack_factor", "levels", "qsgd_quantize_pack_ref",
-           "qsgd_decode_ref", "norm_from_tail"]
+           "qsgd_decode_ref", "norm_from_tail", "fixedk_gather_pack_ref",
+           "f32_scale"]
 
 
 def pack_factor(bits: int) -> int:
@@ -84,3 +87,19 @@ def qsgd_decode_ref(buf: torch.Tensor, shape, *, bits: int) -> torch.Tensor:
     # a true division, as the (eager) JAX oracle computes it
     scale = torch.div(norm, torch.tensor(float(s), device=buf.device))
     return scale * flat.reshape(shape).to(torch.float32)
+
+
+def f32_scale(scale: float) -> torch.Tensor:
+    """The f32 rounding of a Python scale, as JAX multiplies by a weakly
+    typed constant (a 0-d CPU tensor: it broadcasts onto any device)."""
+    return torch.tensor(float(np.float32(scale)), dtype=torch.float32)
+
+
+def fixedk_gather_pack_ref(db: torch.Tensor, idx: torch.Tensor, *,
+                           scale: float) -> torch.Tensor:
+    """The sender-side fixed-k pack: rows ``idx`` of each node's block
+    view times f32(scale). db (*batch, nb, block), idx (*batch, kb) ->
+    (*batch, kb, block)."""
+    rows = torch.gather(db, -2, idx.long().unsqueeze(-1).expand(
+        tuple(idx.shape) + (db.shape[-1],)))
+    return rows * f32_scale(scale)

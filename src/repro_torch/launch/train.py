@@ -1,0 +1,232 @@
+"""Training launcher: SDM-DSGD (or another registered method) on an LM.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
+      --smoke --mesh 4 --steps 5 --compressor fixedk:8
+
+The counterpart of ``repro.launch.train``, with the same flags plus
+``--device`` (default ``cuda``; ``--device cpu`` runs the plain
+versions of the kernels). ``--mesh N`` simulates N edge nodes, all held
+on the one device as one node block; ``--init-method``, ``--rank`` and
+``--world-size`` instead run one node per process on
+``torch.distributed`` (NCCL on CUDA, one GPU per rank; gloo on the CPU).
+Each step runs the method's per-node executor through
+``train.steps.make_distributed_train``.
+
+Not ported: ``--sim`` (the edge-fleet simulator, ROADMAP Queue 1 item
+9) and the audio / VLM families (no encoders yet); both raise.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Callable, List, Optional
+
+__all__ = ["TrainRun", "train", "main"]
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What ``train`` returns: the final state, one loss per step and
+    each step's wall time (device-synchronised on CUDA)."""
+
+    state: object
+    losses: List[float]
+    step_s: List[float]
+    tokens_per_step: int
+
+
+def train(tc, transport, *, steps: int, global_batch: int, seq_len: int,
+          seed: int = 0, state=None, on_step: Optional[Callable] = None
+          ) -> TrainRun:
+    """The launcher's step loop: ``steps`` steps of
+    ``make_distributed_train`` on the synthetic token stream. ``state``
+    defaults to ``init_distributed_state`` from ``seed``;
+    ``on_step(t, loss, seconds)`` is called after each step."""
+    import torch
+
+    from repro_torch.data import TokenStream
+    from repro_torch.train import steps as steps_mod
+
+    cfg = tc.model
+    if state is None:
+        state = steps_mod.init_distributed_state(tc, transport, seed=seed)
+    step_fn = steps_mod.make_distributed_train(tc, transport)
+    stream = TokenStream(vocab_size=cfg.vocab_size, batch=global_batch,
+                         seq_len=seq_len, seed=seed)
+    dev = transport.device
+    losses, step_s = [], []
+    for t in range(steps):
+        tokens, labels = (torch.as_tensor(a, device=dev)
+                          for a in stream.batch_at(t))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, tokens, labels)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if on_step is not None:
+            on_step(t, losses[-1], step_s[-1])
+    return TrainRun(state=state, losses=losses, step_s=step_s,
+                    tokens_per_step=global_batch * seq_len)
+
+
+def _save(directory: str, step: int, state, transport) -> str:
+    """The node block's state as the JAX package's flat npz (bf16 leaves
+    as 2-byte opaque data, as ``np.savez`` stores jax's bfloat16); one
+    file per rank under ``node<rank>/`` on a process group."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tree_mod
+    from repro_torch.checkpoint import save_checkpoint
+
+    def arr(v):
+        if not isinstance(v, torch.Tensor):
+            return np.asarray(v)
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            return v.view(torch.int16).numpy().view("V2")
+        return v.numpy()
+
+    flat = {k: arr(v) for k, v in tree_mod.flatten_with_paths(state).items()}
+    if transport.me.shape[0] != transport.n:
+        directory = os.path.join(directory, f"node{int(transport.me[0])}")
+    return save_checkpoint(directory, step, flat)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config")
+    ap.add_argument("--mesh", default="2",
+                    help="N or Nx1: N simulated edge nodes (a model axis "
+                         "above 1 is tensor parallelism: not ported)")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--global-batch", type=int, default=None)
+    ap.add_argument("--seq-len", type=int, default=None)
+    ap.add_argument("--method", default=None,
+                    help="method registry name (repro_torch.core.method): "
+                         "sdm-dsgd | sdm-dsgd-fused | dc-dsgd | dsgd | "
+                         "allreduce")
+    ap.add_argument("--algorithm", default=None,
+                    help="deprecated alias of --method")
+    ap.add_argument("--p", type=float, default=0.2)
+    ap.add_argument("--theta", type=float, default=0.5)
+    ap.add_argument("--gamma", type=float, default=1e-2)
+    ap.add_argument("--sigma", type=float, default=0.0)
+    ap.add_argument("--clip-c", type=float, default=None)
+    ap.add_argument("--gossip-mode", default="bernoulli",
+                    choices=["bernoulli", "fixedk_packed", "fixedk_rows",
+                             "qsgd"])
+    ap.add_argument("--compressor", default=None,
+                    help="wire compressor spec (repro_torch.core."
+                         "compressor): bernoulli | fixedk[:block] | "
+                         "block:<B> | rows | qsgd[:bits] | qsgdf[:bits]; "
+                         "overrides --gossip-mode")
+    ap.add_argument("--overlap", action="store_true",
+                    help="one-step-stale neighbour mixing (static "
+                         "topologies only)")
+    ap.add_argument("--topology", default="ring",
+                    help="ring | torus | torusRxC | er | er:<p_c> | star | "
+                         "complete | matchings:<L> (time-varying)")
+    ap.add_argument("--topology-seed", type=int, default=0)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sim", default=None,
+                    help="edge-fleet simulator scenario: not ported")
+    ap.add_argument("--sim-rounds", type=int, default=None)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--init-method", default=None,
+                    help="torch.distributed init method (e.g. "
+                         "tcp://localhost:29500): one node per process")
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--world-size", type=int, default=1)
+    args = ap.parse_args(argv)
+
+    if args.sim:
+        raise SystemExit("--sim is not ported yet (ROADMAP Queue 1, item 9)")
+    if args.overlap and args.topology.startswith("matchings"):
+        ap.error("--overlap needs a static topology: the double-buffered "
+                 "transport has no replica (time-varying) delivery path")
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._device import resolve_device
+    from repro_torch.core import method as method_mod
+    from repro_torch.core.sdm_dsgd import SDMConfig
+    from repro_torch.core.transport import (ProcessGroupTransport,
+                                            StackTransport)
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.train import steps as steps_mod
+
+    meth_name = method_mod.normalize(
+        args.method or args.algorithm or "sdm-dsgd")
+    method_mod.get(meth_name)
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
+    if cfg.family in ("audio", "vlm"):
+        raise SystemExit(f"{cfg.name}: {cfg.family} encoders are not ported")
+    mesh = parse_mesh(args.mesh)
+    n_nodes = mesh.n_nodes
+    dev = resolve_device(args.device)
+    if args.init_method:
+        import torch.distributed as dist
+
+        if args.world_size != n_nodes:
+            ap.error(f"--world-size {args.world_size} != --mesh nodes "
+                     f"{n_nodes}: one node per process")
+        if dev.type == "cuda":
+            torch.cuda.set_device(args.rank % torch.cuda.device_count())
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=args.init_method,
+                                rank=args.rank, world_size=args.world_size)
+        transport = ProcessGroupTransport()
+    else:
+        transport = StackTransport(n_nodes, dev)
+
+    batch = args.global_batch or 2 * n_nodes
+    seq = args.seq_len or (64 if args.smoke else 4096)
+    sdm_cfg = SDMConfig(p=args.p, theta=args.theta, gamma=args.gamma,
+                        sigma=args.sigma, clip_c=args.clip_c,
+                        mode=args.gossip_mode, compressor=args.compressor,
+                        overlap=args.overlap)
+    tc = steps_mod.DistributedTrainConfig(
+        model=cfg, sdm=sdm_cfg, topology=args.topology,
+        topology_seed=args.topology_seed, method=meth_name,
+        param_dtype=torch.float32 if args.smoke else torch.bfloat16)
+    sched = steps_mod.gossip_schedule(tc, n_nodes)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"arch={cfg.name} mesh={mesh.shape} nodes={n_nodes} "
+          f"method={meth_name} p={args.p} theta={args.theta} "
+          f"compressor={args.compressor or sdm_cfg.mode} "
+          f"topology={sched.name} gossip_rounds={sched.n_rounds}"
+          + (f" time_varying_L={sched.length}" if sched.length > 1 else "")
+          + (" overlap=on" if args.overlap else "")
+          + f" device={where}", flush=True)
+
+    def report(t, loss, seconds):
+        print(f"step {t:4d} loss {loss:.4f} ({seconds:.2f}s)", flush=True)
+
+    try:
+        run = train(tc, transport, steps=args.steps, global_batch=batch,
+                    seq_len=seq, seed=args.seed, on_step=report)
+        if args.checkpoint_dir:
+            path = _save(args.checkpoint_dir, args.steps, run.state,
+                         transport)
+            print(f"checkpoint written to {path}")
+        if args.init_method:
+            torch.distributed.barrier()   # all ranks reach the teardown
+    finally:
+        if args.init_method:
+            torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

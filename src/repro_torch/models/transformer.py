@@ -5,7 +5,9 @@ Port of ``repro.models.transformer`` for the attention + MLP layer slots
 layout -- ``embed``, ``final_norm``, ``blocks/<slot>/{attn,mlp}/...``
 with every block leaf stacked over a leading ``n_periods`` axis -- so a
 JAX checkpoint carries over by renaming only (``repro_torch.convert``).
-A Python loop over periods replaces ``lax.scan``.
+A Python loop over periods replaces ``lax.scan``; ``cfg.remat``
+recomputes each period in the backward pass (``torch.utils.checkpoint``,
+the counterpart of ``jax.checkpoint``: the same numbers, less memory).
 
 Not yet ported (they raise ``NotImplementedError``): MoE, mamba and
 rwkv slots, cross-attention, encoders and learned position embeddings.
@@ -24,8 +26,8 @@ from repro_torch.models.layers import (KVCache, ParamSpec, attention_apply,
                                        rms_norm, softcap)
 
 __all__ = ["model_specs", "param_shapes", "flat_specs", "init_params",
-           "init_cache", "prefill", "decode_step", "decode_step_paged",
-           "Cache", "period_params"]
+           "forward", "lm_loss", "init_cache", "prefill", "decode_step",
+           "decode_step_paged", "Cache", "period_params"]
 
 Params = Dict[str, Any]
 
@@ -184,6 +186,49 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return softcap(x @ head, cfg.logit_softcap)
+
+
+def _period(params: Params, cfg: ModelConfig, i: int, x: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    """Period ``i`` of the layer stack over a full sequence (no cache)."""
+    for si, spec in enumerate(cfg.period):
+        sp = period_params(params, str(si), i)
+        x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
+                               layer_kind=spec.mixer)
+        x = mlp_apply(sp["mlp"], cfg, x)
+    return x
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward. tokens (b, s) -> (logits (b, s, V), aux loss).
+    Attention + MLP slots carry no auxiliary loss: aux is 0."""
+    _check_supported(cfg)
+    b, s = tokens.shape
+    x = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for i in range(cfg.n_periods):
+        if cfg.remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            x = checkpoint(_period, params, cfg, i, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _period(params, cfg, i, x, positions)
+    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
+            aux=0.0, aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token cross entropy in f32; the padded vocab tail is masked
+    out (logits there set to -1e30)."""
+    v = logits.shape[-1]
+    pad = torch.arange(v, device=logits.device) >= vocab_size
+    logits = torch.where(pad, torch.full((), -1e30, device=logits.device),
+                         logits.float())
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold) + aux_weight * aux
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

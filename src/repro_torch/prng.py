@@ -116,21 +116,49 @@ def split(key, num: int = 2) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(a, b), dim=-1)
 
 
+# Counters drawn per key at a time: a draw over more elements runs in
+# counter-aligned chunks (the bits do not depend on the chunking), so its
+# int64 threefry temporaries stay a few hundred MB even for a leaf of
+# hundreds of millions of elements.
+_CHUNK = 1 << 22
+
+
+def _bits_range(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """The draws of counters [start, stop): (*key_batch, stop - start)."""
+    i = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    k1, k2 = _words(key, 1)
+    a, b = threefry2x32(k1, k2, i >> 32, i & _M32)
+    return a ^ b
+
+
 def bits(key, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element (int64 holding uint32), shape
     ``(*key_batch, *shape)``."""
     key = key_data(key)
     shape = tuple(int(s) for s in shape)
+    return _bits_range(key, 0, math.prod(shape)).reshape(
+        tuple(key.shape[:-1]) + shape)
+
+
+def _draw(key, shape, fn, dtype=torch.float32) -> torch.Tensor:
+    """``fn(bits)`` (f32 values of a counter range) over ``shape``,
+    cast to ``dtype``, drawn ``_CHUNK`` counters at a time."""
+    key = key_data(key)
+    shape = tuple(int(s) for s in shape)
     size = math.prod(shape)
-    i = torch.arange(size, dtype=torch.int64, device=key.device)
-    k1, k2 = _words(key, 1)
-    a, b = threefry2x32(k1, k2, i >> 32, i & _M32)
-    return (a ^ b).reshape(tuple(key.shape[:-1]) + shape)
+    batch = tuple(key.shape[:-1])
+    if size <= _CHUNK:
+        return fn(_bits_range(key, 0, size)).to(dtype).reshape(batch + shape)
+    out = torch.empty(batch + (size,), dtype=dtype, device=key.device)
+    for start in range(0, size, _CHUNK):
+        stop = min(size, start + _CHUNK)
+        out[..., start:stop] = fn(_bits_range(key, start, stop))
+    return out.reshape(batch + shape)
 
 
-def _unit_floats(key, shape) -> torch.Tensor:
+def _unit_floats(b: torch.Tensor) -> torch.Tensor:
     """f32 in [0, 1): 23 random mantissa bits over exponent 0, minus 1."""
-    mant = (bits(key, shape) >> 9) | 0x3F800000
+    mant = (b >> 9) | 0x3F800000
     return mant.to(torch.int32).view(torch.float32) - 1.0
 
 
@@ -143,16 +171,25 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
+def _uniform_fn(minval: float, maxval: float):
+    """bits -> ``jax.random.uniform`` floats: floats * (max - min) + min
+    (one fused multiply-add under jit), clamped below at min."""
+    if minval == 0.0 and maxval == 1.0:
+        return _unit_floats      # * 1 + 0 and max(0, .) are exact no-ops
+
+    def fn(b):
+        f = _unit_floats(b)
+        lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+        hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+        return torch.maximum(lo, _fma_f32(f, hi - lo, lo))
+
+    return fn
+
+
 def uniform(key, shape: Sequence[int] = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in f32: floats * (max - min) + min (one
-    fused multiply-add under jit), clamped below at min."""
-    f = _unit_floats(key, shape)
-    if minval == 0.0 and maxval == 1.0:
-        return f      # * 1 + 0 and max(0, .) are exact no-ops
-    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
-    return torch.maximum(lo, _fma_f32(f, hi - lo, lo))
+    """``jax.random.uniform`` in f32."""
+    return _draw(key, shape, _uniform_fn(minval, maxval))
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -192,12 +229,15 @@ def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
                        out)
 
 
-def normal(key, shape: Sequence[int] = ()) -> torch.Tensor:
+def normal(key, shape: Sequence[int] = (),
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``jax.random.normal`` in f32: sqrt(2) * erfinv(u), u uniform on
-    (nextafter(-1, 0), 1). The uniforms are bit-exact; the inverse erf is
-    XLA's polynomial, within a few ulp (the tests state the gap)."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return erfinv_xla(u) * _SQRT2_F32
+    (nextafter(-1, 0), 1), then cast to ``dtype`` (``normal(...).astype``
+    in JAX). The uniforms are bit-exact; the inverse erf is XLA's
+    polynomial, within a few ulp (the tests state the gap)."""
+    to_u = _uniform_fn(_NORMAL_LO, 1.0)
+    return _draw(key, shape, lambda b: erfinv_xla(to_u(b)) * _SQRT2_F32,
+                 dtype)
 
 
 def bernoulli(key, p, shape: Sequence[int] = ()) -> torch.Tensor:

@@ -23,47 +23,52 @@ def _is_namedtuple(t) -> bool:
     return isinstance(t, tuple) and hasattr(t, "_fields")
 
 
+def _walk(t, out: List[Any]):
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_walk(t[k], out) for k in keys))
+    if _is_namedtuple(t):
+        return ("nt", type(t), tuple(_walk(v, out) for v in t))
+    if isinstance(t, (tuple, list)):
+        return (type(t).__name__, len(t), tuple(_walk(v, out) for v in t))
+    out.append(t)
+    return "*"
+
+
 def flatten(tree: PyTree) -> Tuple[List[Any], Any]:
-    """(leaves in JAX order, a hashable structure for ``unflatten``)."""
+    """(leaves in JAX order, a hashable structure for ``unflatten``).
+
+    The walkers here are module-level functions, not closures that call
+    themselves: such a closure is a reference cycle that would keep every
+    leaf (a whole gradient or noise tree on the card) alive until Python's
+    cycle collector happens to run."""
     out: List[Any] = []
-
-    def walk(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(walk(t[k]) for k in keys))
-        if _is_namedtuple(t):
-            return ("nt", type(t), tuple(walk(v) for v in t))
-        if isinstance(t, (tuple, list)):
-            return (type(t).__name__, len(t), tuple(walk(v) for v in t))
-        out.append(t)
-        return "*"
-
-    return out, walk(tree)
+    return out, _walk(tree, out)
 
 
 def leaves(tree: PyTree) -> List[Any]:
     return flatten(tree)[0]
 
 
+def _build(s, it):
+    if s is None:
+        return None
+    if s == "*":
+        return next(it)
+    kind, meta, kids = s
+    vals = [_build(k, it) for k in kids]
+    if kind == "dict":
+        return dict(zip(meta, vals))
+    if kind == "nt":
+        return meta(*vals)
+    return tuple(vals) if kind == "tuple" else list(vals)
+
+
 def unflatten(structure, values) -> PyTree:
     it = iter(values)
-
-    def build(s):
-        if s is None:
-            return None
-        if s == "*":
-            return next(it)
-        kind, meta, kids = s
-        vals = [build(k) for k in kids]
-        if kind == "dict":
-            return dict(zip(meta, vals))
-        if kind == "nt":
-            return meta(*vals)
-        return tuple(vals) if kind == "tuple" else list(vals)
-
-    out = build(structure)
+    out = _build(structure, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return out
@@ -80,27 +85,27 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
                               zip(vals, *(o[0] for o in others))])
 
 
+def _walk_paths(t, path: str, out: Dict[str, Any]) -> None:
+    if t is None:
+        return
+    if isinstance(t, dict):
+        items = [(str(k), t[k]) for k in sorted(t)]
+    elif _is_namedtuple(t):
+        items = list(zip(t._fields, t))
+    elif isinstance(t, (tuple, list)):
+        items = [(str(i), v) for i, v in enumerate(t)]
+    else:
+        out[path] = t
+        return
+    for k, v in items:
+        _walk_paths(v, f"{path}/{k}" if path else k, out)
+
+
 def flatten_with_paths(tree: PyTree, prefix: str = "") -> Dict[str, Any]:
     """{'/'-joined path: leaf}, the key convention of the JAX package's
     checkpoints (dict keys, NamedTuple field names, sequence indices)."""
     out: Dict[str, Any] = {}
-
-    def walk(t, path):
-        if t is None:
-            return
-        if isinstance(t, dict):
-            items = [(str(k), t[k]) for k in sorted(t)]
-        elif _is_namedtuple(t):
-            items = list(zip(t._fields, t))
-        elif isinstance(t, (tuple, list)):
-            items = [(str(i), v) for i, v in enumerate(t)]
-        else:
-            out[path] = t
-            return
-        for k, v in items:
-            walk(v, f"{path}/{k}" if path else k)
-
-    walk(tree, prefix)
+    _walk_paths(tree, prefix, out)
     return out
 
 

@@ -1,0 +1,290 @@
+"""PyTorch port: the per-node executor against the JAX package's.
+
+The JAX package's shard_map executor (``method.make_distributed``) runs
+live in a subprocess this test starts itself: ``XLA_FLAGS`` fakes 8 CPU
+devices before jax imports (as ``tests/test_distributed.py`` does),
+the cases and inputs come from ``tests/helpers/method_parity_check.py``
+(parity contract 5) and the final public copies come back as npz. The
+port's executor runs the same cases on a ``StackTransport`` (all nodes
+as one block) from the same numpy inputs and keys, and must agree at
+the JAX package's own parity tolerance: 1e-4 of max(scale, 1), 1e-3 for
+the QSGD quantizers (a norm summed in another order can flip one
+stochastic level).
+
+For every case the port's executor is also held against the port's own
+``ReferenceSimulator`` / ``DSGDReference``, the transport's counters
+against ``wire_count`` (ppermute calls; bytes sent per node, for the
+deterministic wire formats), and the overlapped cases against the
+one-step-stale oracle of ``tests/helpers/dense_oracle.py``.
+
+Not run here (they stay with the JAX package's own sweep):
+gradient-push cases (the method is not ported) and the "plane" group
+(multi-leaf trees: covered by the LM executor in test_torch_lm_train.py).
+"""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+HERE = pathlib.Path(__file__).resolve().parent
+ROOT = HERE.parent
+
+# (group of method_parity_check.CASES, method key, topology, mode)
+CASES = [
+    ("sdm_core", "sdm-dsgd", "ring8", "bernoulli"),
+    ("sdm_core", "sdm-dsgd", "ring8", "fixedk_packed"),
+    ("sdm_core", "sdm-dsgd", "ring8", "fixedk_rows"),
+    ("sdm_core", "sdm-dsgd", "torus2x2", "bernoulli"),
+    ("sdm_core", "sdm-dsgd", "torus2x2", "fixedk_packed"),
+    ("sdm_core", "sdm-dsgd", "er8", "fixedk_packed"),
+    ("sdm_core", "sdm-dsgd", "star4", "bernoulli"),
+    ("sdm_variants", "sdm-dsgd-fused", "ring8", "fixedk_rows"),
+    ("sdm_variants", "sdm-dsgd-fused", "torus2x2", "fixedk_packed"),
+    ("sdm_variants", "dc-dsgd", "torus2x2", "bernoulli"),
+    ("sdm_variants", "dc-dsgd", "ring8", "fixedk_packed"),
+    ("sdm_variants", "sdm-dsgd", "matchings8x3", "bernoulli"),
+    ("sdm_variants", "sdm-dsgd", "matchings8x3", "fixedk_packed"),
+    ("sdm_variants", "sdm-dsgd:het", "ring8", "bernoulli"),
+    ("time_varying", "sdm-dsgd", "matchings8x2", "bernoulli"),
+    ("time_varying", "sdm-dsgd", "matchings8x2", "fixedk_packed"),
+    ("time_varying", "sdm-dsgd", "matchings8x2", "qsgd"),
+    ("time_varying", "sdm-dsgd-fused", "matchings8x2", "fixedk_packed"),
+    ("compressed", "sdm-dsgd", "ring8", "qsgd"),
+    ("compressed", "sdm-dsgd", "ring8", "qsgd:4"),
+    ("compressed", "sdm-dsgd:het", "ring8", "fixedk_packed"),
+    ("compressed", "sdm-dsgd:het", "torus2x2", "fixedk_packed"),
+    ("overlap", "sdm-dsgd:ov", "ring8", "bernoulli"),
+    ("overlap", "sdm-dsgd:ov", "ring8", "fixedk_packed"),
+    ("overlap", "sdm-dsgd:ov", "ring8", "qsgd:4"),
+    ("overlap", "sdm-dsgd:ov", "ring8", "qsgdf:4"),
+    ("overlap", "sdm-dsgd-fused:ov", "ring8", "fixedk_packed"),
+    ("baselines", "dsgd", "ring8", "-"),
+    ("baselines", "dsgd", "er8", "-"),
+    ("baselines", "dsgd", "matchings8x3", "-"),
+    ("baselines", "allreduce", "ring8", "-"),
+    ("baselines", "allreduce", "er8", "-"),
+]
+
+DIM, STEPS, SEED = 5 * 128, 12, 42   # method_parity_check's DIM/STEPS/key
+
+
+def case_id(key, topo, mode):
+    return f"{key}|{topo}|{mode}"
+
+
+def inputs(n):
+    """method_parity_check.run_case's single-leaf least-squares inputs."""
+    rng = np.random.default_rng(0)
+    a = (rng.normal(size=(n, 16, DIM)) / 4.0).astype(np.float32)
+    b = rng.normal(size=(n, 16)).astype(np.float32)
+    p0 = (rng.normal(size=(DIM,)) * 0.1).astype(np.float32)
+    return a, b, p0
+
+
+# --------------------------------------------------------------------------
+# The JAX side: run in a subprocess (python tests/test_torch_distributed.py
+# --jax OUT.npz); 8 faked CPU devices must be set before jax imports.
+# --------------------------------------------------------------------------
+
+def _jax_main(out_path: str) -> None:
+    sys.path[:0] = [str(HERE / "helpers"), str(ROOT / "src")]
+    import method_parity_check as mpc   # sets XLA_FLAGS, then imports jax
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from dense_oracle import sdm_dense_overlap_oracle
+    from repro import compat
+    from repro.core import method as method_mod
+
+    assert (mpc.DIM, mpc.STEPS) == (DIM, STEPS)
+    key = jax.random.PRNGKey(SEED)
+    out = {}
+    for group, mkey, topo, mode in CASES:
+        assert (mkey, topo, mode) in mpc.CASES[group], (group, mkey, topo)
+        name = mkey.split(":")[0]
+        meth = method_mod.get(name)
+        seq = mpc.parse_seq(topo)
+        n = seq.n_nodes
+        cfg = mpc.make_cfg(mkey, meth, mode, n)
+        a, b, p0 = (jnp.asarray(v) for v in inputs(n))
+        stack = {"w": jnp.broadcast_to(p0, (n, DIM))}
+
+        def node_grad(w, a_, b_):
+            r = a_ @ w - b_
+            return a_.T @ r / a_.shape[0]
+
+        ex = meth.make_distributed(seq, cfg, "data")
+
+        def inner(p, a_, b_, ex=ex, node_grad=node_grad):
+            p = jax.tree.map(lambda v: jnp.squeeze(v, 0), p)
+            a_, b_ = jnp.squeeze(a_, 0), jnp.squeeze(b_, 0)
+            state = ex.init(p, jax.lax.axis_index("data"))
+
+            def body(state, _):
+                state, _ = ex.step(
+                    state, lambda pp: ({"w": node_grad(pp["w"], a_, b_)},
+                                       jnp.float32(0.0)), base_key=key)
+                return state, None
+
+            state, _ = jax.lax.scan(body, state, None, length=STEPS)
+            return jax.tree.map(lambda v: v[None], state.x)
+
+        mesh = compat.make_mesh((n,), ("data",))
+        fn = compat.shard_map(inner, mesh=mesh,
+                              in_specs=(P("data"), P("data"), P("data")),
+                              out_specs=P("data"), axis_names={"data"},
+                              check_vma=False)
+        cid = case_id(mkey, topo, mode)
+        out[cid] = np.asarray(jax.jit(fn)(stack, a, b)["w"])
+        if mkey == "sdm-dsgd:ov":
+            grad_stack = jax.vmap(node_grad)
+            out[cid + "|oracle"] = sdm_dense_overlap_oracle(
+                seq, cfg, stack["w"], lambda x: grad_stack(x, a, b), STEPS,
+                key)
+    np.savez(out_path, **out)
+
+
+# --------------------------------------------------------------------------
+# The port's side.
+# --------------------------------------------------------------------------
+
+torch = pytest.importorskip("torch")
+
+
+def parse_seq(spec):
+    """method_parity_check.parse_seq on the port's topology copy."""
+    from repro_torch.core import gossip, topology
+
+    m = re.fullmatch(r"matchings(\d+)x(\d+)", spec)
+    if m:
+        return gossip.sequence_from_topologies(
+            topology.random_matchings(int(m.group(1)), int(m.group(2)),
+                                      seed=0), name=spec)
+    family, size = re.fullmatch(r"([a-z]+)(\d+(?:x\d+)?)", spec).groups()
+    if family == "torus":
+        topo = topology.torus_2d(*(int(v) for v in size.split("x")))
+    else:
+        topo = topology.by_name(family, int(size))
+    return gossip.ensure_sequence(gossip.schedule_from_topology(topo))
+
+
+def make_cfg(mkey, meth, mode, n):
+    """method_parity_check.make_cfg on the port's config classes."""
+    from repro_torch.core import baselines, sdm_dsgd
+
+    if meth.config_cls is not sdm_dsgd.SDMConfig:
+        return baselines.DSGDConfig(gamma=0.2)
+    p = tuple(0.15 + 0.05 * (i % 4) for i in range(n)) \
+        if mkey.endswith(":het") else 0.25
+    kw = dict(p=p, theta=0.15, gamma=0.2, sigma=0.0, clip_c=1.0,
+              overlap=mkey.endswith(":ov"))
+    if mode.startswith("qsgd:") or mode.split(":")[0] == "qsgdf":
+        return meth.coerce_config(sdm_dsgd.SDMConfig(compressor=mode, **kw))
+    return meth.coerce_config(sdm_dsgd.SDMConfig(mode=mode, **kw))
+
+
+def run_port(mkey, topo, mode):
+    """(port executor x, port reference x, transport, meth, cfg, seq)."""
+    from repro_torch import prng
+    from repro_torch.core import method as method_mod, transport as tr
+
+    name = mkey.split(":")[0]
+    meth = method_mod.get(name)
+    seq = parse_seq(topo)
+    n = seq.n_nodes
+    cfg = make_cfg(mkey, meth, mode, n)
+    a, b, p0 = (torch.from_numpy(v) for v in inputs(n))
+
+    def grads(tree):   # per node, one matrix-vector product at a time
+        w = tree["w"]
+        return {"w": torch.stack([a[i].T @ (a[i] @ w[i] - b[i]) / 16
+                                  for i in range(n)])}
+
+    key = prng.PRNGKey(SEED)
+    transport = tr.StackTransport(n)
+    ex = meth.make_distributed(seq, cfg, transport)
+    state = ex.init({"w": p0.expand(n, DIM).clone()})
+    for _ in range(STEPS):
+        state, _ = ex.step(state, lambda x: (grads(x), 0.0), base_key=key)
+
+    sim = meth.make_reference(seq, cfg)
+    ref = sim.init({"w": p0.expand(n, DIM).clone()})
+    for _ in range(STEPS):
+        if hasattr(sim, "advance"):
+            ref, _ = sim.advance(ref, key)
+            ref = sim.commit(ref, grads(ref.x), key)
+        else:
+            ref, _ = sim.step(ref, lambda x, _b: (grads(x), 0.0), None, key)
+    if name == "sdm-dsgd-fused":
+        ref, _ = sim.advance(ref, key)
+    return (state.x["w"].numpy(), ref.x["w"].numpy(), transport, meth, cfg,
+            seq, p0)
+
+
+@pytest.fixture(scope="module")
+def jax_results(tmp_path_factory):
+    pytest.importorskip("jax")
+    out = tmp_path_factory.mktemp("jax_exec") / "dist.npz"
+    proc = subprocess.run(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--jax",
+         str(out)], capture_output=True, text=True, timeout=900,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "HOME": os.environ.get("HOME", "/tmp"), "JAX_PLATFORMS": "cpu"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with np.load(out) as data:
+        return {k: data[k] for k in data.files}
+
+
+@pytest.mark.parametrize("group,mkey,topo,mode", CASES,
+                         ids=[case_id(*c[1:]) for c in CASES])
+def test_executor_matches_jax_executor(jax_results, group, mkey, topo,
+                                       mode):
+    from repro_torch.core import wire_count
+
+    got, ref, transport, meth, cfg, seq, p0 = run_port(mkey, topo, mode)
+    cid = case_id(mkey, topo, mode)
+    want = jax_results[cid]
+    scale = float(np.max(np.abs(want)))
+    assert scale > 0.01                                 # the run moved
+    tol = 1e-3 if "qsgd" in mode else 1e-4
+    err = float(np.max(np.abs(got - want)))
+    assert err < tol * max(scale, 1.0), (cid, err)
+    # the port's executor against the port's reference (same package:
+    # only the mixing's f32 summation order differs)
+    assert float(np.max(np.abs(got - ref))) <= 1e-5 * max(scale, 1.0)
+    if cid + "|oracle" in jax_results:                  # one-step-stale
+        oracle = jax_results[cid + "|oracle"]
+        assert float(np.max(np.abs(got - oracle))) < 1e-4 * max(scale, 1.0)
+
+    # parity contract 3: the sends and the bytes
+    name = meth.name
+    mode_s = wire_count.mode_of(name, cfg)
+    calls = sum(wire_count.permutes_per_step(name, mode_s, seq, t)
+                for t in range(STEPS))
+    assert transport.permutes == calls
+    if seq.length == 1:
+        assert calls == STEPS * wire_count.expected_permutes(name, mode_s,
+                                                             seq)
+    deterministic = mode_s != "bernoulli" and not isinstance(
+        getattr(cfg, "p", None), tuple)
+    if deterministic:
+        assert transport.bytes_sent == wire_count.expected_bytes_sent(
+            meth, {"w": p0}, cfg, seq, STEPS)
+    assert (transport.permutes > 0) == (name != "allreduce")
+
+
+def test_overlap_diverges_from_the_plain_transport():
+    """The one-step-stale transport is a real change, not a no-op flag."""
+    on, _, *_ = run_port("sdm-dsgd:ov", "ring8", "fixedk_packed")
+    off, _, *_ = run_port("sdm-dsgd", "ring8", "fixedk_packed")
+    assert float(np.max(np.abs(on - off))) > 1e-4
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--jax"]:
+    _jax_main(sys.argv[2])

@@ -1,7 +1,8 @@
 """PyTorch port: the CUDA kernels against their plain versions, on the card.
 
 The paged decode kernel is held at f32/bf16 tolerances; the qsgd_pack
-kernel must equal its plain version bit for bit (``torch.equal``).
+and fixedk_gather_pack kernels must equal their plain versions bit for
+bit (``torch.equal``).
 
 Imports no jax (the card's machine has none). Every test here is marked
 ``cuda`` and skips without a GPU; run them on the card with
@@ -163,3 +164,53 @@ def test_qsgd_pack_kernel_rejects_what_it_does_not_take():
         qsgd_pack(x.transpose(1, 2), u.transpose(1, 2), norm, bits=4)
     with pytest.raises(ValueError):            # mixed devices
         qsgd_pack(x, u.cpu(), norm, bits=4)
+
+
+# --------------------------------------------------------------------------
+# fixedk_gather_pack (kernels/csrc/wire_compress.cu): bit-exact with plain
+# --------------------------------------------------------------------------
+
+# (nodes, nb, kb, block): nb not a multiple of 8, kb = nb, nb/kb not an
+# f32, a block that is no multiple of 4 (the scalar path)
+GATHER_CASES = [(1, 37, 11, 1), (4, 37, 11, 8), (4, 37, 37, 128),
+                (1, 130, 26, 128), (4, 1001, 333, 1), (2, 999, 100, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nb,kb,block", GATHER_CASES)
+def test_fixedk_gather_pack_kernel_equals_plain(n, nb, kb, block):
+    from repro_torch.kernels.wire_compress import (fixedk_gather_pack,
+                                                   fixedk_gather_pack_ref)
+    dev = _cuda()
+    rng = np.random.default_rng(nb + block)
+    db = torch.from_numpy(rng.normal(size=(n, nb, block)).astype(
+        np.float32)).to(dev)
+    idx = torch.from_numpy(np.stack([rng.permutation(nb)[:kb]
+                                     for _ in range(n)]).astype(np.int32)
+                           ).to(dev)
+    n0 = fixedk_gather_pack.launches
+    got = fixedk_gather_pack(db, idx, scale=nb / kb)
+    torch.cuda.synchronize()
+    assert fixedk_gather_pack.launches == n0 + 1
+    want = fixedk_gather_pack_ref(db, idx, scale=nb / kb)
+    assert got.shape == (n, kb, block) and torch.equal(got, want)
+    # the same inputs on the CPU take the plain version: no launch
+    cpu = fixedk_gather_pack(db.cpu(), idx.cpu(), scale=nb / kb)
+    assert fixedk_gather_pack.launches == n0 + 1
+    assert torch.equal(cpu, want.cpu())
+
+
+@pytest.mark.cuda
+def test_fixedk_gather_pack_kernel_rejects_what_it_does_not_take():
+    from repro_torch.kernels.wire_compress import fixedk_gather_pack
+    dev = _cuda()
+    db = torch.randn(2, 40, 8, device=dev)
+    idx = torch.zeros(2, 10, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):            # int64 indices
+        fixedk_gather_pack(db, idx.long(), scale=4.0)
+    with pytest.raises(ValueError):            # f64 values
+        fixedk_gather_pack(db.double(), idx, scale=4.0)
+    with pytest.raises(ValueError):            # mixed devices
+        fixedk_gather_pack(db, idx.cpu(), scale=4.0)
+    with pytest.raises(ValueError):            # indices do not batch
+        fixedk_gather_pack(db, idx[:1], scale=4.0)

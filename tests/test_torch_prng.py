@@ -118,3 +118,27 @@ def test_top_k_tie_order_matches_lax():
     _, ji = jax.lax.top_k(jnp.asarray(u), 54_477)
     ti = prng.fixedk_indices(prng.PRNGKey(1), 272_384, 54_477)
     assert np.array_equal(np.asarray(ji), ti.numpy())
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_chunked_draws_are_the_same_bits(monkeypatch, chunk):
+    """Draws over more than ``prng._CHUNK`` counters run in counter-aligned
+    chunks (bounded int64 temporaries at full width); the bits, the
+    uniforms and the normals do not depend on the chunking, for one key
+    and for a batch of keys, and stay bit-exact with jax.random."""
+    keys = prng.fold_in(prng.PRNGKey(3), torch.arange(3))        # (3, 2)
+    shape = (5, 41)
+    whole = (prng.bits(keys, shape), prng.uniform(keys, shape),
+             prng.normal(keys, shape), prng.normal(keys, shape,
+                                                   dtype=torch.bfloat16))
+    monkeypatch.setattr(prng, "_CHUNK", chunk)
+    parts = (prng.bits(keys, shape), prng.uniform(keys, shape),
+             prng.normal(keys, shape), prng.normal(keys, shape,
+                                                   dtype=torch.bfloat16))
+    for a, b in zip(whole, parts):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert whole[3].dtype == torch.bfloat16 and torch.equal(
+        whole[3], whole[2].to(torch.bfloat16))
+    jk = jax.random.fold_in(_jkey(3), 1)
+    assert np.array_equal(np.asarray(jax.random.uniform(jk, shape)),
+                          parts[1][1].numpy())
