@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and kernel-bench paths on one
+NVIDIA GPU.
 
   python3 chip_smoke.py
 
@@ -31,6 +32,27 @@ Phases (any failure exits non-zero):
      bytes == ``sparsify_planes_stacked``; payload bytes x 8 x the
      schedule's degree == ``transmitted_bits_per_step``.
 
+  8.-10. the per-node executor and the distributed LM slice:
+     ``fixedk_gather_pack`` vs plain on ragged shapes; the executor vs the
+     reference (MLR, 8 nodes); gemma2-2b at full width, depth cut to 4
+     layers, 2 nodes, fixedk:128, through ``launch.train.train``.
+  11. the fused SDM update kernel vs plain over the whole gemma2-2b x 4
+     layers plane (880,167 x 1024 f32) and its time against the 40 B per
+     element byte bound; the tree wrapper on ResNet-20's tree.
+  12. the prefill flash kernel vs plain at gemma2-2b's attention widths
+     (b 1, h 8, kvh 4, dh 256), s 4096 / 8192, bf16 / f32, global /
+     local (window 4096) / plain causal; times against the bound and, for
+     plain causal, ``scaled_dot_product_attention``.
+  13. this slice's main path: ``repro_torch.bench.kernel_bench`` at its
+     default shapes; the fused-update and flash kernels must launch.
+  14. gradient-push on the MLR test bed, 50 nodes on der:0.35, fixedk,
+     qsgdf:4 and qsgdf:8: 10 executor steps vs the reference with exact
+     ppermute and byte counters; pure gossip keeps sum x / sum w; 100
+     steps through ``run_decentralized`` (10 for qsgdf:4, which diverges
+     on this test bed in the JAX package too).
+  15. gradient-push, ResNet-20 x 50 nodes, qsgdf:4, 10 steps:
+     ``qsgd_pack`` launched once per step.
+
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -56,6 +78,14 @@ F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
 # compute in f32 from the same bf16 inputs and round only the output, so
 # they differ by at most one bf16 ulp of |out| < 4, i.e. 2^-6 = 1.6e-2.
 KERNEL_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# prefill flash, each query row's max|kernel - plain| over that row's own
+# max|plain| (the absolute bound alone is the size of a typical output at
+# s 8192, where |out| ~ sqrt(e / s)). bf16: p rounded to bf16 before p.v
+# and the output's rounding each cost at most 2^-8 of the row's scale, so
+# 2^-5 is twice their sum; a dropped 64-key tile costs a row that sees
+# n keys ~ sqrt(64 / n) of its scale. f32: ~sqrt(s) 2^-24 from the
+# summation order, far below 2^-10.
+FLASH_ROW_RTOL = {"float32": 2 ** -10, "bfloat16": 2 ** -5}
 # the card's MLR losses against the port's own CPU run of the same 20
 # steps: matmul order differs (~1e-7 relative per step) and can flip a
 # rare QSGD level, so the two drift apart slowly; the CPU tests hold the
@@ -854,6 +884,489 @@ def lm_breakdown(torch, holder, mcfg, seq, transport, step_ms, whole,
         f"{step_ms:.3f} less advance and commit = {rest:.3f}")
 
 
+# ---- slice 4: the fused update, prefill flash attention, kernel_bench and
+# gradient-push (phases 11-15) ---------------------------------------------
+
+# the LM slice's plane (gemma2-2b widths x LM_LAYERS) under realistic
+# hyper-parameters (phase 10's: ring W_ii 1/3)
+SDM_LM_KW = dict(p=0.2, theta=0.5, gamma=1e-3, sigma=1.0, clip_c=1e-4,
+                 self_w=1.0 / 3.0)
+# the plain version of the fused update runs over the plane in row chunks
+SDM_CHUNK_ROWS = 32768
+# the JAX kernel tests' tolerance, where a transcendental differs in its
+# last bit (tests/test_kernels.py:42)
+SDM_ATOL = 1e-6
+# gemma2-2b's attention widths (configs/gemma2_2b.py, arXiv:2408.00118)
+FLASH_B, FLASH_H, FLASH_KVH, FLASH_DH = 1, 8, 4, 256
+FLASH_VARIANTS = (("global", dict(causal=True, softcap=50.0)),
+                  ("local", dict(causal=True, window=4096, softcap=50.0)),
+                  ("causal", dict(causal=True)))
+BENCH_KERNELS = ("sdm_update", "flash_attn")
+PUSH_STEPS, PUSH_EXEC_STEPS, PUSH_RESNET_STEPS = 100, 10, 10
+
+
+def _sync(torch, dev) -> None:
+    if dev != "cpu":
+        torch.cuda.synchronize()
+
+
+def _peak_gb(torch, dev) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if dev != "cpu" else 0.0
+
+
+def sdm_update_phase(torch, card):
+    """Phase 11: the fused-update kernel against its plain version over
+    the whole gemma2-2b x LM_LAYERS plane (880,167 rows of 1024), then
+    its time, the plain version's (in row chunks) and the byte bound;
+    then the tree wrapper on ResNet-20's tree, card against the CPU."""
+    import dataclasses
+
+    from repro_torch import configs, prng, tree as tree_mod
+    from repro_torch.core.plane import ParamPlane, ShapeDtype
+    from repro_torch.kernels.sdm_update import (LANE, sdm_update,
+                                                sdm_update_planes,
+                                                sdm_update_ref)
+    from repro_torch.kernels.sdm_update.ops import _sdm_update_cuda
+    from repro_torch.models import transformer, vision_small as vs
+
+    cfg = dataclasses.replace(configs.get_config("gemma2-2b"),
+                              n_layers=LM_LAYERS)
+    template = transformer.unflatten({
+        k: ShapeDtype(s, torch.bfloat16)
+        for k, s in transformer.param_shapes(cfg).items()})
+    plane = ParamPlane.for_tree(template, lane=LANE, row_multiple=1)
+    rows = plane.buckets[0].rows
+    n = rows * LANE
+    nbytes = 40 * n                      # 7 streams read, 3 written
+    predicted = 10 * n * 4 + 12 * SDM_CHUNK_ROWS * LANE * 4
+    log(f"sdm_update plane: gemma2-2b x {LM_LAYERS} layers, "
+        f"{plane.total_size} params -> ({rows}, {LANE}) f32; predicted peak "
+        f"{predicted / 1e9:.2f} GB = 7 inputs + 3 outputs "
+        f"{10 * n * 4 / 1e9:.2f} GB + the plain version's chunk temporaries "
+        f"({SDM_CHUNK_ROWS} rows) {12 * SDM_CHUNK_ROWS * LANE * 4 / 1e9:.2f}")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    base = torch.cuda.memory_allocated()
+
+    def floats(scale):
+        return torch.randn(rows, LANE, generator=gen, device="cuda").mul_(
+            scale)
+
+    def words():
+        return torch.randint(-2**31, 2**31, (rows, LANE), dtype=torch.int32,
+                             generator=gen, device="cuda")
+
+    ops = (floats(0.02), floats(0.01), floats(0.01), floats(1e-3), words(),
+           words(), words())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = sdm_update_planes(*ops, block_rows=1, **SDM_LM_KW)
+    torch.cuda.synchronize()
+    equal, err = True, 0.0
+    for r0 in range(0, rows, SDM_CHUNK_ROWS):
+        sl = slice(r0, r0 + SDM_CHUNK_ROWS)
+        want = sdm_update_ref(*(t[sl] for t in ops), **SDM_LM_KW)
+        for a, b in zip(got, want):
+            if not torch.equal(a[sl], b):
+                equal = False
+                err = max(err, (a[sl] - b).abs().max().item())
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    peak = torch.cuda.max_memory_allocated()
+    del got, want
+    ker_ms, ker_host = cuda_ms(torch, lambda i: _sdm_update_cuda(
+        *ops, **SDM_LM_KW), iters=10)
+
+    def plain_pass(i):
+        for r0 in range(0, rows, SDM_CHUNK_ROWS):
+            sdm_update_ref(*(t[r0:r0 + SDM_CHUNK_ROWS] for t in ops),
+                           **SDM_LM_KW)
+
+    plain_ms, _ = cuda_ms(torch, plain_pass, iters=2, warmup=1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"sdm_update ({rows}, {LANE}) f32 on {card}: kernel == plain over the "
+        f"whole plane (torch.equal) {equal}; max|kernel - plain| {err:.3e} "
+        f"(atol {SDM_ATOL}); finite {finite}; peak memory {peak / 1e9:.3f} "
+        f"GB (predicted {predicted / 1e9:.2f}; {base / 1e9:.3f} GB allocated "
+        f"before the inputs); kernel {ker_ms:.3f} ms on "
+        f"the device ({ker_host:.3f} ms per call on the host), plain (row "
+        f"chunks) {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({nbytes} bytes, "
+        f"bytes); {nbytes / (ker_ms * 1e-3) / 1e12:.3f} TB/s achieved; no "
+        f"single PyTorch call computes this function (library: none)")
+    del ops
+    torch.cuda.empty_cache()
+    if not (finite and (equal or err <= SDM_ATOL)):
+        raise AssertionError("sdm_update disagrees with its plain version "
+                             "over the LM plane")
+
+    # the tree wrapper on ResNet-20's tree: the card against the CPU's
+    # plain path, same key (the draws are the port's threefry on each)
+    p0 = vs.resnet20_init(prng.PRNGKey(0))
+    rng = torch.Generator().manual_seed(12)
+    trees = [tree_mod.tree_map(lambda v: torch.randn(
+        v.shape, generator=rng) * 0.05, p0) for _ in range(4)]
+    n0 = sdm_update_planes.launches
+    got = sdm_update(*(tree_mod.tree_map(lambda v: v.cuda(), t)
+                       for t in trees), prng.PRNGKey(5), **SDM_LM_KW)
+    launched = sdm_update_planes.launches - n0
+    want = sdm_update(*trees, prng.PRNGKey(5), **SDM_LM_KW)
+    leaves = [(a.cpu(), b) for gt, wt in zip(got, want)
+              for a, b in zip(tree_mod.leaves(gt), tree_mod.leaves(wt))]
+    tree_equal = all(torch.equal(a, b) for a, b in leaves)
+    tree_err = max((a - b).abs().max().item() for a, b in leaves)
+    n_params = sum(v.numel() for v in tree_mod.leaves(p0))
+    log(f"sdm_update tree wrapper, ResNet-20 tree ({n_params} params, "
+        f"{len(tree_mod.leaves(p0))} leaves): card (kernel) vs CPU (plain) "
+        f"torch.equal {tree_equal}, max diff {tree_err:.3e}; launches "
+        f"{launched}")
+    if launched != 1 or not (tree_equal or tree_err <= SDM_ATOL):
+        raise AssertionError("sdm_update's tree wrapper disagrees between "
+                             "the card and the CPU")
+    return dict(ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, max_abs_err=float(err),
+                bit_equal=bool(equal), tree_card_vs_cpu_max_diff=tree_err,
+                host_ms_per_call=ker_host, peak_gb=peak / 1e9)
+
+
+def flash_pairs(s: int, window) -> int:
+    """Visible (query, key) pairs of one causal head of length s."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_bound(s, window, elt_bytes):
+    """(ms, bound_by, flops, bytes) of one prefill call at gemma2-2b's
+    widths: 4 dh flops per visible pair against q, k, v and out moved
+    once."""
+    flops = 4 * FLASH_DH * FLASH_H * FLASH_B * flash_pairs(s, window)
+    nbytes = FLASH_B * s * FLASH_DH * elt_bytes * (2 * FLASH_H
+                                                   + 2 * FLASH_KVH)
+    peak = BF16_FLOPS if elt_bytes == 2 else F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def flash_phase(torch, card):
+    """Phase 12: the prefill flash kernel against its plain version at
+    gemma2-2b's attention widths (b 1, h 8, kvh 4, dh 256), s 4096 and
+    8192, bf16 and f32, global / local (window 4096) / plain causal; its
+    time, the plain version's and the bound; for plain causal, SDPA's."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn.ops import (_flash_cuda,
+                                                    flash_attention)
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows, failures = [], []
+    for s in (4096, 8192):
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+
+            def t(heads):
+                return torch.randn(FLASH_B, s, heads, FLASH_DH,
+                                   generator=gen, device="cuda").to(dtype)
+
+            q, k, v = t(FLASH_H), t(FLASH_KVH), t(FLASH_KVH)
+            for name, kw in FLASH_VARIANTS:
+                got = flash_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                want = flash_attention_ref(q, k, v, **kw).float()
+                diff = (got.float() - want).abs()
+                err = diff.max().item()
+                row_rel = (diff.amax(-1) / want.abs().amax(-1).clamp_min(
+                    1e-30)).max().item()
+                del got, want, diff
+                kw_all = dict(dict(window=None, softcap=None), **kw)
+                ker_ms, _ = cuda_ms(torch, lambda i: _flash_cuda(
+                    q, k, v, **kw_all), iters=5, warmup=1)
+                plain_ms, _ = cuda_ms(torch, lambda i: flash_attention_ref(
+                    q, k, v, **kw), iters=3, warmup=1)
+                lib_ms = None
+                if name == "causal":
+                    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                    lib_ms, _ = cuda_ms(
+                        torch, lambda i: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True,
+                            scale=1.0 / math.sqrt(FLASH_DH)), iters=5,
+                        warmup=1)
+                bound_ms, bound_by, flops, nbytes = flash_bound(
+                    s, kw.get("window"), 2 if dt == "bfloat16" else 4)
+                ok = err <= KERNEL_ATOL[dt] and row_rel <= FLASH_ROW_RTOL[dt]
+                log(f"flash_attn {name} s={s} {dt} (b {FLASH_B}, h {FLASH_H},"
+                    f" kvh {FLASH_KVH}, dh {FLASH_DH}) on {card}: "
+                    f"max|kernel - plain| {err:.3e} (atol {KERNEL_ATOL[dt]}),"
+                    f" max over rows of max|kernel - plain| / max|plain| "
+                    f"{row_rel:.3e} (rtol {FLASH_ROW_RTOL[dt]:.3e}) "
+                    f"ok {ok}; kernel {ker_ms:.3f} ms, plain {plain_ms:.3f} "
+                    f"ms, bound {bound_ms:.4f} ms ({flops:.4e} flops, "
+                    f"{nbytes} bytes, {bound_by})"
+                    + (f", sdpa (library, yardstick only) {lib_ms:.3f} ms"
+                       if lib_ms is not None else "")
+                    + f"; {flops / (ker_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+                rows.append(dict(variant=name, s=s, dtype=dt, ms=ker_ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=lib_ms,
+                                 max_abs_err=err, max_row_rel_err=row_rel,
+                                 flops=flops))
+                if not ok:
+                    failures.append(f"{name}/s{s}/{dt}")
+            del q, k, v
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"flash_attn disagrees with its plain version: "
+                             f"{failures}")
+    # the table's row: plain causal, s 8192, bf16 (SDPA computes the same)
+    head = next(r for r in rows if (r["variant"], r["s"], r["dtype"])
+                == ("causal", 8192, "bfloat16"))
+    return dict(head, variants=rows, **{
+        f"{key}_{dt}": max(r[key] for r in rows if r["dtype"] == dt)
+        for key in ("max_abs_err", "max_row_rel_err")
+        for dt in ("bfloat16", "float32")})
+
+
+def kernel_bench_phase(torch, kernels):
+    """Phase 13, this slice's main path: ``repro_torch.bench.kernel_bench``
+    end to end at its JAX default shapes; every line must print, and the
+    fused-update and flash kernels must launch in this run. Then each
+    kernel against its plain version on the very tensors the bench timed
+    (sdm_update (64, 1024) at block_rows 32; flash (1, 256, 4, 64) f32,
+    causal): launches made to compare are not counted."""
+    import contextlib
+    import io
+
+    from repro_torch.bench import kernel_bench
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.kernels.sdm_update import (sdm_update_planes,
+                                                sdm_update_ref)
+
+    for _, wrapper in kernels.values():
+        wrapper.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        timed = kernel_bench.run(device="cuda")
+    torch.cuda.synchronize()
+    launched = {k: w.launches for k, (_, w) in kernels.items()
+                if k in BENCH_KERNELS}
+
+    ops, kw = timed["sdm_update"]
+    got = sdm_update_planes(*ops, **kw)
+    plain = sdm_update_ref(*ops, **{k: v for k, v in kw.items()
+                                    if k != "block_rows"})
+    sdm_equal = all(torch.equal(a, b) for a, b in zip(got, plain))
+    sdm_err = max((a - b).abs().max().item() for a, b in zip(got, plain))
+    q, k, v = timed["flash_attn"]
+    fl_err = (flash_attention(q, k, v) - flash_attention_ref(q, k, v)
+              ).abs().max().item()
+    torch.cuda.synchronize()
+    log(f"kernel_bench's own inputs: sdm_update {tuple(ops[0].shape)} "
+        f"block_rows {kw['block_rows']} kernel == plain (torch.equal) "
+        f"{sdm_equal}, max|kernel - plain| {sdm_err:.3e} (atol {SDM_ATOL}); "
+        f"flash_attn {tuple(q.shape)} {q.dtype} causal max|kernel - plain| "
+        f"{fl_err:.3e} (atol {KERNEL_ATOL['float32']})")
+    if not (sdm_equal or sdm_err <= SDM_ATOL) \
+            or not fl_err <= KERNEL_ATOL["float32"]:
+        raise AssertionError("a kernel disagrees with its plain version on "
+                             "kernel_bench's inputs")
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  kernel_bench: {line}")
+    names = [line.split(",", 1)[0] for line in lines]
+    want = len(kernel_bench.GOSSIP_TOPOLOGIES) + 4
+    log(f"kernel_bench: {len(lines)} lines (expected {want}); launches "
+        f"{launched}")
+    if len(lines) != want or names[-4:] != [
+            "sdm_update_plain", "sdm_update_cuda", "flash_attn_plain",
+            "flash_attn_cuda"]:
+        raise AssertionError("kernel_bench did not print every line")
+    missing = [k for k, n in launched.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the kernel_bench "
+                             f"path: {missing}")
+    return launched, {"sdm_update": sdm_err, "flash_attn": fl_err}
+
+
+def push_mlr_phase(torch, np, card, dev="cuda"):
+    """Phase 14: gradient-push on the paper's MLR test bed, 50 nodes on
+    der:0.35. For fixed-k (p 0.2), qsgdf:4 and qsgdf:8: PUSH_EXEC_STEPS
+    steps of the per-node executor on a StackTransport against the
+    reference (noise-free, as the parity sweep), with its ppermute and
+    byte counters; pure gossip (the JAX sweep's conservation probe), whose
+    sum x / sum w must stay the initial mean. For fixed-k and qsgdf:8:
+    PUSH_STEPS steps through ``run_decentralized``. qsgdf:4 trains
+    through it only PUSH_EXEC_STEPS steps: 4-bit QSGD is not contractive
+    at this plane's d = 7,936 (variance factor sqrt(d)/7 = 12.7), so the
+    compressed push-sum residual grows every step and the loss reaches
+    NaN near step 90, in the JAX package as in the port."""
+    from repro_torch import prng, tree as tree_mod
+    from repro_torch.bench.common import make_mlr_testbed
+    from repro_torch.core import (PrivacyParams, gossip, method,
+                                  transport as tr, wire_count)
+    from repro_torch.core.gradient_push import GradientPushConfig, _debias
+    from repro_torch.kernels.wire_compress import qsgd_pack
+    from repro_torch.train.trainer import run_decentralized
+
+    meth = method.get("gradient-push")
+    failures = []
+    for comp in ("fixedk", "qsgdf:4", "qsgdf:8"):
+        topo, stack, grad_fn, eval_fn, batches, m_local = make_mlr_testbed(
+            topology_spec="der:0.35", device=dev)
+        seq = gossip.sequence_of(topo)
+        n = seq.n_nodes
+        cfg = GradientPushConfig(gamma=0.01, sigma=1.0, clip_c=5.0,
+                                 compressor=comp, p=0.2)
+        per_node = tree_mod.tree_map(lambda v: v[0], stack)
+        bits = method.transmitted_bits(meth, per_node, cfg, seq=seq)
+        steps = PUSH_EXEC_STEPS if comp == "qsgdf:4" else PUSH_STEPS
+        q0 = qsgd_pack.launches
+        res = run_decentralized(
+            topo=topo, algorithm="gradient-push", sdm_cfg=cfg,
+            params_stack=stack, grad_fn=grad_fn, batches=batches,
+            steps=steps, seed=0, eval_fn=eval_fn, eval_every=50,
+            privacy=PrivacyParams.from_compressor(
+                cfg.make_compressor(), G=5.0, m=m_local, tau=16 / m_local,
+                sigma=cfg.sigma), device=dev)
+        _sync(torch, dev)
+        ms = np.asarray(res.step_s) * 1e3
+        finite = bool(np.all(np.isfinite(res.losses)))
+        log(f"gradient-push MLR 784->10 {seq.name} n={n}, {comp} p 0.2, "
+            f"gamma 0.01 sigma 1, {steps} steps on {card}: step ms mean "
+            f"{ms.mean():.3f} p50 {np.percentile(ms, 50):.3f} (steps 2.. "
+            f"{ms[1:].mean():.3f}); losses "
+            f"{[round(v, 4) for v in res.losses[::10]]} -> "
+            f"{res.losses[-1]:.5f} finite {finite}; eval acc "
+            f"{res.eval_accuracy}; eps {res.epsilons[-1]:.6e}; comm_bits[-1] "
+            f"{res.comm_bits[-1]} = {steps} x {n} x {bits}; qsgd_pack "
+            f"launches {qsgd_pack.launches - q0}")
+        if not (finite and res.comm_bits[-1] == steps * n * bits):
+            failures.append(f"trainer/{comp}")
+
+        # the per-node executor against the reference, noise-free
+        cfg0 = GradientPushConfig(gamma=0.05, sigma=0.0, clip_c=5.0,
+                                  compressor=comp, p=0.2)
+        _, stack, grad_fn, _, batches, _ = make_mlr_testbed(
+            topology_spec="der:0.35", device=dev)
+        data = [tuple(torch.as_tensor(v, device=dev)
+                      for v in next(batches)) for _ in range(PUSH_EXEC_STEPS)]
+        transport = tr.StackTransport(n, dev)
+        ex = meth.make_distributed(seq, cfg0, transport)
+        state = ex.init(stack)
+        sim = meth.make_reference(seq, cfg0)
+        ref = sim.init(tree_mod.tree_map(torch.clone, stack))
+        key = prng.PRNGKey(42, device=dev)
+        for t in range(PUSH_EXEC_STEPS):
+            state, _ = ex.step(state, lambda z: grad_fn(z, data[t]),
+                               base_key=key)
+            ref, _ = sim.step(ref, grad_fn, data[t], key)
+        _sync(torch, dev)
+        got = tree_mod.leaves(_debias(state.x, state.w))
+        want = tree_mod.leaves(sim.eval_params(ref))
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        scale = max(b.abs().max().item() for b in want)
+        tol = 1e-3 if "qsgd" in comp else 1e-4
+        mode = wire_count.mode_of(meth.name, cfg0)
+        calls = PUSH_EXEC_STEPS * wire_count.expected_permutes(meth.name,
+                                                               mode, seq)
+        expected = wire_count.expected_bytes_sent(meth, per_node, cfg0, seq,
+                                                  PUSH_EXEC_STEPS)
+        acct = {i: PUSH_EXEC_STEPS * meth.transmitted_bits_fn(
+            per_node, cfg0, seq=seq, node=i) // 8 for i in range(n)}
+        mass = abs(state.w.sum().item() - n)
+        ok = (err <= tol * max(scale, 1.0) and transport.permutes == calls
+              and transport.bytes_sent == expected and mass <= 1e-3
+              # with no explicit indices the wire is the accounting's
+              and (comp == "fixedk" or transport.bytes_sent == acct))
+        log(f"gradient-push executor vs reference on the card, {comp}, "
+            f"{PUSH_EXEC_STEPS} steps: max|z_exec - z_ref| {err:.3e} (scale "
+            f"{scale:.3e}, tol {tol} x max(scale, 1)); ppermute calls "
+            f"{transport.permutes} == {PUSH_EXEC_STEPS} x expected_permutes "
+            f"{calls // PUSH_EXEC_STEPS}; bytes sent per node (min, max) "
+            f"{min(transport.bytes_sent.values())}, "
+            f"{max(transport.bytes_sent.values())} == expected_bytes_sent "
+            f"{transport.bytes_sent == expected}; {PUSH_EXEC_STEPS} x "
+            f"transmitted_bits_per_step / 8 (min, max) {min(acct.values())},"
+            f" {max(acct.values())} (explicit indices ship as int32, the "
+            f"accounting charges ceil(log2 d) bits each); |sum w - n| "
+            f"{mass:.2e}; ok {ok}")
+        if not ok:
+            failures.append(f"executor/{comp}")
+
+        # pure gossip (method_parity_check.push_conservation_probe's
+        # setup: (n, 6) values, p 0.4, 200 steps): sum x / sum w stays the
+        # initial mean, the de-biased estimates reach it
+        cfg_g = GradientPushConfig(gamma=0.0, sigma=0.0, compressor=comp,
+                                   p=0.4)
+        sim = meth.make_reference(seq, cfg_g)
+        gen = torch.Generator(device=dev).manual_seed(14)
+        st = sim.init({"w": torch.randn(n, 6, generator=gen, device=dev)})
+        mean0 = st.x["w"].mean(dim=0)
+        zero = lambda p, _b: (tree_mod.tree_map(torch.zeros_like, p), 0.0)
+        key, mass_err = prng.PRNGKey(0, device=dev), 0.0
+        for _ in range(200):
+            key, sub = prng.split(key)
+            st, _ = sim.step(st, zero, None, sub)
+            mass_err = max(mass_err, (sim.consensus(st)["w"] - mean0)
+                           .abs().max().item())
+        z_err = (sim.eval_params(st)["w"] - mean0).abs().max().item()
+        log(f"gradient-push pure gossip {comp} p 0.4, 200 steps: max|sum x / "
+            f"sum w - mean_0| {mass_err:.3e} (limit 1e-4); max|z - mean_0| "
+            f"{z_err:.3e} (limit 0.05)")
+        if mass_err > 1e-4 or z_err > 0.05:
+            failures.append(f"mass/{comp}")
+    return failures
+
+
+def push_resnet_phase(torch, np, card, dev="cuda"):
+    """Phase 15: gradient-push, ResNet-20 (CIFAR-shaped) x 50 nodes on
+    der:0.35 with the qsgdf:4 wire, PUSH_RESNET_STEPS steps: finite
+    losses, step time, and qsgd_pack launched once per step per bucket."""
+    from repro_torch import prng, tree as tree_mod
+    from repro_torch.core import gossip
+    from repro_torch.core.gradient_push import GradientPushConfig
+    from repro_torch.core.plane import ParamPlane
+    from repro_torch.data import (classification_dataset,
+                                  node_partitioned_batches)
+    from repro_torch.kernels.wire_compress import qsgd_pack
+    from repro_torch.models import vision_small as vs
+    from repro_torch.train.trainer import run_decentralized
+
+    n, steps = 50, PUSH_RESNET_STEPS
+    seq = gossip.sequence_by_name("der:0.35", n, seed=0)
+    (x_tr, y_tr), _ = classification_dataset(3072, 10, 10_000, 10, seed=0)
+    p0 = vs.resnet20_init(prng.PRNGKey(0, device=dev))
+    stack = tree_mod.tree_map(
+        lambda p: p[None].expand((n,) + tuple(p.shape)).clone(), p0)
+    cfg = GradientPushConfig(gamma=0.05, sigma=1.0, clip_c=5.0,
+                             compressor="qsgdf:4", p=0.2)
+    buckets = ParamPlane.for_tree(p0).n_buckets
+    _sync(torch, dev)
+    if dev != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    qsgd_pack.launches = 0
+    res = run_decentralized(
+        topo=seq, algorithm="gradient-push", sdm_cfg=cfg,
+        params_stack=stack, grad_fn=vs.make_stacked_grad_fn(vs.resnet20_apply),
+        batches=node_partitioned_batches(x_tr, y_tr, n, 16, seed=0),
+        steps=steps, seed=0, device=dev)
+    _sync(torch, dev)
+    launched = qsgd_pack.launches
+    ms = np.asarray(res.step_s) * 1e3
+    finite = bool(np.all(np.isfinite(res.losses)))
+    log(f"gradient-push ResNet-20 {seq.name} n={n}, qsgdf:4, sigma 1, "
+        f"{steps} steps on {card}: step ms mean {ms.mean():.3f} p50 "
+        f"{np.percentile(ms, 50):.3f} (steps 2.. {ms[1:].mean():.3f}); "
+        f"{n * 16 / (ms[1:].mean() / 1e3):.1f} examples/s over steps 2..; "
+        f"peak memory {_peak_gb(torch, dev):.3f} GB; "
+        f"losses {[round(v, 5) for v in res.losses]} finite {finite}; "
+        f"qsgd_pack launches {launched} (predicted steps x buckets = "
+        f"{steps * buckets})")
+    if not finite or launched != steps * buckets:
+        raise AssertionError("gradient-push ResNet-20 run failed")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -867,6 +1380,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn.decode import (paged_attention,
                                                        paged_attention_ref)
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.sdm_update import sdm_update_planes
     from repro_torch.kernels.wire_compress import (fixedk_gather_pack,
                                                    qsgd_pack)
     from repro_torch.models import transformer
@@ -889,6 +1404,16 @@ def main() -> int:
             source="src/repro_torch/kernels/csrc/wire_compress.cu",
             replaces="src/repro/kernels/wire_compress/wire_compress.py:112"),
             fixedk_gather_pack),
+        "sdm_update": (dict(
+            name="sdm_update", route="cuda",
+            source="src/repro_torch/kernels/csrc/sdm_update.cu",
+            replaces="src/repro/kernels/sdm_update/sdm_update.py:77"),
+            sdm_update_planes),
+        "flash_attn": (dict(
+            name="flash_attn", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attn.cu",
+            replaces="src/repro/kernels/flash_attn/flash_attn.py:78"),
+            flash_attention),
     }
 
     # ---- 1. card and build ----------------------------------------------
@@ -1147,6 +1672,21 @@ def main() -> int:
         raise AssertionError(f"lm slice failed: {lm}")
     launches["fixedk_gather_pack"] = lm.pop("launches")
     timing["fixedk_gather_pack"] = lm
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11.-15. the fused update, prefill flash, kernel_bench, push -------
+    timing["sdm_update"] = sdm_update_phase(torch, card)
+    timing["flash_attn"] = flash_phase(torch, card)
+    bench_launches, bench_err = kernel_bench_phase(torch, kernels)
+    launches.update(bench_launches)
+    for key, err in bench_err.items():
+        timing[key]["max_abs_err_bench_shape"] = err
+    failures = push_mlr_phase(torch, np, card)
+    if failures:
+        raise AssertionError(f"gradient-push checks failed: {failures}")
+    push_resnet_phase(torch, np, card)
 
     # ---- results -----------------------------------------------------------
     rows = [dict(rec, launches=launches[key], **timing[key])

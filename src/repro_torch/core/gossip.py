@@ -390,13 +390,17 @@ def _round_weight(rnd: ScheduleRound, me: torch.Tensor) -> torch.Tensor:
 
 def _ppermute_payload(transport, payload, perm):
     """Every tensor field of a compressor payload across one round (one
-    ppermute per field, as the JAX package permutes each pytree leaf)."""
+    ppermute per field, as the JAX package permutes each pytree leaf).
+    Explicit indices cross as int32, the width ``lax.top_k`` gives them
+    in the JAX package, and come back to their own dtype on receipt."""
     def pp(v):
         return None if v is None else transport.ppermute(v, perm)
 
+    idx = payload.indices
+    if idx is not None:
+        idx = pp(idx.to(torch.int32)).to(idx.dtype)
     return dataclasses.replace(payload, values=pp(payload.values),
-                               indices=pp(payload.indices),
-                               scale=pp(payload.scale))
+                               indices=idx, scale=pp(payload.scale))
 
 
 def exchange(schedule, x: torch.Tensor, transport, step=None

@@ -24,21 +24,25 @@ materializes before sharding it), ``state_fields_of`` and
 ``state_shape_dtype`` describe its layout.
 
 Registered: ``sdm-dsgd``, ``sdm-dsgd-fused`` (commit+advance fused: two
-state buffers), ``dc-dsgd`` (theta pinned to 1), ``dsgd`` and
-``allreduce``, each with its per-node face. ``gradient-push`` comes with
-its own slice. The JAX package's sharding builders (``state_shardings``)
-and the simulator's stale-gossip helpers are not ported.
+state buffers), ``dc-dsgd`` (theta pinned to 1), ``dsgd``,
+``gradient-push`` (push-sum over directed column-stochastic graphs, its
+gradient taken at the de-biased z = x / w; ``push-sum`` and ``sgp`` are
+aliases) and ``allreduce``, each with its per-node face. The JAX
+package's sharding builders (``state_shardings``) and the simulator's
+stale-gossip helpers are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from fractions import Fraction
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from repro_torch import tree as tree_mod
-from repro_torch.core import baselines, gossip, plane as plane_mod, sdm_dsgd
+from repro_torch.core import (baselines, compressor as compressor_mod, gossip,
+                              gradient_push, plane as plane_mod, sdm_dsgd)
 
 __all__ = ["Method", "DistributedExecutor", "register", "get", "names",
            "normalize", "PARAM", "SCALAR", "COUNTER", "PLANE", "REPLICA",
@@ -333,6 +337,119 @@ def _allreduce_distributed(seq, cfg, transport) -> DistributedExecutor:
 
 
 # --------------------------------------------------------------------------
+# Gradient-push (directed graphs, push-sum de-biasing).
+# --------------------------------------------------------------------------
+
+def _coerce_push(cfg) -> gradient_push.GradientPushConfig:
+    if isinstance(cfg, gradient_push.GradientPushConfig):
+        return cfg
+    if isinstance(cfg, sdm_dsgd.SDMConfig):
+        # an explicit compressor spec on the SDM bag carries over (the
+        # --compressor CLI axis); the legacy mode= spelling does not
+        return gradient_push.GradientPushConfig(
+            gamma=cfg.gamma, sigma=cfg.sigma, clip_c=cfg.clip_c,
+            compressor=cfg.compressor, p=cfg.p,
+            overlap=cfg.overlap and cfg.compressor is not None)
+    if isinstance(cfg, baselines.DSGDConfig):
+        return gradient_push.GradientPushConfig(
+            gamma=cfg.gamma, sigma=cfg.sigma, clip_c=cfg.clip_c)
+    raise TypeError(
+        f"gradient-push needs GradientPushConfig, got {type(cfg).__name__}")
+
+
+_PUSH_FIELDS = (("x", PARAM), ("w", SCALAR), ("step", COUNTER))
+
+
+def _push_fields(cfg, seq=None):
+    if not getattr(cfg, "compressor", None):
+        return _PUSH_FIELDS
+    if seq is not None and gossip.needs_replicas(seq):
+        # the replica stack replaces the persistent neighbour sum
+        return _PUSH_FIELDS + (("xhat", PLANE), ("xhat_nb", REPLICA))
+    fields = _PUSH_FIELDS + (("xhat", PLANE), ("s", PLANE))
+    if getattr(cfg, "overlap", False):
+        fields = fields + (("nb", PLANE),)
+    return fields
+
+
+def _push_init(params, seq, cfg, me) -> gradient_push.GradientPushState:
+    if not getattr(cfg, "compressor", None):
+        return gradient_push.init_push_state(params)
+    rs = gossip._table(seq.schedules[0].neighbor_weight_sums(), me)
+    return gradient_push.init_compressed_push_state(
+        params, rs, n_replicas=_replicas_for(seq),
+        overlap=getattr(cfg, "overlap", False))
+
+
+def _push_init_stacked(stack, seq, cfg) -> gradient_push.GradientPushState:
+    n = tree_mod.leaves(stack)[0].shape[0]
+    return _push_init(stack, seq, cfg,
+                      torch.arange(n, device=tree_mod.leaves(stack)[0].device))
+
+
+def _push_distributed(seq, cfg, transport) -> DistributedExecutor:
+    def init(params):
+        return _push_init(params, seq, cfg, transport.me)
+
+    def step(state, grads_at, *, base_key):
+        grads, aux = grads_at(gradient_push._debias(state.x, state.w))
+        state = gradient_push.gradient_push_distributed_step(
+            state, grads, base_key=base_key, transport=transport, cfg=cfg,
+            schedule=seq)
+        return state, aux
+
+    return DistributedExecutor(init=init, step=step)
+
+
+def _push_degree_factors(seq, compressed: bool, node=None):
+    """(payload, mass) per-link factors: the mass scalar rides the
+    current round's graph, a compressed payload the union graph when the
+    sequence genuinely varies (replica transport)."""
+    if seq is None:
+        return Fraction(1), Fraction(1)
+    seq = gossip.sequence_of(seq)
+    mass = gossip.mean_out_degree(seq, node=node)
+    payload = gossip.mean_out_degree(
+        seq, union=compressed and gossip.needs_replicas(seq), node=node)
+    return payload, mass
+
+
+def _push_payload(comp, params, per_node_fn, node):
+    """A node's payload count (the mean over nodes for ``node=None``)."""
+    wire = sdm_dsgd.wire_shape_tree(params)
+    if node is not None:
+        return per_node_fn(comp, wire, node)
+    return compressor_mod.node_mean_exact(
+        comp.p, lambda i: per_node_fn(comp, wire, i))
+
+
+def _push_elements(params: PyTree, cfg, seq=None, node=None) -> int:
+    comp = cfg.make_compressor() if hasattr(cfg, "make_compressor") else None
+    payload_deg, mass_deg = _push_degree_factors(seq, comp is not None, node)
+    if comp is None:   # + the push-sum mass w
+        return int(round(_full_state_elements(params, cfg) * payload_deg
+                         + mass_deg))
+    payload = _push_payload(
+        comp, params, lambda c, wire, i: compressor_mod.
+        tree_wire_elements_exact(c, wire, node=i), node)
+    return int(round(payload * payload_deg + mass_deg))
+
+
+def _push_bits(params: PyTree, cfg, seq=None, value_bits: int = 32,
+               node=None) -> int:
+    comp = cfg.make_compressor() if hasattr(cfg, "make_compressor") else None
+    payload_deg, mass_deg = _push_degree_factors(seq, comp is not None, node)
+    if comp is None:
+        return int(round((_full_state_elements(params, cfg) * payload_deg
+                          + mass_deg) * value_bits))
+    # exchange_payload ships explicit indices (no seed regeneration)
+    payload = _push_payload(
+        comp, params, lambda c, wire, i: compressor_mod.tree_wire_bits_exact(
+            c, wire, value_bits=value_bits, index_sync=False, node=i), node)
+    return int(round(payload * payload_deg + mass_deg * value_bits))
+
+
+# --------------------------------------------------------------------------
 # Default registrations.
 # --------------------------------------------------------------------------
 
@@ -389,6 +506,22 @@ register(Method(
     init_stacked=_dsgd_init_stacked,
     transmitted_elements=_full_state_elements,
     description="full-state gossip DSGD (Lian et al. 2017)"))
+
+register(Method(
+    name="gradient-push",
+    config_cls=gradient_push.GradientPushConfig,
+    state_cls=gradient_push.GradientPushState,
+    state_fields=_PUSH_FIELDS,
+    state_fields_for=_push_fields,
+    coerce_config=_coerce_push,
+    make_reference=gradient_push.GradientPushReference,
+    make_distributed=_push_distributed,
+    init_stacked=_push_init_stacked,
+    transmitted_elements=_push_elements,
+    transmitted_bits_fn=_push_bits,
+    description="push-sum gradient-push over directed column-stochastic "
+                "graphs (SGP / DP-CSGP-style); --compressor switches on "
+                "CHOCO-style error-compensated compressed payloads"))
 
 register(Method(
     name="allreduce",

@@ -14,9 +14,12 @@ Pad coordinates are zero on entry and stay zero through every
 compressor roundtrip, but they ride the wire, so the accounting charges
 the plane-padded shape (``shape_dtype``).
 
-The JAX package's ``use_buckets`` context, which gives tensor-parallel
-leaves planes of their own, belongs to the LM train path and is not
-ported yet: every tree here packs into the single flat bucket.
+``for_tree(tree, lane=, row_multiple=)`` lays the flat bucket out at
+another width and pads its rows to a multiple (the fused-update kernel's
+(rows, 1024) layout with rows % block_rows == 0). The JAX package's
+``use_buckets`` context, which gives tensor-parallel leaves planes of
+their own, belongs to the LM train path and is not ported yet: every
+tree here packs into the single flat bucket (``buckets=None``).
 """
 from __future__ import annotations
 
@@ -83,19 +86,30 @@ class ParamPlane:
     buckets: Tuple[PlaneBucket, ...]
 
     @classmethod
-    def for_tree(cls, tree: PyTree) -> "ParamPlane":
+    def for_tree(cls, tree: PyTree, *, lane: int = LANE,
+                 row_multiple: int = 1, buckets=None) -> "ParamPlane":
         """The (cached) layout of ``tree``; leaves may be tensors or
-        ``ShapeDtype``s (only shape and dtype are read)."""
+        ``ShapeDtype``s (only shape and dtype are read). The flat bucket
+        is ``lane`` wide with its rows padded to a multiple of
+        ``row_multiple`` (at least ``row_multiple`` rows)."""
+        if buckets is not None:
+            raise NotImplementedError(
+                "bucket key trees (tensor-parallel planes) are not ported")
+        if lane < 1 or row_multiple < 1:
+            raise ValueError(f"lane {lane} and row_multiple {row_multiple} "
+                             "must be positive")
         leaves, struct = tree_mod.flatten(tree)
         shapes = tuple(tuple(int(d) for d in l.shape) for l in leaves)
         dtypes = tuple(l.dtype for l in leaves)
-        key = (struct, shapes, dtypes)
+        key = (struct, shapes, dtypes, lane, row_multiple)
         with _SPECS_LOCK:
             spec = _SPECS.get(key)
             if spec is None:
                 sizes = tuple(math.prod(s) for s in shapes)
-                rows = max(-(-sum(sizes) // LANE), 1)
-                bucket = PlaneBucket(lane=LANE,
+                step = lane * row_multiple
+                rows = max(-(-sum(sizes) // step) * row_multiple,
+                           row_multiple)
+                bucket = PlaneBucket(lane=lane,
                                      leaves=tuple(range(len(shapes))),
                                      sizes=sizes, rows=rows)
                 spec = cls(structure=struct, shapes=shapes, dtypes=dtypes,
@@ -104,16 +118,21 @@ class ParamPlane:
         return spec
 
     @classmethod
-    def for_stacked(cls, stack: PyTree) -> "ParamPlane":
+    def for_stacked(cls, stack: PyTree, **kw) -> "ParamPlane":
         """Layout of a node-stacked tree: leaves lose their leading axis."""
         per_node = tree_mod.tree_map(
             lambda v: ShapeDtype(tuple(v.shape[1:]), v.dtype), stack)
-        return cls.for_tree(per_node)
+        return cls.for_tree(per_node, **kw)
 
     # -- geometry ----------------------------------------------------------
     @property
     def n_buckets(self) -> int:
         return len(self.buckets)
+
+    @property
+    def total_size(self) -> int:
+        """Unpadded element count over the whole tree."""
+        return sum(b.size for b in self.buckets)
 
     @property
     def padded_size(self) -> int:

@@ -209,12 +209,14 @@ def _key_on(key, device) -> torch.Tensor:
 
 def sparsify_planes_stacked(comp: compressor_mod.Compressor,
                             tree_stacked: PyTree, key, step,
-                            n: int) -> PyTree:
+                            n: int, transform=None) -> PyTree:
     """Plane-granular compressor roundtrip of a node-stacked tree.
 
     Each bucket's zero-padded plane is compressed whole, per node, with
     key ``node_round_key(fold_in(key, bucket), node, step)`` -- one
     batched call over the n nodes (the JAX package vmaps it).
+    ``transform(payload, nodes)`` optionally rewrites the batched payload
+    before the roundtrip (compressed push-sum's contraction).
     """
     spec = plane_mod.ParamPlane.for_stacked(tree_stacked)
     planes = spec.pack_stacked(tree_stacked)
@@ -223,7 +225,10 @@ def sparsify_planes_stacked(comp: compressor_mod.Compressor,
         bkey = prng.fold_in(_key_on(key, dpl.device), b)
         nodes = torch.arange(n, device=dpl.device)
         node_keys = gossip.node_round_key(bkey, nodes, step)
-        out.append(comp.decompress(comp.compress(node_keys, dpl, node=nodes)))
+        pl = comp.compress(node_keys, dpl, node=nodes)
+        if transform is not None:
+            pl = transform(pl, nodes)
+        out.append(comp.decompress(pl))
     return spec.unpack_stacked(tuple(out))
 
 
@@ -470,17 +475,22 @@ def init_fused_state(params: PyTree, self_weight,
 
 def _plane_payload_exchange(planes, comp: compressor_mod.Compressor,
                             transport, *, base_key, step, schedule=None,
-                            useq=None):
+                            useq=None, transform=None):
     """Compressor-payload transport over wire planes: one compress per
     bucket plane (key ``node_round_key(fold_in(base, bucket), me,
     step)``); the payload crosses the static schedule's rounds (weighted
-    sum) or every union round (``useq``: per-slot increments). Returns
-    (own decompressed planes, received planes)."""
+    sum) or every union round (``useq``: per-slot increments).
+    ``transform`` rewrites each payload before the wire (compressed
+    push-sum's contraction). Shared by SDM's qsgd / payload modes and
+    compressed gradient-push. Returns (own decompressed planes, received
+    planes)."""
     me = transport.me
     own, recv = [], []
     for b, dp in enumerate(planes):
         key = gossip.node_round_key(prng.fold_in(base_key, b), me, step)
         pl = comp.compress(key, dp, node=me)
+        if transform is not None:
+            pl = transform(pl)
         own.append(comp.decompress(pl))
         if useq is not None:
             recv.append(gossip.union_exchange_payload(

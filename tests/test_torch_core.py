@@ -282,7 +282,8 @@ def test_transmitted_counts_exact(topo, spec, p):
 
 
 @pytest.mark.parametrize("name", ["sdm-dsgd", "sdm-dsgd-fused", "dc-dsgd",
-                                  "dsgd", "allreduce", "sdm_dsgd"])
+                                  "dsgd", "allreduce", "sdm_dsgd",
+                                  "gradient-push", "push-sum", "sgp"])
 def test_method_registry_accounting_equal(name):
     jm, tm = jmethod.get(name), tmethod.get(name)
     assert jm.name == tm.name
@@ -295,9 +296,9 @@ def test_method_registry_accounting_equal(name):
         tmethod.transmitted_elements(tm, tp, tcfg, seq=seq_t)
     assert jmethod.transmitted_bits(jm, jp, jcfg, seq=seq_j) == \
         tmethod.transmitted_bits(tm, tp, tcfg, seq=seq_t)
-    # the per-node executor is ported for every registered method
+    # every registered method is ported, with its per-node executor
     assert callable(tm.make_distributed) and callable(tm.init_stacked)
-    assert set(tmethod.names()) == set(jmethod.names()) - {"gradient-push"}
+    assert set(tmethod.names()) == set(jmethod.names())
 
 
 def test_phase6_wire_bits_value():

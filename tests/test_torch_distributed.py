@@ -12,14 +12,19 @@ the QSGD quantizers (a norm summed in another order can flip one
 stochastic level).
 
 For every case the port's executor is also held against the port's own
-``ReferenceSimulator`` / ``DSGDReference``, the transport's counters
-against ``wire_count`` (ppermute calls; bytes sent per node, for the
-deterministic wire formats), and the overlapped cases against the
-one-step-stale oracle of ``tests/helpers/dense_oracle.py``.
+``ReferenceSimulator`` / ``DSGDReference`` / ``GradientPushReference``,
+the transport's counters against ``wire_count`` (ppermute calls; bytes
+sent per node, for the deterministic wire formats), and the overlapped
+cases against the one-step-stale oracle of
+``tests/helpers/dense_oracle.py``. Gradient-push cases compare the
+de-biased z = x / w (what the JAX sweep compares); the port's
+``GradientPushReference`` is also held to the JAX package's on noisy,
+clipped trajectories, and compressed push-sum to its mass-conservation
+invariant (the JAX sweep's ``push_conservation_probe``).
 
-Not run here (they stay with the JAX package's own sweep):
-gradient-push cases (the method is not ported) and the "plane" group
-(multi-leaf trees: covered by the LM executor in test_torch_lm_train.py).
+Not run here (it stays with the JAX package's own sweep): the "plane"
+group (multi-leaf trees: covered by the LM executor in
+test_torch_lm_train.py).
 """
 import os
 import pathlib
@@ -67,6 +72,17 @@ CASES = [
     ("baselines", "dsgd", "matchings8x3", "-"),
     ("baselines", "allreduce", "ring8", "-"),
     ("baselines", "allreduce", "er8", "-"),
+    ("baselines", "gradient-push", "dring8", "-"),
+    ("baselines", "gradient-push", "der8", "-"),
+    ("compressed", "gradient-push", "dring8", "bernoulli"),
+    ("compressed", "gradient-push", "dring8", "fixedk"),
+    ("compressed", "gradient-push", "der8", "fixedk"),
+    ("compressed", "gradient-push", "der8", "qsgd"),
+    ("compressed", "gradient-push", "dring8", "qsgdf:4"),
+    ("time_varying", "gradient-push", "matchings8x2", "bernoulli"),
+    ("time_varying", "gradient-push", "matchings8x2", "fixedk"),
+    ("time_varying", "gradient-push", "matchings8x2", "qsgd"),
+    ("overlap", "gradient-push:ov", "dring8", "fixedk"),
 ]
 
 DIM, STEPS, SEED = 5 * 128, 12, 42   # method_parity_check's DIM/STEPS/key
@@ -133,7 +149,8 @@ def _jax_main(out_path: str) -> None:
                 return state, None
 
             state, _ = jax.lax.scan(body, state, None, length=STEPS)
-            return jax.tree.map(lambda v: v[None], state.x)
+            return jax.tree.map(lambda v: v[None],
+                                mpc.debias(name, state.x, state))
 
         mesh = compat.make_mesh((n,), ("data",))
         fn = compat.shard_map(inner, mesh=mesh,
@@ -157,9 +174,11 @@ def _jax_main(out_path: str) -> None:
 torch = pytest.importorskip("torch")
 
 
-def parse_seq(spec):
-    """method_parity_check.parse_seq on the port's topology copy."""
-    from repro_torch.core import gossip, topology
+def parse_seq(spec, gossip=None, topology=None):
+    """method_parity_check.parse_seq on the port's topology copy (or on
+    the ``gossip`` / ``topology`` modules given)."""
+    if gossip is None:
+        from repro_torch.core import gossip, topology
 
     m = re.fullmatch(r"matchings(\d+)x(\d+)", spec)
     if m:
@@ -176,8 +195,14 @@ def parse_seq(spec):
 
 def make_cfg(mkey, meth, mode, n):
     """method_parity_check.make_cfg on the port's config classes."""
-    from repro_torch.core import baselines, sdm_dsgd
+    from repro_torch.core import baselines, gradient_push, sdm_dsgd
 
+    if meth.config_cls is gradient_push.GradientPushConfig:
+        # a non-"-" mode is a compressor spec: the error-compensated
+        # compressed push-sum variant
+        return gradient_push.GradientPushConfig(
+            gamma=0.2, compressor=None if mode == "-" else mode, p=0.25,
+            overlap=mkey.endswith(":ov"))
     if meth.config_cls is not sdm_dsgd.SDMConfig:
         return baselines.DSGDConfig(gamma=0.2)
     p = tuple(0.15 + 0.05 * (i % 4) for i in range(n)) \
@@ -223,6 +248,12 @@ def run_port(mkey, topo, mode):
             ref, _ = sim.step(ref, lambda x, _b: (grads(x), 0.0), None, key)
     if name == "sdm-dsgd-fused":
         ref, _ = sim.advance(ref, key)
+    if name == "gradient-push":       # compare the de-biased z = x / w
+        from repro_torch.core.gradient_push import _debias
+
+        return (_debias(state.x, state.w)["w"].numpy(),
+                sim.eval_params(ref)["w"].numpy(), transport, meth, cfg, seq,
+                p0)
     return (state.x["w"].numpy(), ref.x["w"].numpy(), transport, meth, cfg,
             seq, p0)
 
@@ -274,6 +305,8 @@ def test_executor_matches_jax_executor(jax_results, group, mkey, topo,
     deterministic = mode_s != "bernoulli" and not isinstance(
         getattr(cfg, "p", None), tuple)
     if deterministic:
+        # gradient-push's fixed-k indices ship as int32, wider than the
+        # accounting's ceil(log2 d) bits (wire_count.INDEX_WIRE_BITS)
         assert transport.bytes_sent == wire_count.expected_bytes_sent(
             meth, {"w": p0}, cfg, seq, STEPS)
     assert (transport.permutes > 0) == (name != "allreduce")
@@ -284,6 +317,99 @@ def test_overlap_diverges_from_the_plain_transport():
     on, _, *_ = run_port("sdm-dsgd:ov", "ring8", "fixedk_packed")
     off, _, *_ = run_port("sdm-dsgd", "ring8", "fixedk_packed")
     assert float(np.max(np.abs(on - off))) > 1e-4
+
+
+# (topology, compressor or None, overlap): static, directed, time-varying
+PUSH_REF_CASES = [("der8", None, False), ("dring8", "fixedk", False),
+                  ("der8", "qsgdf:4", False), ("matchings8x2", "bernoulli",
+                                               False),
+                  ("dring8", "fixedk", True)]
+
+
+@pytest.mark.parametrize("topo,comp,overlap", PUSH_REF_CASES,
+                         ids=[f"{t}|{c}|ov{int(o)}"
+                              for t, c, o in PUSH_REF_CASES])
+def test_push_reference_matches_jax_reference(topo, comp, overlap):
+    """The port's GradientPushReference against the JAX package's on the
+    same inputs and keys, with clipping and Gaussian noise on (the
+    parity sweep runs noise-free): de-biased z, mass w and the consensus
+    at 1e-4 of max(scale, 1) after 12 steps of run_decentralized's key
+    chain."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.core import gossip as jgossip, gradient_push as jgp
+    from repro.core import topology as jtopology
+    from repro_torch import prng
+    from repro_torch.core import gradient_push as tgp
+
+    seq_t = parse_seq(topo)
+    seq_j = parse_seq(topo, jgossip, jtopology)
+    n = seq_t.n_nodes
+    kw = dict(gamma=0.2, sigma=0.5, clip_c=1.0, compressor=comp, p=0.25,
+              overlap=overlap)
+    sim_t = tgp.GradientPushReference(seq_t, tgp.GradientPushConfig(**kw))
+    sim_j = jgp.GradientPushReference(seq_j, jgp.GradientPushConfig(**kw))
+    a, b, p0 = inputs(n)
+
+    def grads_t(z, _):
+        w = z["w"]
+        return {"w": torch.stack([torch.from_numpy(a[i]).T @ (
+            torch.from_numpy(a[i]) @ w[i] - torch.from_numpy(b[i])) / 16
+            for i in range(n)])}, 0.0
+
+    def grads_j(z, _):
+        r = jnp.einsum("nbd,nd->nb", a, z["w"]) - b
+        return {"w": jnp.einsum("nbd,nb->nd", a, r) / 16}, 0.0
+
+    st_t = sim_t.init({"w": torch.from_numpy(p0).expand(n, DIM).clone()})
+    st_j = sim_j.init({"w": jnp.broadcast_to(jnp.asarray(p0), (n, DIM))})
+    key_t, key_j = prng.PRNGKey(SEED), jax.random.PRNGKey(SEED)
+    for _ in range(STEPS):
+        key_t, sub_t = prng.split(key_t)
+        key_j, sub_j = jax.random.split(key_j)
+        st_t, _ = sim_t.step(st_t, grads_t, None, sub_t)
+        st_j, _ = sim_j.step(st_j, grads_j, None, sub_j)
+    z_t = sim_t.eval_params(st_t)["w"].numpy()
+    z_j = np.asarray(sim_j.eval_params(st_j)["w"])
+    scale = max(float(np.max(np.abs(z_j))), 1.0)
+    assert float(np.max(np.abs(z_t - z_j))) < 1e-4 * scale
+    assert np.allclose(st_t.w.numpy(), np.asarray(st_j.w), atol=1e-6)
+    cons_t = sim_t.consensus(st_t)["w"].numpy()
+    cons_j = np.asarray(sim_j.consensus(st_j)["w"])
+    assert float(np.max(np.abs(cons_t - cons_j))) < 1e-4 * scale
+
+
+@pytest.mark.parametrize("topo,mode", [("matchings8x2", "fixedk"),
+                                       ("der8", "qsgd"),
+                                       ("dring8", "qsgdf:4")])
+def test_compressed_push_conserves_mass(topo, mode):
+    """The JAX sweep's ``push_conservation_probe`` on the port: pure
+    gossip (gamma = sigma = 0) must keep sum x / sum w at the initial mean
+    on every step, and the de-biased estimates must reach it."""
+    from repro_torch import prng
+    from repro_torch.core import gradient_push as tgp, method as method_mod
+
+    seq = parse_seq(topo)
+    cfg = tgp.GradientPushConfig(gamma=0.0, sigma=0.0, compressor=mode,
+                                 p=0.4)
+    sim = method_mod.get("gradient-push").make_reference(seq, cfg)
+    rng = np.random.default_rng(5)
+    stack = {"w": torch.from_numpy(rng.normal(size=(seq.n_nodes, 6)).astype(
+        np.float32))}
+    mean0 = stack["w"].mean(dim=0).numpy()
+    state = sim.init(stack)
+    key = prng.PRNGKey(0)
+    mass_err = 0.0
+    for _ in range(200):
+        key, sub = prng.split(key)
+        state, _ = sim.step(state, lambda p, _b: (
+            {k: torch.zeros_like(v) for k, v in p.items()}, 0.0), None, sub)
+        cons = sim.consensus(state)["w"].numpy()
+        mass_err = max(mass_err, float(np.max(np.abs(cons - mean0))))
+    z = sim.eval_params(state)["w"].numpy()
+    assert mass_err < 1e-4
+    assert float(np.max(np.abs(z - mean0))) < 0.05
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--jax"]:

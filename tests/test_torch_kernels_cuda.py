@@ -1,8 +1,9 @@
 """PyTorch port: the CUDA kernels against their plain versions, on the card.
 
-The paged decode kernel is held at f32/bf16 tolerances; the qsgd_pack
-and fixedk_gather_pack kernels must equal their plain versions bit for
-bit (``torch.equal``).
+The paged decode and prefill flash kernels are held at f32/bf16
+tolerances; the qsgd_pack and fixedk_gather_pack kernels must equal their
+plain versions bit for bit (``torch.equal``), the fused SDM update too or,
+where a transcendental differs in its last bit, within 1e-6.
 
 Imports no jax (the card's machine has none). Every test here is marked
 ``cuda`` and skips without a GPU; run them on the card with
@@ -214,3 +215,146 @@ def test_fixedk_gather_pack_kernel_rejects_what_it_does_not_take():
         fixedk_gather_pack(db, idx.cpu(), scale=4.0)
     with pytest.raises(ValueError):            # indices do not batch
         fixedk_gather_pack(db, idx[:1], scale=4.0)
+
+
+# --------------------------------------------------------------------------
+# sdm_update (kernels/csrc/sdm_update.cu): equal to the plain version
+# --------------------------------------------------------------------------
+
+SDM_KW = dict(p=0.25, theta=0.4, gamma=0.05, sigma=0.7, clip_c=1.5,
+              self_w=1.0 / 3.0)
+
+
+def _sdm_operands(rows, seed, dev, high_bits=False):
+    rng = np.random.default_rng(seed)
+    shape = (rows, 1024)
+    f = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+         for _ in range(4)]
+    lo = 2**31 if high_bits else 0
+    w = [torch.from_numpy(rng.integers(lo, 2**32, size=shape,
+                                       dtype=np.uint32).view(np.int32)
+                          ).to(dev) for _ in range(3)]
+    return f + w
+
+
+def _sdm_max_err(got, want):
+    """0.0 when every output is bit-equal; else the largest difference,
+    which must stay within the JAX kernel tests' 1e-6."""
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return 0.0
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,high_bits", [(8, False), (64, False),
+                                            (256, True)])
+@pytest.mark.parametrize("kw", [SDM_KW, dict(SDM_KW, sigma=0.0),
+                                dict(SDM_KW, clip_c=None),
+                                dict(SDM_KW, p=1.0, theta=1.0)],
+                         ids=["default", "sigma0", "no_clip", "p1_theta1"])
+def test_sdm_update_kernel_equals_plain(rows, high_bits, kw):
+    from repro_torch.kernels.sdm_update import (sdm_update_planes,
+                                                sdm_update_ref)
+    dev = _cuda()
+    ops = _sdm_operands(rows, rows, dev, high_bits)
+    n0 = sdm_update_planes.launches
+    got = sdm_update_planes(*ops, block_rows=8, **kw)
+    torch.cuda.synchronize()
+    assert sdm_update_planes.launches == n0 + 1
+    want = sdm_update_ref(*ops, **kw)
+    assert _sdm_max_err(got, want) <= 1e-6
+    assert all(torch.isfinite(t).all() for t in got)
+    # the same inputs on the CPU take the plain version: no launch
+    cpu = sdm_update_planes(*(t.cpu() for t in ops), block_rows=8, **kw)
+    assert sdm_update_planes.launches == n0 + 1
+    assert _sdm_max_err([t.cpu() for t in got], cpu) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_sdm_update_tree_wrapper_on_the_card_equals_the_cpu():
+    from repro_torch import prng
+    from repro_torch.kernels.sdm_update import sdm_update, sdm_update_planes
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    shapes = {"conv": (3, 3, 16, 16), "bias": (16,), "dense": (64, 10)}
+    trees = [{k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+              for k, s in shapes.items()} for _ in range(4)]
+    n0 = sdm_update_planes.launches
+    got = sdm_update(*({k: v.to(dev) for k, v in t.items()} for t in trees),
+                     prng.PRNGKey(4), block_rows=8, **SDM_KW)
+    assert sdm_update_planes.launches == n0 + 1
+    want = sdm_update(*trees, prng.PRNGKey(4), block_rows=8, **SDM_KW)
+    for g_tree, w_tree in zip(got, want):
+        for name in shapes:
+            assert _sdm_max_err([g_tree[name].cpu()], [w_tree[name]]) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_sdm_update_kernel_rejects_what_it_does_not_take():
+    from repro_torch.kernels.sdm_update import sdm_update_planes
+    dev = _cuda()
+    ops = _sdm_operands(8, 0, dev)
+    with pytest.raises(ValueError):            # int64 bit words on the card
+        sdm_update_planes(*ops[:4], *(w.long() for w in ops[4:]),
+                          block_rows=8, **SDM_KW)
+    with pytest.raises(ValueError):            # rows % block_rows
+        sdm_update_planes(*ops, block_rows=16, **SDM_KW)
+    with pytest.raises(ValueError):            # mixed devices
+        sdm_update_planes(ops[0].cpu(), *ops[1:], block_rows=8, **SDM_KW)
+
+
+# --------------------------------------------------------------------------
+# flash_attention (kernels/csrc/flash_attn.cu): f32 2e-5, bf16 2e-2
+# --------------------------------------------------------------------------
+
+# (b, sq, skv, h, kvh, dh, block_q): every compiled head_dim, GQA 4 and 2,
+# a ragged key count, query rows not a multiple of the kernel's 64-row tile
+FLASH_SHAPES = [(2, 128, 160, 4, 4, 32, 128), (1, 256, 256, 8, 2, 64, 128),
+                (1, 192, 192, 4, 2, 128, 64), (1, 96, 96, 8, 4, 256, 32)]
+FLASH_MASKS = [dict(causal=False), dict(causal=True),
+               dict(causal=True, window=16),          # window < key tile
+               dict(causal=True, window=100, softcap=50.0),
+               dict(causal=False, window=40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=[f"dh{s[5]}" for s in FLASH_SHAPES])
+@pytest.mark.parametrize("mask", FLASH_MASKS,
+                         ids=["full", "causal", "window16", "window100_cap",
+                              "band40"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(shape, mask, dtype):
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    dev = _cuda()
+    b, sq, skv, h, kvh, dh, bq = shape
+    rng = np.random.default_rng(sq + dh)
+    q = torch.from_numpy(rng.normal(size=(b, sq, h, dh)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(b, skv, kvh, dh)).astype(
+        np.float32))
+    v = torch.from_numpy(rng.normal(size=(b, skv, kvh, dh)).astype(
+        np.float32))
+    q, k, v = (t.to(dev, dtype) for t in (q, k, v))
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, block_q=bq, **mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, **mask)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOLERANCE[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_what_it_does_not_take():
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    dev = _cuda()
+    q = torch.randn(1, 64, 2, 48, device=dev)
+    with pytest.raises(ValueError):            # head_dim 48
+        flash_attention(q, q, q, block_q=64)
+    q = torch.randn(1, 64, 2, 64, device=dev)
+    with pytest.raises(ValueError):            # mixed dtypes
+        flash_attention(q, q.to(torch.bfloat16), q, block_q=64)
+    with pytest.raises(ValueError):            # f16
+        flash_attention(*(q.half() for _ in range(3)), block_q=64)

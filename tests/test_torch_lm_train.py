@@ -227,6 +227,24 @@ def test_launcher_cli_runs_on_the_cpu(tmp_path):
     assert all(torch.isfinite(v).all() for v in tree_mod.leaves(params))
 
 
+def test_launcher_cli_runs_gradient_push_on_the_cpu():
+    """--method gradient-push on a directed graph through the registry:
+    compressed (fixedk:8, payload + mass) and full-state push-sum."""
+    for extra in (["--compressor", "fixedk:8", "--topology", "dring"],
+                  ["--topology", "der:0.5"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+             "--smoke", "--device", "cpu", "--mesh", "4", "--steps", "2",
+             "--method", "gradient-push", *extra],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert "method=gradient-push" in out.stdout
+        losses = [float(v) for v in re.findall(r"^step +\d+ loss (\S+)",
+                                               out.stdout, re.MULTILINE)]
+        assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+
+
 def test_launcher_one_process_per_node_on_gloo():
     """--init-method runs one node per process (gloo on the CPU): the same
     losses as the run with both nodes on one StackTransport."""

@@ -89,6 +89,37 @@ def test_run_decentralized_matches_jax_trajectory(case):
     assert len(tres.step_s) == steps and tres.state.step == steps
 
 
+# gradient-push through the registry: (topology, compressor)
+PUSH_TRAJECTORIES = [("dring", None), ("der:0.35", "fixedk"),
+                     ("dring", "qsgdf:4")]
+
+
+@pytest.mark.parametrize("topo,compressor", PUSH_TRAJECTORIES,
+                         ids=[f"{t}|{c}" for t, c in PUSH_TRAJECTORIES])
+def test_run_decentralized_gradient_push_matches_jax(topo, compressor):
+    """``run_decentralized(algorithm="gradient-push")`` on the quickstart
+    MLR: losses and de-biased eval accuracy against the JAX trainer, and
+    the exact wire accounting of push-sum (payload + mass scalar)."""
+    from repro.core.gradient_push import GradientPushConfig as JPush
+    from repro_torch.core.gradient_push import GradientPushConfig as TPush
+
+    common = dict(topo=topo, algorithm="gradient-push", steps=8, seed=0,
+                  eps_target=1.0, eval_every=4)
+    cfg = dict(gamma=0.05, sigma=1.0, clip_c=5.0, compressor=compressor,
+               p=0.2)
+    jres = jrun(sdm_cfg=JPush(**cfg), **common,
+                **_quickstart_inputs("jax"))
+    tres = trun(sdm_cfg=TPush(**cfg), device="cpu", **common,
+                **_quickstart_inputs("torch"))
+    np.testing.assert_allclose(tres.losses, jres.losses, rtol=1e-4)
+    assert tres.comm_elements == jres.comm_elements
+    assert tres.comm_bits == jres.comm_bits
+    assert tres.epsilons == jres.epsilons
+    np.testing.assert_allclose(tres.eval_accuracy, jres.eval_accuracy,
+                               atol=2e-3)
+    assert tres.state.step == 8 and tuple(tres.state.w.shape) == (8,)
+
+
 def test_run_decentralized_checkpoints(tmp_path):
     inputs = _quickstart_inputs("torch")
     inputs.pop("privacy")

@@ -139,6 +139,25 @@ def test_stack_transport_ppermute_semantics_and_counters():
         t.ppermute(torch.zeros(3, 2), ((0, 1),))
 
 
+def test_payload_indices_cross_as_int32():
+    """Explicit indices ship at lax.top_k's int32 width (4 bytes each on
+    the counters) and come back in their own dtype, unchanged."""
+    from repro_torch.core import gossip
+    from repro_torch.core.compressor import Payload
+    from repro_torch.core.transport import StackTransport
+
+    t = StackTransport(WORLD)
+    idx = torch.arange(WORLD * 3, dtype=torch.int64).reshape(WORLD, 3) * 7
+    vals = torch.ones(WORLD, 3, 2)
+    perm = ((0, 1), (1, 2), (2, 3), (3, 0))
+    got = gossip._ppermute_payload(t, Payload(values=vals, indices=idx),
+                                   perm)
+    assert got.indices.dtype == torch.int64
+    assert torch.equal(got.indices, torch.roll(idx, 1, dims=0))
+    assert t.permutes == 2
+    assert t.bytes_sent == {i: 3 * 2 * 4 + 3 * 4 for i in range(WORLD)}
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
