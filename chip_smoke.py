@@ -7,10 +7,13 @@ NVIDIA GPU.
 Phases (any failure exits non-zero):
   1. card and build: the card's name and power limit; nvcc builds every
      kernel of the path from ``src/repro_torch/kernels/csrc`` (sm_90a);
-     TF32 is switched off for f32 matmuls and convolutions.
+     registers, spill stores and resident blocks per SM of the attention
+     kernels' instances (a bf16 flash instance that spills fails); TF32
+     is switched off for f32 matmuls and convolutions.
   2. each kernel against its plain PyTorch version, on the card, at
      gemma2-2b's decode shapes, in f32 and bf16; then its time, the
-     plain version's time and its bound at the serving path's shapes.
+     plain version's time and its bound at the serving path's shapes,
+     and the same call under other split-K plans.
   3. the main path: ``ServingEngine`` serves 16 ragged requests through
      gemma2-2b at full width and depth (bf16, seeded random weights).
      Every kernel must have launched in this run: the paged decode
@@ -1367,6 +1370,61 @@ def push_resnet_phase(torch, np, card, dev="cuda"):
         raise AssertionError("gradient-push ResNet-20 run failed")
 
 
+def ptxas_entries(text: str):
+    """{mangled kernel name: (registers, spill store bytes)} from an
+    ``nvcc -Xptxas -v`` log."""
+    out = {}
+    for m in re.finditer(r"Compiling entry function '(\S+)'.*?(\d+) bytes "
+                         r"spill stores.*?Used (\d+) registers", text,
+                         re.S):
+        out[m.group(1)] = (int(m.group(3)), int(m.group(2)))
+    return out
+
+
+def kernel_resources(libs):
+    """Registers, spills and resident blocks per SM of the two attention
+    kernels' instances on the main paths: flash at every head_dim in
+    both types (blocks per SM from ``flash_attn_blocks_per_sm``), and the
+    serving shape's paged-decode and merge instances (bf16, dh 256,
+    group 2)."""
+    import ctypes
+
+    from repro_torch.kernels._build import load_library
+
+    occ = load_library("flash_attn").flash_attn_blocks_per_sm
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    res = {"flash_attn": [], "paged_decode": []}
+    for name, (regs, spill) in ptxas_entries(
+            libs["flash_attn"].with_suffix(".log").read_text()).items():
+        m = re.search(r"flash_(bf16|fwd)_kernelI(?:f)?Li(\d+)E", name)
+        dtype, dh = ("bf16" if m.group(1) == "bf16" else "f32"), int(
+            m.group(2))
+        blocks = ctypes.c_int(0)
+        rc = occ(dh, 1 if dtype == "bf16" else 0, ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"flash_attn_blocks_per_sm: CUDA error {rc}")
+        res["flash_attn"].append(dict(
+            instance=f"{dtype} dh{dh}", registers=regs, spill_stores=spill,
+            blocks_per_sm=blocks.value))
+    for name, (regs, spill) in ptxas_entries(
+            libs["paged_decode"].with_suffix(".log").read_text()).items():
+        if "paged_merge_kernelI13__nv_bfloat16" in name:
+            inst = "merge bf16"
+        elif "paged_decode_kernelI13__nv_bfloat16Li8ELi2ELi4E" in name:
+            inst = "split bf16 dh256 G2 U4"
+        else:
+            continue
+        res["paged_decode"].append(dict(
+            instance=inst, registers=regs, spill_stores=spill,
+            blocks_per_sm=None))
+    bad = [r["instance"] for r in res["flash_attn"]
+           if r["instance"].startswith("bf16") and r["spill_stores"]]
+    if bad:
+        raise AssertionError(f"flash bf16 instances spill: {bad}")
+    return res
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1378,8 +1436,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attn.decode import (paged_attention,
-                                                       paged_attention_ref)
+    from repro_torch.kernels.flash_attn.decode import (SplitPlan,
+                                                       _paged_decode_cuda,
+                                                       paged_attention,
+                                                       paged_attention_ref,
+                                                       split_plan)
     from repro_torch.kernels.flash_attn.ops import flash_attention
     from repro_torch.kernels.sdm_update import sdm_update_planes
     from repro_torch.kernels.wire_compress import (fixedk_gather_pack,
@@ -1436,6 +1497,12 @@ def main() -> int:
         log(f"  {lib.name}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"{sum(s > 0 for s in spills)} spill")
+    resources = kernel_resources(libs)
+    for key, rows in resources.items():
+        for r in rows:
+            log(f"  {key} {r['instance']}: {r['registers']} registers, "
+                f"{r['spill_stores']} bytes spill stores, "
+                f"{r['blocks_per_sm']} blocks per SM")
 
     # ---- 2. kernels against their plain versions -------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1478,6 +1545,22 @@ def main() -> int:
                                   pools=8, **shape)
     ker_ms, ker_host_ms = cuda_ms(torch, lambda i: paged_attention(
         q, *kv[i % 8], tbl, sl, window=None, softcap=50.0), iters=208)
+    # the same call under other split plans, P pages per split (the
+    # shipped plan is split_plan's; P = sb is one split, no merge)
+    plan = split_plan(8, shape["kvh"], shape["group"], shape["dh"], sb)
+    sweep = {}
+    for pages in sorted({1, 2, 4, plan.pages_per_split, 8, 16, sb}):
+        n_sp = -(-sb // pages)
+        alt = SplitPlan(pages, n_sp, (8, 8, n_sp, 258) if n_sp > 1 else None)
+        sweep[pages], _ = cuda_ms(torch, lambda i: _paged_decode_cuda(
+            q, *kv[i % 8], tbl, sl, window=None, softcap=50.0, plan=alt),
+            iters=208)
+    log(f"paged_decode split plans at the serving shape (P pages per "
+        f"split: device us): "
+        + ", ".join(f"P {p} (S {-(-sb // p)}) {t * 1e3:.2f}"
+                    for p, t in sweep.items())
+        + f"; shipped split_plan: P {plan.pages_per_split}, S "
+        f"{plan.n_splits}")
     plain_ms, _ = cuda_ms(torch, lambda i: paged_attention_ref(
         q, *kv[i % 8], tbl, sl, window=None, softcap=50.0), iters=16)
     got = paged_attention(q, *kv[0], tbl, sl, window=None, softcap=50.0)
@@ -1511,6 +1594,9 @@ def main() -> int:
         ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None, sdpa_gathered_no_softcap_ms=sdpa_ms,
         host_ms_per_call=ker_host_ms,
+        split_plan=dict(pages_per_split=plan.pages_per_split,
+                        n_splits=plan.n_splits),
+        split_sweep_ms={str(p): t for p, t in sweep.items()},
         max_abs_err=max(errs + [serve_err]))}
     del q, kv, tbl, sl, kg, vg, got, want
     torch.cuda.empty_cache()
@@ -1560,7 +1646,9 @@ def main() -> int:
         f"{np.percentile(ttft_ms, 99):.1f}; {stats.prefills} prefills; pages "
         f"peak {stats.pages_peak} / dense {stats.pages_dense_equiv}; peak "
         f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
-        f"launches {launches}")
+        f"launches {launches}; the {n_attn} paged-decode calls at phase "
+        f"2's device time take {n_attn * ker_ms:.3f} ms of the mean step "
+        f"({n_attn * ker_ms / steps_ms.mean():.3f})")
     bad = [i for i, r in enumerate(reqs)
            if r.output is None or len(r.output) != max_new
            or not all(0 <= t < cfg.padded_vocab for t in r.output)]
@@ -1689,6 +1777,8 @@ def main() -> int:
     push_resnet_phase(torch, np, card)
 
     # ---- results -----------------------------------------------------------
+    for key, rows in resources.items():
+        timing[key]["ptxas"] = rows
     rows = [dict(rec, launches=launches[key], **timing[key])
             for key, (rec, _) in kernels.items()]
     print(json.dumps({"kernels": rows}))

@@ -12,6 +12,7 @@ import time
 import torch
 
 from repro_torch import prng, tree as tree_mod
+from repro_torch._device import resolve_device
 from repro_torch.core import gossip, topology
 from repro_torch.data import classification_dataset, node_partitioned_batches
 from repro_torch.models import vision_small
@@ -27,13 +28,15 @@ BATCH_PER_NODE = 16
 
 
 def make_mlr_testbed(seed: int = 0, n_train: int = N_TRAIN,
-                     topology_spec: str = "er:0.35", device="cpu"):
+                     topology_spec: str = "er:0.35", device="cuda"):
     """Paper section 5: ER(50, 0.35) graph + MLR on MNIST-shaped data.
     ``topology_spec`` swaps the graph (``gossip.sequence_by_name``
     syntax: the directed dring / der graphs for gradient-push, or a
     time-varying "matchings:<L>" sequence). Returns (topology, params
     stack, grad_fn, eval_fn, batches, m_local), the params and the test
-    set on ``device``."""
+    set on ``device`` (the card unless the caller passes "cpu"; raises
+    without one)."""
+    device = resolve_device(device)
     if topology_spec.startswith("matchings"):
         topo = gossip.sequence_by_name(topology_spec, N_NODES, seed=seed)
     else:

@@ -9,29 +9,37 @@
 // What bounds it: bytes. Each (row, kv head) reads its visible K and V
 // once: about sum_rows ceil(visible_len/page)*page * kvh * dh * 2 (K and V)
 // * bytes/elt, over the card's 3.35 TB/s. The arithmetic is 4 flops per
-// byte pair at most, far below the tensor cores' ridge.
+// byte pair at most, far below the tensor cores' ridge, so it stays on the
+// CUDA cores; what the card needs is enough blocks in flight.
 //
 // Design (not a block-by-block copy of the TPU kernel):
-//  * one thread block per (row, kv head, chunk of <= 8 query heads of the
-//    GQA group); a loop over that row's tokens stands in for the TPU's
-//    sequential third grid axis, and the block reads page ids from the
-//    block table itself (the TPU prefetches them as scalars);
-//  * it stops at seq_len (the TPU visits all n_blocks) and starts at the
-//    window's first visible token, so pages wholly before the window are
-//    never read;
-//  * warp w takes a tile of U tokens from lo + w*U, then jumps by
-//    kWarps*U. Each lane holds E = dh/32 contiguous elements of a K/V row
-//    (16-byte vector loads where the width allows), so a token's row is
-//    one coalesced read. The next tile's K and V are loaded into registers
-//    before the current tile's arithmetic, so loads overlap compute;
+//  * split-K: grid (row, kv head x chunk of <= 8 query heads of the GQA
+//    group, split). Split s covers the row's pages [s P, (s + 1) P); P and
+//    the number of splits S come from the host, from the shapes alone
+//    (decode.split_plan: no seq_lens read, no sync), so that a small batch
+//    still gives the card several blocks per SM. The block reads its page
+//    ids from the block table itself (the TPU prefetches them as scalars);
+//  * a split clips its token range to [window start, seq_len): one wholly
+//    past seq_len or before the window writes an empty partial (m -1e30,
+//    l 0, acc 0) and returns at once, so pages nobody sees are never read;
+//  * inside a block, warp w takes a tile of U tokens from lo + w*U, then
+//    jumps by kWarps*U. Each lane holds E = dh/32 contiguous elements of a
+//    K/V row (16-byte vector loads where the width allows), so a token's
+//    row is one coalesced read. The next tile's K and V are loaded into
+//    registers before the current tile's arithmetic, so loads overlap
+//    compute; every query head of the chunk shares one K/V read;
 //  * scores, running max and sum, and the accumulator are f32. The tile's
 //    U x G q.k dots are reduced with warp shuffles side by side (one chain
 //    of 5 shuffle rounds, not U*G chains), and the online softmax is
 //    updated once per tile. Each warp keeps its own softmax state; the
 //    warps merge through shared memory at the end;
+//  * S > 1: each block writes its unnormalized partial (acc, m, l) to f32
+//    scratch (b, h, S, dh + 2), and paged_merge_kernel combines a (row,
+//    q head)'s partials: m* = max m_s, out = sum e^(m_s - m*) acc_s /
+//    sum e^(m_s - m*) l_s (0 when every split was empty: seq_len 0).
+//    S = 1: the block normalizes and writes the output itself;
 //  * the output is written in the input dtype.
-// Left for later: splitting a row's tokens across blocks (split-K) to
-// fill more than b*kvh SMs, and TMA / cp.async staging.
+// Left for later: TMA / cp.async staging of the pages.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,6 +49,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kMaxGroup = 8;
+constexpr float kEmptyMax = -1e30f;  // m of a split that saw no token
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -113,19 +122,35 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ block_table,
                     const int* __restrict__ seq_lens, T* __restrict__ out,
-                    int kvh, int group, int page, int n_blocks, int window,
-                    float softcap, float scale) {
+                    float* __restrict__ part, int kvh, int group, int page,
+                    int n_blocks, int window, float softcap, float scale,
+                    int split_tokens) {
   constexpr int dh = 32 * E;
-  const int row = blockIdx.x, h = blockIdx.y;
-  const int g0 = blockIdx.z * G;
+  const int row = blockIdx.x;
+  const int n_chunks = (group + G - 1) / G;
+  const int h = blockIdx.y / n_chunks;
+  const int g0 = (blockIdx.y - h * n_chunks) * G;
   const int ng = min(G, group - g0);
+  const int split = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // query head (h, g0 + g) of this row: out row and scratch slot
+  const size_t head0 = (size_t)(row * kvh + h) * group + g0;
 
   const int seq_len = seq_lens[row];
   // the table covers n_blocks*page positions; like the TPU kernel, never
   // look past it. The window counts back from the row's own last token.
-  const int hi = min(seq_len, n_blocks * page);
-  const int lo = window > 0 ? max(0, seq_len - window) : 0;
+  // This split sees only its own pages of that range.
+  const int hi = min(min(seq_len, n_blocks * page), (split + 1) * split_tokens);
+  const int lo = max(window > 0 ? max(0, seq_len - window) : 0,
+                     split * split_tokens);
+  if (part != nullptr && lo >= hi) {  // an empty split: an empty partial
+    for (int i = threadIdx.x; i < ng * (dh + 2); i += blockDim.x) {
+      const int g = i / (dh + 2), d = i % (dh + 2);
+      part[((head0 + g) * gridDim.z + split) * (dh + 2) + d] =
+          d == dh ? kEmptyMax : 0.f;
+    }
+    return;
+  }
 
   float qr[G][E], acc[G][E], m[G], l[G];
 #pragma unroll
@@ -134,9 +159,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[g][e] = qr[g][e] = 0.f;
-    if (g < ng)
-      load_row<T, E>(q + ((size_t)(row * kvh + h) * group + g0 + g) * dh + lane * E,
-                     qr[g]);
+    if (g < ng) load_row<T, E>(q + (head0 + g) * dh + lane * E, qr[g]);
   }
 
   const int* trow = block_table + (size_t)row * n_blocks;
@@ -238,16 +261,47 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         den = fmaf(s[dh + 1], f, den);
       }
     }
-    store(out + ((size_t)(row * kvh + h) * group + g0 + g) * dh + d,
-          den > 0.f ? num / den : 0.f);
+    if (part == nullptr) {
+      store(out + (head0 + g) * dh + d, den > 0.f ? num / den : 0.f);
+    } else {  // lo < hi: warp 0 saw token lo, so mx is finite
+      float* p = part + ((head0 + g) * gridDim.z + split) * (dh + 2);
+      p[d] = num;
+      if (d == 0) {
+        p[dh] = mx;
+        p[dh + 1] = den;
+      }
+    }
+  }
+}
+
+// out[row, head] = sum_s e^(m_s - m*) acc_s / sum_s e^(m_s - m*) l_s over
+// the S partials (acc_s[dh], m_s, l_s) of one (row, q head) per block;
+// rows whose splits were all empty (l = 0) give zeros
+template <typename T>
+__global__ void paged_merge_kernel(const float* __restrict__ part,
+                                   T* __restrict__ out, int n_splits,
+                                   int dh) {
+  const float* p = part + (size_t)blockIdx.x * n_splits * (dh + 2);
+  float mx = kEmptyMax;
+  for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, p[s * (dh + 2) + dh]);
+  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
+    float num = 0.f, den = 0.f;
+    for (int s = 0; s < n_splits; ++s) {
+      const float* ps = p + s * (dh + 2);
+      const float f = expf(ps[dh] - mx);  // 0 for an empty split beside others
+      num = fmaf(ps[d], f, num);
+      den = fmaf(ps[dh + 1], f, den);
+    }
+    store(out + (size_t)blockIdx.x * dh + d, den > 0.f ? num / den : 0.f);
   }
 }
 
 template <typename T, int E, int G>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tbl,
-                   const int* seq, void* out, int b, int kvh, int group,
-                   int page, int n_blocks, int window, float softcap,
-                   float scale, cudaStream_t stream) {
+                   const int* seq, void* out, float* part, int b, int kvh,
+                   int group, int page, int n_blocks, int window,
+                   float softcap, float scale, int pages_per_split,
+                   int n_splits, cudaStream_t stream) {
   // U*E <= 32 keeps the two K/V tiles within 128 registers
   constexpr int U = (8 / G < 32 / E) ? 8 / G : 32 / E;
   auto kernel = paged_decode_kernel<T, E, G, U>;
@@ -257,21 +311,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* tbl,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(b, kvh, (group + G - 1) / G);
+  const dim3 grid(b, kvh * ((group + G - 1) / G), n_splits);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tbl, seq, static_cast<T*>(out), kvh, group,
-      page, n_blocks, window, softcap, scale);
+      static_cast<const T*>(v), tbl, seq, static_cast<T*>(out),
+      n_splits > 1 ? part : nullptr, kvh, group, page, n_blocks, window,
+      softcap, scale, pages_per_split * page);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return err;
+  paged_merge_kernel<T><<<b * kvh * group, 32 * E, 0, stream>>>(
+      part, static_cast<T*>(out), n_splits, 32 * E);
   return cudaGetLastError();
 }
 
 template <typename T, int E>
 cudaError_t dispatch_group(const void* q, const void* k, const void* v,
-                           const int* tbl, const int* seq, void* out, int b,
-                           int kvh, int group, int page, int n_blocks,
-                           int window, float softcap, float scale,
-                           cudaStream_t st) {
-#define ARGS q, k, v, tbl, seq, out, b, kvh, group, page, n_blocks, window, softcap, scale, st
+                           const int* tbl, const int* seq, void* out,
+                           float* part, int b, int kvh, int group, int page,
+                           int n_blocks, int window, float softcap,
+                           float scale, int pps, int ns, cudaStream_t st) {
+#define ARGS q, k, v, tbl, seq, out, part, b, kvh, group, page, n_blocks, window, softcap, scale, pps, ns, st
   if (group <= 1) return launch<T, E, 1>(ARGS);
   if (group <= 2) return launch<T, E, 2>(ARGS);
   if (group <= 4) return launch<T, E, 4>(ARGS);
@@ -281,11 +340,11 @@ cudaError_t dispatch_group(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t dispatch_dim(int dh, const void* q, const void* k, const void* v,
-                         const int* tbl, const int* seq, void* out, int b,
-                         int kvh, int group, int page, int n_blocks,
-                         int window, float softcap, float scale,
-                         cudaStream_t st) {
-#define ARGS q, k, v, tbl, seq, out, b, kvh, group, page, n_blocks, window, softcap, scale, st
+                         const int* tbl, const int* seq, void* out,
+                         float* part, int b, int kvh, int group, int page,
+                         int n_blocks, int window, float softcap, float scale,
+                         int pps, int ns, cudaStream_t st) {
+#define ARGS q, k, v, tbl, seq, out, part, b, kvh, group, page, n_blocks, window, softcap, scale, pps, ns, st
   switch (dh) {
     case 32: return dispatch_group<T, 1>(ARGS);
     case 64: return dispatch_group<T, 2>(ARGS);
@@ -305,25 +364,33 @@ cudaError_t dispatch_dim(int dh, const void* q, const void* k, const void* v,
 // q (b, kvh, group, dh); k/v pages (n_pages + 1, page, kvh, dh), all
 // contiguous and of one dtype (0: float32, 1: bfloat16); block_table
 // (b, n_blocks) int32; seq_lens (b,) int32; out like q. window <= 0 means
-// no window, softcap <= 0 no softcap. Launches on `stream` and returns
+// no window, softcap <= 0 no softcap. The row's pages are split into
+// n_splits runs of pages_per_split (the last may be shorter); with
+// n_splits > 1, partials is f32 scratch of (b, kvh * group, n_splits,
+// dh + 2) and a second kernel merges it. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* block_table,
-                            const void* seq_lens, void* out, int b, int kvh,
-                            int group, int dh, int page, int n_blocks,
-                            int window, float softcap, float scale, int dtype,
-                            void* stream) {
+                            const void* seq_lens, void* out, void* partials,
+                            int b, int kvh, int group, int dh, int page,
+                            int n_blocks, int window, float softcap,
+                            float scale, int pages_per_split, int n_splits,
+                            int dtype, void* stream) {
   const int* tbl = static_cast<const int*>(block_table);
   const int* seq = static_cast<const int*>(seq_lens);
+  float* part = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b <= 0 || kvh <= 0 || group <= 0 || page <= 0 || n_blocks <= 0)
     return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch_dim<float>(dh, q, k_pages, v_pages, tbl, seq, out, b, kvh,
-                               group, page, n_blocks, window, softcap, scale, st);
-  if (dtype == 1)
-    return dispatch_dim<__nv_bfloat16>(dh, q, k_pages, v_pages, tbl, seq, out,
-                                       b, kvh, group, page, n_blocks, window,
-                                       softcap, scale, st);
+  // the splits cover the table exactly; more than one needs scratch
+  if (pages_per_split <= 0 || n_splits <= 0 || n_splits > 65535 ||
+      (long long)(n_splits - 1) * pages_per_split >= n_blocks ||
+      (long long)n_splits * pages_per_split < n_blocks ||
+      (n_splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+#define ARGS dh, q, k_pages, v_pages, tbl, seq, out, part, b, kvh, group, page, n_blocks, window, softcap, scale, pages_per_split, n_splits, st
+  if (dtype == 0) return dispatch_dim<float>(ARGS);
+  if (dtype == 1) return dispatch_dim<__nv_bfloat16>(ARGS);
+#undef ARGS
   return cudaErrorInvalidValue;
 }

@@ -11,24 +11,64 @@ reads the cache THROUGH the table:
   ``paged_flash_decode_pallas``), or raises -- it never falls back;
 * for CPU tensors it runs the plain version ``paged_attention_ref``.
 
-``paged_attention.launches`` counts kernel launches (the plain version
-never adds to it), so a run can show that decode went through the
-kernel. The JAX wrapper's ``use_kernel`` / ``interpret`` switches and
-its head_dim padding to the TPU's 128 lanes have no counterpart here:
-the CUDA kernel takes any head_dim that is a multiple of 32 up to 256.
+``paged_attention.launches`` counts calls that launched the kernel (the
+plain version never adds to it), so a run can show that decode went
+through the kernel. The kernel splits each row's pages across blocks
+(split-K); ``split_plan`` makes that choice on the host from the shapes
+alone, so a decode step never reads ``seq_lens`` back. The JAX
+wrapper's ``use_kernel`` / ``interpret`` switches and its head_dim
+padding to the TPU's 128 lanes have no counterpart here: the CUDA
+kernel takes any head_dim that is a multiple of 32 up to 256.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["paged_attention", "paged_attention_ref"]
+__all__ = ["paged_attention", "paged_attention_ref", "split_plan",
+           "SplitPlan"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# two blocks for each of the H100's 132 SMs
+MIN_BLOCKS = 2 * 132
+
+
+class SplitPlan(NamedTuple):
+    pages_per_split: int      # P
+    n_splits: int             # S = ceil(n_blocks / P)
+    scratch_shape: Optional[Tuple[int, int, int, int]]  # f32, None if S 1
+
+
+def split_plan(b: int, kvh: int, group: int, dh: int,
+               n_blocks: int) -> SplitPlan:
+    """How the decode kernel splits each row's ``n_blocks`` pages across
+    blocks: S = 1 (one launch, no scratch) when the rows alone give b *
+    kvh >= ``MIN_BLOCKS`` blocks; else splits of P pages, P the largest
+    power of two that still gives b * kvh * S >= ``MIN_BLOCKS`` (or one
+    page a split, if the table is shorter). A power of two keeps a
+    split's tokens a whole number of the block's steps (8 warps x 4
+    tokens at the serving shape: 2 pages of 16). The partials go to f32
+    scratch (b, kvh * group, S, dh + 2) that a second kernel merges. A
+    pure function of the shapes: it reads no device value, so the decode
+    step needs no sync."""
+    if min(b, kvh, group, dh, n_blocks) < 1:
+        raise ValueError(f"split_plan: sizes must be positive, got b {b}, "
+                         f"kvh {kvh}, group {group}, dh {dh}, n_blocks "
+                         f"{n_blocks}")
+    if b * kvh >= MIN_BLOCKS:
+        pages = n_blocks
+    else:
+        want = -(-MIN_BLOCKS // (b * kvh))      # splits per row
+        pages = 1
+        while 2 * pages <= n_blocks and -(-n_blocks // (2 * pages)) >= want:
+            pages *= 2
+    n_splits = -(-n_blocks // pages)
+    scratch = (b, kvh * group, n_splits, dh + 2) if n_splits > 1 else None
+    return SplitPlan(pages, n_splits, scratch)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -98,13 +138,17 @@ def _kernel_fn():
     fn = load_library("paged_decode").paged_decode
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i,
+                       i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _paged_decode_cuda(q, k_pages, v_pages, block_table, seq_lens, *,
-                       window, softcap) -> torch.Tensor:
+                       window, softcap, plan: Optional[SplitPlan] = None
+                       ) -> torch.Tensor:
+    """The kernel; ``plan`` overrides ``split_plan`` (for timing other
+    splits of the same call)."""
     b, h, dh = q.shape
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"k/v pages must share a 4-D shape, got "
@@ -138,16 +182,23 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_table, seq_lens, *,
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("q and the page pools must be 16-byte aligned")
 
+    n_blocks = block_table.shape[1]
+    if plan is None:
+        plan = split_plan(b, kvh, h // kvh, dh, n_blocks)
     out = torch.empty_like(q)
+    scratch = None if plan.scratch_shape is None else torch.empty(
+        plan.scratch_shape, dtype=torch.float32, device=q.device)
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-                b, kvh, h // kvh, dh, page, block_table.shape[1],
+                None if scratch is None else scratch.data_ptr(),
+                b, kvh, h // kvh, dh, page, n_blocks,
                 0 if window is None else int(window),
                 0.0 if softcap is None else float(softcap),
-                1.0 / math.sqrt(dh), _DTYPES[q.dtype], stream)
+                1.0 / math.sqrt(dh), plan.pages_per_split, plan.n_splits,
+                _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
                            f"{rc}")

@@ -15,8 +15,10 @@ h // group, nothing repeated in memory):
 TPU's 128 lanes and the ``scale_fix`` that padding needs have no
 counterpart: the kernel takes head_dim 32, 64, 128 or 256 as it is, with
 scale 1/sqrt(dh). ``block_q`` keeps the JAX kernel's precondition
-``sq % block_q == 0``; the CUDA kernel tiles queries and keys by 64 on
-its own and masks ragged edges, so ``block_k`` only has to be positive.
+``sq % block_q == 0``; the CUDA kernel tiles queries and keys on its
+own (bf16 on the tensor cores: 64 query rows, 64 keys or 32 at dh 256;
+f32 on the FP32 pipes: 64 x 64) and masks ragged edges, so ``block_k``
+only has to be positive.
 A query row that can see no key (skv = 0, or a window that ends before
 the keys start) has no defined output and is refused.
 """

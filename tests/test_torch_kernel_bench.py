@@ -96,9 +96,17 @@ def test_cuda_default_raises_without_a_card():
         kernel_bench.run_sdm_update(rows=8)
 
 
+def test_mlr_testbed_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.make_mlr_testbed(n_train=500)
+
+
 def test_mlr_testbed_shapes():
     topo, stack, grad_fn, eval_fn, batches, m_local = \
-        common.make_mlr_testbed(n_train=500, topology_spec="der:0.35")
+        common.make_mlr_testbed(n_train=500, topology_spec="der:0.35",
+                                device="cpu")
     assert topo.n_nodes == common.N_NODES and m_local == 10
     x, y = next(batches)
     assert x.shape == (common.N_NODES, common.BATCH_PER_NODE, 784)

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attn.decode import (paged_attention,
-                                                   paged_attention_ref)
+                                                   paged_attention_ref,
+                                                   split_plan)
 
 
 def paged_case(seed, *, b, kvh, group, dh, page, n_blocks, seq_lens):
@@ -79,6 +80,54 @@ def test_paged_decode_kernel_matches_plain(case, window, softcap, dtype):
     torch.testing.assert_close(got.float(), want.float(),
                                atol=TOLERANCE[dtype], rtol=0)
     assert not got[torch.from_numpy(lens == 0).to(dev)].any()
+
+
+def split_cases():
+    """Split-K cases: (name, shape, seq_lens, window), lengths placed on
+    the splits that ``split_plan`` chooses for the shape."""
+    shape = dict(b=4, kvh=4, group=2, dh=256, page=16, n_blocks=67)
+    plan = split_plan(4, 4, 2, 256, 67)
+    pp = plan.pages_per_split * shape["page"]       # tokens per split
+    full = shape["n_blocks"] * shape["page"]
+    # row 0's window starts inside split 5, inside one of its pages
+    window = full - 5 - (5 * pp + 7)
+    return [
+        # a split's edge, one past it, one short of it; a full row
+        ("split_edges", shape, [pp, pp + 1, pp - 1, full], None),
+        ("window_mid_split", shape, [full - 5, full, 500, 0], window),
+        # every split empty but the last (n_blocks % P != 0: it is short)
+        ("only_last_split", shape, [full, 0, full - 3, 1], 10),
+        ("empty_beside_full", shape, [0, full, 0, full], None),
+        # b * kvh >= 264: one split, no scratch, no merge launch
+        ("one_split", dict(b=66, kvh=4, group=2, dh=64, page=4, n_blocks=8),
+         [(7 * i) % 33 for i in range(66)], None),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", split_cases(), ids=lambda c: c[0])
+@pytest.mark.parametrize("softcap", [None, 50.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_split_k_matches_plain(case, softcap, dtype):
+    dev = _cuda()
+    name, shape, lens, window = case
+    plan = split_plan(shape["b"], shape["kvh"], shape["group"], shape["dh"],
+                      shape["n_blocks"])
+    if name == "one_split":
+        assert plan.n_splits == 1 and plan.scratch_shape is None
+    else:
+        assert plan.n_splits > 1 and shape["n_blocks"] % plan.pages_per_split
+    q, k, v, tbl, sl = paged_case(5, seq_lens=lens, **shape)
+    qkv = [torch.from_numpy(a).to(dev, dtype) for a in (q, k, v)]
+    tl = [torch.from_numpy(a).to(dev) for a in (tbl, sl)]
+    n0 = paged_attention.launches
+    got = paged_attention(*qkv, *tl, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == n0 + 1
+    want = paged_attention_ref(*qkv, *tl, window=window, softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOLERANCE[dtype], rtol=0)
+    assert not got[torch.from_numpy(sl == 0).to(dev)].any()
 
 
 @pytest.mark.cuda
@@ -317,6 +366,29 @@ FLASH_MASKS = [dict(causal=False), dict(causal=True),
                dict(causal=False, window=40)]
 
 
+# bf16: each query row's max|kernel - plain| within 2^-5 of that row's own
+# max|plain| (chip_smoke.py's FLASH_ROW_RTOL: p and the output are each
+# rounded at 2^-8 of the row's scale)
+FLASH_ROW_RTOL = 2 ** -5
+
+
+def _assert_flash_close(got, want, dtype):
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, atol=TOLERANCE[dtype], rtol=0)
+    if dtype == torch.bfloat16:
+        row = (got - want).abs().amax(-1) / want.abs().amax(-1).clamp_min(
+            1e-30)
+        assert row.max().item() <= FLASH_ROW_RTOL
+
+
+def _flash_inputs(b, sq, skv, h, kvh, dh, seed, dev, dtype, q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, sq, h, dh)).astype(np.float32) * q_scale
+    k = rng.normal(size=(b, skv, kvh, dh)).astype(np.float32)
+    v = rng.normal(size=(b, skv, kvh, dh)).astype(np.float32)
+    return [torch.from_numpy(t).to(dev, dtype) for t in (q, k, v)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", FLASH_SHAPES,
                          ids=[f"dh{s[5]}" for s in FLASH_SHAPES])
@@ -342,8 +414,86 @@ def test_flash_attention_kernel_matches_plain(shape, mask, dtype):
     assert flash_attention.launches == n0 + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_ref(q, k, v, **mask)
-    torch.testing.assert_close(got.float(), want.float(),
-                               atol=TOLERANCE[dtype], rtol=0)
+    _assert_flash_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 256])
+@pytest.mark.parametrize("pattern", ["random", "permutation"])
+def test_flash_bf16_single_tile_pins_the_fragment_layout(dh, pattern):
+    """One 16 x 16 tile (one warp's rows, one m16n8k16 pair of key tiles):
+    with a permutation pattern each query row sees one key ~e^11 above the
+    rest, so its output is that key's v row, and a misplaced row or column
+    of any fragment shows as a wrong row, not a rounding error."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    dev = _cuda()
+    q, k, v = _flash_inputs(1, 16, 16, 1, 1, dh, dh, dev, torch.float32)
+    if pattern == "permutation":
+        perm = np.random.default_rng(dh).permutation(16)
+        q = torch.zeros_like(q)
+        k = torch.zeros_like(k)
+        for i in range(16):
+            k[0, i, 0, i] = 8.0
+            q[0, i, 0, perm[i]] = 8.0 * dh ** 0.25
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = flash_attention(q, k, v, causal=False, block_q=16)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=False)
+    _assert_flash_close(got, want, torch.bfloat16)
+    if pattern == "permutation":
+        torch.testing.assert_close(got[0, :, 0].float(),
+                                   v[0, perm, 0].float(), atol=2e-2, rtol=0)
+
+
+# gemma2-like: dh 256, GQA 2; sq not a multiple of the 64-row query tile,
+# skv not a multiple of the 32-key tile (dh 256)
+GEMMA_FLASH = [(2, 200, 200, 8, 4, 256, 8), (1, 100, 173, 8, 4, 256, 4),
+               (1, 330, 330, 4, 2, 256, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GEMMA_FLASH,
+                         ids=[f"sq{s[1]}_skv{s[2]}" for s in GEMMA_FLASH])
+@pytest.mark.parametrize("mask", [dict(causal=True, softcap=50.0),
+                                  dict(causal=True, window=64, softcap=50.0),
+                                  dict(causal=False),
+                                  dict(causal=True, window=45)],
+                         ids=["global", "local64", "full", "window45"])
+def test_flash_bf16_gemma2_ragged_tiles(shape, mask):
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    dev = _cuda()
+    b, sq, skv, h, kvh, dh, bq = shape
+    q, k, v = _flash_inputs(b, sq, skv, h, kvh, dh, sq + skv, dev,
+                            torch.bfloat16)
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, block_q=bq, **mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    _assert_flash_close(got, flash_attention_ref(q, k, v, **mask),
+                        torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_scores_near_the_softcap(causal):
+    """q scaled by 40: |q.k| / sqrt(dh) ~ 30-50, where c tanh(s / c) with
+    c = 50 bends the scores hardest (the case that decides whether the
+    softcap's tanh may be the approximate one)."""
+    dtype = torch.bfloat16
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    dev = _cuda()
+    q, k, v = _flash_inputs(1, 192, 192, 8, 4, 256, 40, dev, dtype,
+                            q_scale=40.0)
+    raw = torch.einsum("bqhd,bkhd->bhqk", q.float()[:, :, :4],
+                       k.float()).abs() / 16.0
+    assert raw.median().item() > 20.0 and raw.max().item() > 50.0
+    got = flash_attention(q, k, v, causal=causal, softcap=50.0, block_q=64)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, flash_attention_ref(q, k, v, causal=causal,
+                                                 softcap=50.0), dtype)
 
 
 @pytest.mark.cuda
