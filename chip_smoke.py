@@ -55,6 +55,22 @@ Phases (any failure exits non-zero):
      on this test bed in the JAX package too).
   15. gradient-push, ResNet-20 x 50 nodes, qsgdf:4, 10 steps:
      ``qsgd_pack`` launched once per step.
+  16. the paper's experiments on the card at its 50 nodes (MLR 784 -> 10,
+     ER(0.35)): theory and the privacy sweep, fig2 (250 steps), fig3 (the
+     default budget), table1 (eps 0.03 / 0.05 / 0.1 x 3 methods at the
+     script's default 1500-step cap). Each claim is printed held or not
+     (the JAX reference fails two); gated: finite losses, fig2's
+     divergence / convergence flags, fig3's wire bits == steps x bits a
+     step, table1's sigma and T == the port's f64 theory and epsilons ==
+     the host accountant, step for step.
+  17. the edge-fleet simulator: ``bench.sim_edge`` at its sizes (8 nodes,
+     60 rounds, 3 methods x 4 scenarios); ``simulate`` on the MLR test
+     bed x 4 scenarios, 30 rounds, twice (same trace) and dropout once
+     on the CPU (losses within 1e-3); ResNet-20 x 50, qsgdf:4, straggler,
+     10 rounds (``qsgd_pack`` once a round, added to its launches);
+     gemma2-2b at full width, 4 layers, 2 nodes through
+     ``launch.train.simulate_lm`` (the ``--sim`` path), 3 rounds. Each
+     part prints its wall time and peak memory beside the card.
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -62,6 +78,7 @@ line, the card's name and power limit, and last
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -1370,6 +1387,309 @@ def push_resnet_phase(torch, np, card, dev="cuda"):
         raise AssertionError("gradient-push ResNet-20 run failed")
 
 
+# ---- slice 6: the paper's experiments and the edge-fleet simulator
+# (phases 16-17) -------------------------------------------------------------
+
+# the simulator's MLR and ResNet-20 cells: rounds per scenario / run
+SIM_MLR_ROUNDS, SIM_RESNET_ROUNDS, SIM_LM_ROUNDS = 30, 10, 3
+
+
+@contextlib.contextmanager
+def phase_clock(torch, label: str, card: str):
+    """Log a part's wall seconds and peak device memory, with the card."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    yield
+    torch.cuda.synchronize()
+    log(f"{label}: {time.monotonic() - t0:.3f} s wall, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {card}")
+
+
+def _quiet(fn, **kw):
+    """(fn(**kw), its stdout lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(**kw)
+    return out, buf.getvalue().strip().splitlines()
+
+
+def _step_ms(np, step_s) -> str:
+    ms = np.asarray(step_s) * 1e3
+    rest = ms[1:] if len(ms) > 1 else ms
+    return (f"{len(ms)} steps, step ms mean {ms.mean():.3f} (first "
+            f"{ms[0]:.3f}; steps 2.. {rest.mean():.3f})")
+
+
+def _claims(name: str, claims) -> None:
+    log(f"  {name} claims: " + ", ".join(
+        f"{k} {'held' if v else 'NOT held'}" for k, v in claims.items()))
+
+
+def paper_phase(torch, np, card):
+    """Phase 16: the paper's experiments on the card at its 50 nodes
+    (MLR 784 -> 10 on ER(0.35), batch 16 a node), each script with
+    ``check=False``: its claims are printed, not gated on (the JAX
+    reference fails two of them too). Gated: finite losses, fig2's two
+    flags, fig3's exact wire bits, table1's sigma / T against the port's
+    f64 theory and its epsilons against the host accountant."""
+    import math
+
+    from repro_torch.bench import (common, fig2_divergence,
+                                   fig3_comm_efficiency,
+                                   table1_privacy_accuracy, theory_tradeoff)
+    from repro_torch.core import privacy
+    from repro_torch.examples import privacy_sweep
+
+    with phase_clock(torch, "phase 16 theory + privacy sweep", card):
+        th, lines = _quiet(theory_tradeoff.run, device="cuda", check=False)
+        _, sweep = _quiet(privacy_sweep.main)
+    for line in lines + sweep:
+        log(f"  {line}")
+    _claims("theory", th.claims)
+
+    with phase_clock(torch, "phase 16 fig2 (250 steps x 2 runs)", card):
+        f2, lines = _quiet(fig2_divergence.run, device="cuda", check=False)
+    log(f"  {lines[-1]}")
+    for key, losses in f2.data.items():
+        log(f"  fig2 {key}: {_step_ms(np, f2.details['step_s'][key])}; "
+            f"losses[0] {losses[0]:.6f} losses[-1] {losses[-1]:.6e}")
+    _claims("fig2", f2.claims)
+    if not all(np.isfinite(v).all() for v in f2.data.values()):
+        raise AssertionError("fig2: a loss is not finite")
+    if not (f2.claims["dc_diverged"] and f2.claims["sdm_converged"]):
+        raise AssertionError("fig2: DC-DSGD must diverge and SDM-DSGD "
+                             "converge, as in the JAX run")
+
+    with phase_clock(torch, "phase 16 fig3 (default budget)", card):
+        f3, lines = _quiet(fig3_comm_efficiency.run, device="cuda",
+                           check=False)
+    log(f"  {lines[-1]}")
+    for key, (elems, bits, losses, accs) in f3.data.items():
+        d = f3.details[key]
+        exact = bits == [(t + 1) * d["per_step_bits"]
+                         for t in range(d["steps"])]
+        log(f"  fig3 {key}: {_step_ms(np, d['step_s'])}; comm_bits[-1] "
+            f"{bits[-1]} == {d['steps']} x {d['per_step_bits']}: {exact}; "
+            f"acc {accs}")
+        if not exact:
+            raise AssertionError(f"fig3 {key}: comm_bits != steps x "
+                                 f"transmitted bits")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"fig3 {key}: a loss is not finite")
+    _claims("fig3", f3.claims)
+
+    with phase_clock(torch, "phase 16 table1 (3 eps x 3 methods, "
+                     "max_steps 1500)", card):
+        t1, lines = _quiet(table1_privacy_accuracy.run, device="cuda",
+                           check=False)
+    log(f"  {lines[-1]}")
+    log("  table1 max_steps: the script's default 1500, not cut: Theorem "
+        "4's T_max caps every run at or below 868 steps")
+    m = 5000 // common.N_NODES
+    for (eps, name), d in t1.details.items():
+        _, p, _ = table1_privacy_accuracy.METHODS[name]
+        t_want = min(privacy.max_iterations(
+            G=table1_privacy_accuracy.G_CLIP, m=m, p=p, eps=eps,
+            delta=table1_privacy_accuracy.DELTA), 1500)
+        s_want = privacy.sigma_for_budget(
+            G=table1_privacy_accuracy.G_CLIP, m=m, p=p, T=t_want, eps=eps,
+            delta=table1_privacy_accuracy.DELTA, clamp=True)
+        acct = privacy.PrivacyAccountant(privacy.PrivacyParams(
+            G=table1_privacy_accuracy.G_CLIP, m=m,
+            tau=common.BATCH_PER_NODE / m, p=p, sigma=s_want,
+            delta=table1_privacy_accuracy.DELTA), eps)
+        want = []
+        for _ in range(t_want):
+            acct.step()
+            want.append(acct.epsilon)
+        eps_ok = d["epsilons"] == want and all(
+            b >= a for a, b in zip(want, want[1:]))
+        finite = math.isfinite(want[-1])
+        log(f"  table1 eps {eps} {name}: sigma {d['sigma']!r} T {d['steps']} "
+            f"(host f64 theory {s_want!r}, {t_want}); "
+            f"{_step_ms(np, d['step_s'])}; acc {t1.data[(eps, name)]:.4f}; "
+            f"accountant eps[-1] {d['epsilons'][-1]} (host accountant step "
+            f"for step: {eps_ok}; finite {finite}: sigma^2 = "
+            f"{s_want ** 2!r} vs 1/1.25)")
+        if (d["sigma"], d["steps"]) != (s_want, t_want) or not eps_ok:
+            raise AssertionError(f"table1 eps {eps} {name}: sigma / T / "
+                                 f"epsilons differ from the host theory")
+        if finite != (s_want ** 2 >= 1 / 1.25):
+            raise AssertionError("table1: accountant finiteness does not "
+                                 "follow sigma^2 >= 1/1.25")
+        if not np.isfinite(d["losses"]).all():
+            raise AssertionError(f"table1 eps {eps} {name}: a loss is not "
+                                 f"finite")
+    _claims("table1", t1.claims)
+
+
+def _check_sim(np, res, label: str, deadline=None) -> None:
+    """The simulator's own gates on one run."""
+    r = res.result
+    times = r.sim_time_s
+    ok = (len(times) == res.rounds
+          and all(b >= a for a, b in zip(times, times[1:]))
+          and res.sim_seconds == times[-1]
+          and not np.isnan(r.losses).any())
+    if deadline is not None:
+        ok = ok and res.sim_seconds <= res.rounds * deadline + 1e-9
+    if not ok:
+        raise AssertionError(f"{label}: simulated clock, deadline bound or "
+                             f"losses out of order")
+
+
+def sim_phase(torch, np, card):
+    """Phase 17: the edge-fleet simulator on the card. ``bench.sim_edge``
+    at its own sizes; ``simulate`` on the 50-node MLR test bed under the
+    four scenarios (dropout and churn give time-varying sequences, the
+    reference's replica path) twice each, and once on the CPU; ResNet-20
+    x 50 with the qsgdf:4 wire under stragglers (qsgd_pack once a round);
+    gemma2-2b at full width through ``launch.train.simulate_lm``.
+    Returns qsgd_pack's launches in the ResNet-20 run."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from repro_torch import configs, prng, tree as tree_mod
+    from repro_torch.bench import common, sim_edge
+    from repro_torch.core import SDMConfig, sdm_dsgd, theory, topology
+    from repro_torch.core.plane import ParamPlane
+    from repro_torch.data import (classification_dataset,
+                                  node_partitioned_batches)
+    from repro_torch.kernels.wire_compress import qsgd_pack
+    from repro_torch.launch.train import simulate_lm
+    from repro_torch.models import vision_small as vs
+    from repro_torch.sim import SCENARIOS, simulate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, sim_edge.OUT_PATH)
+        with phase_clock(torch, f"phase 17 sim_edge ({len(sim_edge.METHODS)} "
+                         f"methods x {len(SCENARIOS)} scenarios, "
+                         f"{sim_edge.N_NODES} nodes, {sim_edge.ROUNDS} rounds)",
+                         card):
+            report, lines = _quiet(sim_edge.run, out_path=out,
+                                   device="cuda")
+        written = json.loads(Path(out).read_text())
+    for line in lines:
+        log(f"  {line}")
+    bad = [c for c in report["cases"] if not np.isfinite(c["final_loss"])]
+    if bad or written != report:
+        raise AssertionError(f"sim_edge: non-finite losses {bad} or the "
+                             f"report file differs")
+
+    # the paper's test bed under each scenario: fig2's SDM-DSGD (converges
+    # on this test bed; sigma 0, so no privacy accounting)
+    lambda_n = topology.by_name("er:0.35", common.N_NODES, seed=0).lambda_n
+    cfg = SDMConfig(p=0.2, theta=min(0.55, 0.9 * theory.theta_upper_bound(
+        0.2, lambda_n, 0.05, 1.0)), gamma=0.05)
+
+    def mlr(scenario, dev):
+        topo, stack, grad_fn, _, batches, _ = common.make_mlr_testbed(
+            device=dev)
+        return simulate(topo=topo, algorithm="sdm-dsgd", sdm_cfg=cfg,
+                        params_stack=stack, grad_fn=grad_fn, batches=batches,
+                        rounds=SIM_MLR_ROUNDS, scenario=scenario, seed=0,
+                        device=dev)
+
+    for scenario in sorted(SCENARIOS):
+        with phase_clock(torch, f"phase 17 simulate MLR x 50 {scenario} "
+                         f"({SIM_MLR_ROUNDS} rounds, twice)", card):
+            a, b = mlr(scenario, "cuda"), mlr(scenario, "cuda")
+        r = a.result
+        same = a.trace_signature == b.trace_signature
+        log(f"  {scenario}: {_step_ms(np, r.step_s)}; t_sim "
+            f"{a.sim_seconds:.6f} s; stragglers {a.straggler_rounds} "
+            f"dropouts {a.dropout_rounds} recompiles {a.recompiles}; "
+            f"wire_bits {r.comm_bits[-1]}; "
+            f"losses[0] {r.losses[0]:.6f} [-1] {r.losses[-1]:.6f}; "
+            f"{len(a.trace)} events; replay: same trace {same}, same "
+            f"losses {r.losses == b.result.losses}")
+        _check_sim(np, a, f"MLR {scenario}", SCENARIOS[scenario].deadline)
+        if not same:
+            raise AssertionError(f"MLR {scenario}: the same (seed, scenario) "
+                                 f"did not replay")
+        if scenario == "dropout":
+            host = mlr(scenario, "cpu")
+            gap = np.abs(np.asarray(r.losses) - host.result.losses) \
+                / np.abs(host.result.losses)
+            log(f"  dropout card vs host CPU (port): same trace "
+                f"{host.trace_signature == a.trace_signature}; max relative "
+                f"loss gap {gap.max():.3e} (limit {CPU_LOSS_RTOL})")
+            if host.trace_signature != a.trace_signature \
+                    or gap.max() > CPU_LOSS_RTOL:
+                raise AssertionError("the card's simulated run departs from "
+                                     "the CPU run")
+        del a, b
+
+    # ResNet-20 x 50, ER(0.35), qsgdf:4 with phase 6's config, stragglers
+    n = 50
+    rcfg = SDMConfig(p=0.2, theta=0.25, gamma=0.05, sigma=1.0, clip_c=5.0,
+                     compressor="qsgdf:4")
+    (x_tr, y_tr), _ = classification_dataset(3072, 10, 10_000, 10, seed=0)
+    p0 = vs.resnet20_init(prng.PRNGKey(0, device="cuda"))
+    stack = tree_mod.tree_map(
+        lambda p: p[None].expand((n,) + tuple(p.shape)).clone(), p0)
+    buckets = ParamPlane.for_tree(p0).n_buckets
+    edge_bits = sdm_dsgd.transmitted_bits_per_step(p0, rcfg)
+    qsgd_pack.launches = 0
+    with phase_clock(torch, f"phase 17 simulate ResNet-20 x {n} straggler "
+                     f"({SIM_RESNET_ROUNDS} rounds)", card):
+        res = simulate(topo="er:0.35", algorithm="sdm-dsgd", sdm_cfg=rcfg,
+                       params_stack=stack,
+                       grad_fn=vs.make_stacked_grad_fn(vs.resnet20_apply),
+                       batches=node_partitioned_batches(x_tr, y_tr, n, 16,
+                                                        seed=0),
+                       rounds=SIM_RESNET_ROUNDS, scenario="straggler",
+                       seed=0, device="cuda")
+    launched = qsgd_pack.launches
+    r = res.result
+    log(f"  resnet20 straggler: {_step_ms(np, r.step_s)}; t_sim "
+        f"{res.sim_seconds:.6f} s (bound {SIM_RESNET_ROUNDS} x 0.6); "
+        f"stragglers {res.straggler_rounds} of {n * SIM_RESNET_ROUNDS} "
+        f"node-rounds (qsgdf:4 payload {edge_bits} bits an edge); "
+        f"wire_bits {r.comm_bits[-1]}; losses "
+        f"{[round(v, 5) for v in r.losses]}; qsgd_pack launches {launched} "
+        f"(rounds x buckets = {SIM_RESNET_ROUNDS * buckets})")
+    _check_sim(np, res, "ResNet-20 straggler", SCENARIOS["straggler"].deadline)
+    if launched != SIM_RESNET_ROUNDS * buckets:
+        raise AssertionError("qsgd_pack did not launch once per simulated "
+                             "round")
+    del stack, res, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gemma2-2b at full width, phase 10's cut, the launcher's --sim
+    # defaults (sdm-dsgd, bernoulli p 0.2, theta 0.5, gamma 1e-2, sigma 0)
+    base = configs.get_config("gemma2-2b")
+    lcfg = dataclasses.replace(base, n_layers=LM_LAYERS)
+    sdm = SDMConfig(p=0.2, theta=0.5, gamma=1e-2, sigma=0.0)
+    with phase_clock(torch, f"phase 17 launch.train --sim straggler "
+                     f"gemma2-2b x {LM_LAYERS} layers, {LM_NODES} nodes, seq "
+                     f"{LM_SEQ}, batch {LM_BATCH}/node, {SIM_LM_ROUNDS} "
+                     f"rounds, f32", card):
+        res = simulate_lm(lcfg, sdm, "sdm-dsgd", LM_NODES,
+                          batch=LM_NODES * LM_BATCH, seq_len=LM_SEQ,
+                          rounds=SIM_LM_ROUNDS, scenario="straggler",
+                          device="cuda")
+    r = res.result
+    for t in range(len(r.losses)):
+        log(f"  round {t:4d} t_sim {r.sim_time_s[t]:9.3f}s loss "
+            f"{r.losses[t]:.4f} wire_bits {r.comm_bits[t]} "
+            f"({r.step_s[t] * 1e3:.1f} ms)")
+    log(f"  sim done: rounds={res.rounds} t_sim={res.sim_seconds:.3f}s "
+        f"stragglers={res.straggler_rounds} dropouts={res.dropout_rounds} "
+        f"recompiles={res.recompiles} events={len(res.trace)}; depth "
+        f"{base.n_layers} -> {lcfg.n_layers} layers")
+    _check_sim(np, res, "LM straggler", SCENARIOS["straggler"].deadline)
+    del res, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
 def ptxas_entries(text: str):
     """{mangled kernel name: (registers, spill store bytes)} from an
     ``nvcc -Xptxas -v`` log."""
@@ -1775,6 +2095,12 @@ def main() -> int:
     if failures:
         raise AssertionError(f"gradient-push checks failed: {failures}")
     push_resnet_phase(torch, np, card)
+
+    # ---- 16.-17. the paper's experiments and the edge-fleet simulator -----
+    gc.collect()
+    torch.cuda.empty_cache()
+    paper_phase(torch, np, card)
+    launches["qsgd_pack"] += sim_phase(torch, np, card)
 
     # ---- results -----------------------------------------------------------
     for key, rows in resources.items():

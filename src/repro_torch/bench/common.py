@@ -4,10 +4,18 @@ Port of ``benchmarks/common.py``: ``make_mlr_testbed`` (ER(50, 0.35) or
 any ``gossip.sequence_by_name`` graph, MLR on MNIST-shaped data),
 ``timeit_us`` and ``emit``. Times on a CUDA device come from CUDA events
 around the calls (the device's time); on the CPU from ``perf_counter``.
+
+The paper's experiment scripts return a ``PaperRun``: what the JAX
+script's ``run()`` returns, its line's derived column, and the outcome
+of each claim the JAX script asserts. ``settle`` asserts
+them when the caller asks (``check=True``, the scripts' default and
+their ``__main__``); otherwise the caller reads and reports them.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
+from typing import Any, Dict
 
 import torch
 
@@ -18,7 +26,7 @@ from repro_torch.data import classification_dataset, node_partitioned_batches
 from repro_torch.models import vision_small
 
 __all__ = ["N_NODES", "N_FEATURES", "N_CLASSES", "N_TRAIN", "BATCH_PER_NODE",
-           "make_mlr_testbed", "timeit_us", "emit"]
+           "make_mlr_testbed", "timeit_us", "emit", "PaperRun", "settle"]
 
 N_NODES = 50
 N_FEATURES = 784          # MNIST-shaped
@@ -85,3 +93,25 @@ def timeit_us(fn, *args, iters: int = 20, warmup: int = 3) -> float:
 
 def emit(name: str, us_per_call: float, derived: str) -> None:
     print(f"{name},{us_per_call:.1f},{derived}")
+
+
+@dataclasses.dataclass
+class PaperRun:
+    """One paper script's outcome: ``data`` is what the JAX script's
+    ``run()`` returns, ``derived`` its emitted line's derived column,
+    ``claims`` each asserted claim's outcome and ``details`` what the
+    port adds for its callers (per-run steps, sigma, epsilons, ...)."""
+
+    data: Any
+    derived: str
+    claims: Dict[str, bool]
+    details: Dict[Any, Any] = dataclasses.field(default_factory=dict)
+
+
+def settle(run: PaperRun, check: bool) -> PaperRun:
+    """With ``check``, assert every claim (the JAX script's asserts);
+    return ``run`` either way."""
+    if check:
+        failed = [k for k, held in run.claims.items() if not held]
+        assert not failed, f"claims not held: {failed}; {run.derived}"
+    return run

@@ -47,7 +47,8 @@ __all__ = ["mix_dense", "apply_weights_dense", "PermuteSchedule",
            "ScheduleRound", "ScheduleSequence", "UnionRound", "UnionSchedule",
            "union_schedule", "needs_replicas", "weight_invariant",
            "mean_out_degree", "replica_recv_weights", "schedule_from_topology",
-           "sequence_from_topologies", "sequence_by_name", "ensure_sequence",
+           "sequence_from_topologies", "sequence_from_active_sets",
+           "sequence_by_name", "ensure_sequence",
            "sequence_of", "ring_schedule", "resolve_schedule",
            "resolve_sequence", "exchange", "exchange_payload",
            "exchange_packed", "exchange_packed_rows", "union_exchange",
@@ -228,6 +229,29 @@ def sequence_by_name(spec: str, n_nodes: int, *,
     topo = topology_mod.by_name(spec, n_nodes, self_weight=self_weight,
                                 seed=seed)
     return ensure_sequence(schedule_from_topology(topo))
+
+
+def sequence_from_active_sets(topo, active_sets, name: str | None = None
+                              ) -> ScheduleSequence:
+    """Compile a partial-participation trace into a ScheduleSequence.
+
+    ``active_sets`` is one iterable of participating node indices per
+    round (the edge-fleet simulator's sampled subgraphs); each round
+    compiles the induced ``topology.masked_subgraph`` (inactive nodes
+    isolated, active-active edges reweighted on the induced graph). The
+    result is an ordinary, usually genuinely time-varying (replica
+    transported) sequence that every executor consumes like any other.
+    """
+    from repro_torch.core import topology as topology_mod
+
+    active_sets = list(active_sets)
+    if not active_sets:
+        raise ValueError("need >= 1 active set")
+    topos = [topology_mod.masked_subgraph(topo, a,
+                                          name=f"{topo.name}_sub_r{t}")
+             for t, a in enumerate(active_sets)]
+    return sequence_from_topologies(
+        topos, name=name or f"{topo.name}_part{len(active_sets)}")
 
 
 # --------------------------------------------------------------------------

@@ -27,9 +27,11 @@ Registered: ``sdm-dsgd``, ``sdm-dsgd-fused`` (commit+advance fused: two
 state buffers), ``dc-dsgd`` (theta pinned to 1), ``dsgd``,
 ``gradient-push`` (push-sum over directed column-stochastic graphs, its
 gradient taken at the de-biased z = x / w; ``push-sum`` and ``sgp`` are
-aliases) and ``allreduce``, each with its per-node face. The JAX
-package's sharding builders (``state_shardings``) and the simulator's
-stale-gossip helpers are not ported.
+aliases) and ``allreduce``, each with its per-node face. The
+edge-fleet simulator's stale-gossip helpers (``stale_capable``,
+``withhold_differential``, ``defer_differential``, ``select_node_rows``)
+work on the stacked reference state. The JAX package's sharding builders
+(``state_shardings``) are not ported.
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ from repro_torch.core import (baselines, compressor as compressor_mod, gossip,
 __all__ = ["Method", "DistributedExecutor", "register", "get", "names",
            "normalize", "PARAM", "SCALAR", "COUNTER", "PLANE", "REPLICA",
            "state_fields_of", "state_shape_dtype", "transmitted_elements",
-           "transmitted_bits", "AllreduceReference"]
+           "transmitted_bits", "AllreduceReference", "stale_capable",
+           "withhold_differential", "defer_differential", "select_node_rows"]
 
 PyTree = Any
 
@@ -174,6 +177,79 @@ def transmitted_bits(meth: Method, params: PyTree, cfg,
         return meth.transmitted_bits_fn(params, cfg, value_bits=value_bits,
                                         seq=seq)
     return meth.transmitted_elements(params, cfg, seq=seq) * value_bits
+
+
+# --------------------------------------------------------------------------
+# Stale-gossip (straggler) semantics over the stacked reference executors.
+# --------------------------------------------------------------------------
+#
+# The edge-fleet simulator (repro_torch.sim) needs one-step-stale
+# delivery: a node that misses the round deadline transmits nothing, its
+# neighbours mix with its one-step-stale public copy, and the withheld
+# update goes out (merged) next round. Differential methods hold the
+# pending transmission in the accumulator ``d`` (the wire payload is
+# S(d)), so staleness is exact state surgery: zero a straggler's d before
+# the step (S(0) = 0 crosses the wire) and add it back afterwards.
+# Methods that transmit absolute state (dsgd, gradient-push, allreduce)
+# have no such buffer; for them stragglers become non-participants.
+
+def stale_capable(meth: Method) -> bool:
+    """Whether one-step-stale straggler semantics are exact for ``meth``:
+    its wire payload is a deferred differential ``d`` in its state."""
+    return any(fname == "d" for fname, _ in meth.state_fields)
+
+
+def _node_mask(mask: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """An (n,) bool mask shaped to broadcast over ``v``'s node axis."""
+    return mask.reshape((mask.shape[0],) + (1,) * (v.ndim - 1))
+
+
+def withhold_differential(meth: Method, state, send_mask):
+    """Suppress the outgoing payload of masked-out nodes for one step.
+
+    ``send_mask`` is an (n,) bool vector, True where the node makes the
+    round deadline. Returns ``(state', withheld)``: the straggler rows of
+    the differential zeroed, and those rows alone, to merge back with
+    ``defer_differential`` after the step.
+    """
+    if not stale_capable(meth):
+        raise ValueError(
+            f"{meth.name} transmits absolute state -- no differential to "
+            "defer; treat stragglers as non-participants instead")
+    d = state.d
+    mask = torch.as_tensor(send_mask, dtype=torch.bool,
+                           device=tree_mod.leaves(d)[0].device)
+    masked = tree_mod.tree_map(
+        lambda v: torch.where(_node_mask(mask, v), v, torch.zeros_like(v)), d)
+    withheld = tree_mod.tree_map(
+        lambda v: torch.where(_node_mask(mask, v), torch.zeros_like(v), v), d)
+    return state._replace(d=masked), withheld
+
+
+def defer_differential(meth: Method, state, withheld):
+    """Merge a withheld differential back: it transmits next round."""
+    del meth
+    return state._replace(d=tree_mod.tree_map(torch.add, state.d, withheld))
+
+
+def select_node_rows(active_mask, on_state, off_state):
+    """Per-node row select across every state leaf (freeze semantics).
+
+    Node i's rows come from ``on_state`` where ``active_mask[i]`` and
+    from ``off_state`` (its pre-round state: the node did nothing)
+    otherwise. Leaves without a leading node axis (the shared step
+    counter) advance with the round unconditionally.
+    """
+    mask = torch.as_tensor(active_mask, dtype=torch.bool)
+    n = mask.shape[0]
+
+    def pick(on, off):
+        if not (isinstance(on, torch.Tensor) and on.ndim >= 1
+                and on.shape[0] == n):
+            return on
+        return torch.where(_node_mask(mask.to(on.device), on), on, off)
+
+    return tree_mod.tree_map(pick, on_state, off_state)
 
 
 # --------------------------------------------------------------------------

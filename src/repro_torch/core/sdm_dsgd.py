@@ -398,7 +398,7 @@ class ReferenceSimulator:
         """advance -> grads at the new x -> commit.
         ``grad_fn(params_stack, batch_stack) -> (grads_stack, aux)``."""
         k_sp, k_noise = prng.split(key)
-        state, _ = self.advance(state, k_sp)
+        state = self.advance(state, k_sp)[0]    # S(d) is not kept alive
         grads, aux = grad_fn(state.x, batch_stack)
         state = self.commit(state, grads, k_noise)
         return state, aux

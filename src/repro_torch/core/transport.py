@@ -33,6 +33,8 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch._device import resolve_device
+
 __all__ = ["StackTransport", "ProcessGroupTransport"]
 
 Perm = Sequence[Tuple[int, int]]
@@ -56,11 +58,12 @@ class _Counters:
 
 
 class StackTransport(_Counters):
-    """All ``n`` nodes of the run as one block on one device."""
+    """All ``n`` nodes of the run as one block on one device: the card
+    unless the caller passes ``device="cpu"`` (raises without one)."""
 
-    def __init__(self, n: int, device="cpu"):
+    def __init__(self, n: int, device="cuda"):
         self.n = int(n)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.me = torch.arange(self.n, device=self.device)
         self.nodes = tuple(range(self.n))
         self._index: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}

@@ -7,7 +7,7 @@ holds them as node blocks (``core/transport.py``). ``N`` is N nodes;
 ``NxM`` is N nodes with a ``model`` axis of M, and ``PxNxM`` adds a
 ``pod`` axis whose nodes multiply in, as in the JAX package. A model
 axis above 1 (tensor parallelism inside a node) and the production pod
-meshes raise: they need more than one GPU (ROADMAP Queue 1, item 7).
+meshes raise: they need more than one GPU.
 """
 from __future__ import annotations
 
@@ -42,8 +42,7 @@ def parse_mesh(name: str) -> MeshSpec:
     if name in ("single_pod", "16x16", "multi_pod", "2x16x16"):
         raise ValueError(
             f"mesh {name!r} is a TPU pod mesh with a model axis of 16: "
-            "tensor parallelism needs more than one GPU and is not ported "
-            "(ROADMAP Queue 1, item 7)")
+            "tensor parallelism needs more than one GPU and is not ported")
     try:
         dims = tuple(int(d) for d in name.lower().split("x"))
     except ValueError:
@@ -56,6 +55,5 @@ def parse_mesh(name: str) -> MeshSpec:
     if spec.shape.get("model", 1) > 1:
         raise ValueError(
             f"mesh {name!r} has a model axis of {spec.shape['model']}: "
-            "tensor parallelism needs more than one GPU and is not ported "
-            "(ROADMAP Queue 1, item 7)")
+            "tensor parallelism needs more than one GPU and is not ported")
     return spec

@@ -10,10 +10,15 @@ on the one device as one node block; ``--init-method``, ``--rank`` and
 ``--world-size`` instead run one node per process on
 ``torch.distributed`` (NCCL on CUDA, one GPU per rank; gloo on the CPU).
 Each step runs the method's per-node executor through
-``train.steps.make_distributed_train``.
+``train.steps.make_distributed_train``. ``--sim <scenario>`` instead runs
+the event-driven edge-fleet simulator (``repro_torch.sim``) on the
+method's stacked reference executor and prints the simulated seconds and
+wire bits of each round:
 
-Not ported: ``--sim`` (the edge-fleet simulator, ROADMAP Queue 1 item
-9) and the audio / VLM families (no encoders yet); both raise.
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
+      --smoke --mesh 4 --steps 3 --sim straggler --device cpu
+
+Not ported: the audio / VLM families (no encoders yet); they raise.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import dataclasses
 import time
 from typing import Callable, List, Optional
 
-__all__ = ["TrainRun", "train", "main"]
+__all__ = ["TrainRun", "train", "simulate_lm", "main"]
 
 
 @dataclasses.dataclass
@@ -71,6 +76,73 @@ def train(tc, transport, *, steps: int, global_batch: int, seq_len: int,
             on_step(t, losses[-1], step_s[-1])
     return TrainRun(state=state, losses=losses, step_s=step_s,
                     tokens_per_step=global_batch * seq_len)
+
+
+def simulate_lm(cfg, sdm_cfg, method: str, n_nodes: int, *, batch: int,
+                seq_len: int, rounds: int, scenario, topology: str = "ring",
+                seed: int = 0, device="cuda", params=None):
+    """The ``--sim`` axis: an event-driven edge-fleet run of ``method`` on
+    the stacked reference executor, all ``n_nodes`` nodes on ``device``,
+    f32 parameters (``params``, or ``transformer.init_params`` from
+    ``seed``), each node's gradient by autograd one node at a time.
+    Returns the ``sim.SimResult``."""
+    import torch
+
+    from repro_torch import tree as tree_mod
+    from repro_torch._device import resolve_device
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer
+    from repro_torch.sim import simulate
+    from repro_torch.train.steps import node_grads
+
+    dev = resolve_device(device)
+    per_node = max(batch // n_nodes, 1)
+    stream = TokenStream(vocab_size=cfg.vocab_size, batch=n_nodes * per_node,
+                         seq_len=seq_len, seed=seed)
+    if params is None:
+        params = transformer.init_params(cfg, seed=seed, dtype=torch.float32,
+                                         device=dev)
+    stack = tree_mod.tree_map(
+        lambda p: p.to(dev)[None].expand((n_nodes,) + tuple(p.shape))
+        .clone(), params)
+    del params              # the stack is the run's only copy
+
+    def grad_fn(params_stack, batch_stack):
+        grads, losses = node_grads(cfg, params_stack, *batch_stack)
+        return grads, torch.mean(losses)
+
+    def batches():
+        t = 0
+        while True:
+            yield tuple(torch.as_tensor(a, device=dev)
+                        .reshape(n_nodes, per_node, -1)
+                        for a in stream.batch_at(t))
+            t += 1
+
+    return simulate(topo=topology, algorithm=method, sdm_cfg=sdm_cfg,
+                    params_stack=stack, grad_fn=grad_fn, batches=batches(),
+                    rounds=rounds, scenario=scenario, seed=seed, device=dev)
+
+
+def _run_simulated(args, cfg, sdm_cfg, meth_name, n_nodes, batch, seq,
+                   dev) -> None:
+    """The --sim axis of ``main``: ``simulate_lm`` and its report."""
+    from repro_torch.sim import Fleet, parse_scenario
+
+    spec = parse_scenario(args.sim)
+    print("sim fleet: " + Fleet(n_nodes, spec, seed=args.seed).describe())
+    res = simulate_lm(cfg, sdm_cfg, meth_name, n_nodes, batch=batch,
+                      seq_len=seq, rounds=args.sim_rounds or args.steps,
+                      scenario=spec, topology=args.topology, seed=args.seed,
+                      device=dev)
+    r = res.result
+    for t in range(len(r.losses)):
+        print(f"round {t:4d} t_sim {r.sim_time_s[t]:9.3f}s "
+              f"loss {r.losses[t]:.4f} "
+              f"wire_bits {r.comm_bits[t]}", flush=True)
+    print(f"sim done: rounds={res.rounds} t_sim={res.sim_seconds:.3f}s "
+          f"stragglers={res.straggler_rounds} dropouts={res.dropout_rounds} "
+          f"recompiles={res.recompiles} events={len(res.trace)}")
 
 
 def _save(directory: str, step: int, state, transport) -> str:
@@ -139,8 +211,14 @@ def main(argv=None) -> None:
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sim", default=None,
-                    help="edge-fleet simulator scenario: not ported")
-    ap.add_argument("--sim-rounds", type=int, default=None)
+                    help="run under the event-driven edge-fleet simulator "
+                         "instead of the lock-step distributed step: a "
+                         "preset (no-fault | straggler | dropout | churn) "
+                         "or a scenario spec like 'q=0.8,deadline=1.5,"
+                         "straggle=0.25x8,dropout=0.05,churn=0.02:5' (see "
+                         "repro_torch.sim.fleet)")
+    ap.add_argument("--sim-rounds", type=int, default=None,
+                    help="global rounds to simulate (defaults to --steps)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--init-method", default=None,
                     help="torch.distributed init method (e.g. "
@@ -149,8 +227,9 @@ def main(argv=None) -> None:
     ap.add_argument("--world-size", type=int, default=1)
     args = ap.parse_args(argv)
 
-    if args.sim:
-        raise SystemExit("--sim is not ported yet (ROADMAP Queue 1, item 9)")
+    if args.sim and args.init_method:
+        ap.error("--sim simulates every node in one process: drop "
+                 "--init-method")
     if args.overlap and args.topology.startswith("matchings"):
         ap.error("--overlap needs a static topology: the double-buffered "
                  "transport has no replica (time-varying) delivery path")
@@ -210,6 +289,13 @@ def main(argv=None) -> None:
           + (f" time_varying_L={sched.length}" if sched.length > 1 else "")
           + (" overlap=on" if args.overlap else "")
           + f" device={where}", flush=True)
+
+    if args.sim:
+        if n_nodes < 2:
+            raise SystemExit("--sim needs a >= 2-node mesh (e.g. --mesh 4)")
+        _run_simulated(args, cfg, sdm_cfg, meth_name, n_nodes, batch, seq,
+                       dev)
+        return
 
     def report(t, loss, seconds):
         print(f"step {t:4d} loss {loss:.4f} ({seconds:.2f}s)", flush=True)

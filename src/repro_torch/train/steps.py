@@ -30,7 +30,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["DistributedTrainConfig", "gossip_schedule",
            "init_distributed_state", "make_distributed_train",
-           "node_batch"]
+           "node_batch", "node_grads"]
 
 PyTree = Any
 
@@ -103,6 +103,28 @@ def node_batch(x: torch.Tensor, transport) -> torch.Tensor:
     return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[transport.me]
 
 
+def node_grads(cfg: ModelConfig, x_block: PyTree, tokens: torch.Tensor,
+               labels: torch.Tensor):
+    """Each node's LM gradient at its own params, one node at a time
+    (only one node's activations are alive at once). ``x_block`` leaves
+    are (L, ...), ``tokens`` / ``labels`` (L, b, s). Returns (grads
+    block, (L,) f32 losses)."""
+    leaves, struct = tree_mod.flatten(x_block)
+    grads = [torch.empty_like(v) for v in leaves]
+    losses = torch.empty(len(tokens), dtype=torch.float32,
+                         device=tokens.device)
+    for i in range(len(tokens)):
+        mine = [v[i].detach().requires_grad_(True) for v in leaves]
+        logits, aux = transformer.forward(
+            tree_mod.unflatten(struct, mine), cfg, tokens[i])
+        loss = transformer.lm_loss(logits, labels[i], cfg.vocab_size, aux)
+        del logits
+        for g_out, g in zip(grads, torch.autograd.grad(loss, mine)):
+            g_out[i].copy_(g)
+        losses[i] = loss.detach()
+    return tree_mod.unflatten(struct, grads), losses
+
+
 def make_distributed_train(tc: DistributedTrainConfig, transport,
                            base_key: Optional[torch.Tensor] = None
                            ) -> Callable:
@@ -127,29 +149,11 @@ def make_distributed_train(tc: DistributedTrainConfig, transport,
         base_key = prng.PRNGKey(0)
     base_key = prng.key_data(base_key).to(transport.device)
 
-    def node_grads(x_block, tokens, labels):
-        """Each held node's gradient at its own params, one at a time."""
-        leaves, struct = tree_mod.flatten(x_block)
-        grads = [torch.empty_like(v) for v in leaves]
-        losses = torch.empty(len(tokens), dtype=torch.float32,
-                             device=tokens.device)
-        for i in range(len(tokens)):
-            mine = [v[i].detach().requires_grad_(True) for v in leaves]
-            logits, aux = transformer.forward(
-                tree_mod.unflatten(struct, mine), cfg, tokens[i])
-            loss = transformer.lm_loss(logits, labels[i], cfg.vocab_size,
-                                       aux)
-            del logits
-            for g_out, g in zip(grads, torch.autograd.grad(loss, mine)):
-                g_out[i].copy_(g)
-            losses[i] = loss.detach()
-        return tree_mod.unflatten(struct, grads), losses
-
     def train_step(state, tokens, labels):
         tok = node_batch(tokens, transport)
         lab = node_batch(labels, transport)
         state, losses = executor.step(
-            state, lambda x: node_grads(x, tok, lab), base_key=base_key)
+            state, lambda x: node_grads(cfg, x, tok, lab), base_key=base_key)
         return state, transport.pmean(losses)[0]
 
     return train_step

@@ -40,6 +40,11 @@ class TrainResult:
     epsilons: List[float]
     eval_accuracy: List[float]
     wall_s: float
+    # simulated seconds at the END of each round: filled by the edge-fleet
+    # simulator (repro_torch.sim.runner), which charges compute time and
+    # bandwidth-limited transmission per node; empty for the lock-step
+    # trainer below, whose rounds have no time model.
+    sim_time_s: List[float] = dataclasses.field(default_factory=list)
     # wall seconds of each step, ending when its loss reached the host
     step_s: List[float] = dataclasses.field(default_factory=list)
     # the executor's state after the last step (port only: lets a caller
@@ -48,10 +53,12 @@ class TrainResult:
 
 
 def _to_device(batch, dev: torch.device):
-    """A host batch ((x, y) numpy stacks, or one array) as tensors on dev."""
+    """A batch ((x, y) numpy stacks or tensors, or one array) as tensors
+    on dev."""
     if isinstance(batch, (tuple, list)):
-        return tuple(torch.as_tensor(np.asarray(b), device=dev)
-                     for b in batch)
+        return tuple(_to_device(b, dev) for b in batch)
+    if isinstance(batch, torch.Tensor):
+        return batch.to(dev)
     return torch.as_tensor(np.asarray(batch), device=dev)
 
 

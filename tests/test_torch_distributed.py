@@ -232,7 +232,7 @@ def run_port(mkey, topo, mode):
                                   for i in range(n)])}
 
     key = prng.PRNGKey(SEED)
-    transport = tr.StackTransport(n)
+    transport = tr.StackTransport(n, "cpu")
     ex = meth.make_distributed(seq, cfg, transport)
     state = ex.init({"w": p0.expand(n, DIM).clone()})
     for _ in range(STEPS):

@@ -35,7 +35,10 @@ def test_every_module_imports_without_jax():
         "for want in ('repro_torch.kernels.flash_attn.decode',\n"
         "             'repro_torch.kernels.wire_compress.ops',\n"
         "             'repro_torch.train.trainer',\n"
-        "             'repro_torch.core.sdm_dsgd', 'repro_torch.prng'):\n"
+        "             'repro_torch.core.sdm_dsgd', 'repro_torch.prng',\n"
+        "             'repro_torch.sim', 'repro_torch.sim.runner',\n"
+        "             'repro_torch.bench.fig2_divergence',\n"
+        "             'repro_torch.bench.run'):\n"
         "    assert want in names, (want, names)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"

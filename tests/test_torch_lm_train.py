@@ -177,7 +177,7 @@ def test_distributed_train_matches_jax_train_step(jax_train):
     init = {k[len("init/"):]: v for k, v in jax_train.items()
             if k.startswith("init/")}
     params = params_from_jax(init, tc.model, device="cpu")
-    transport = tr.StackTransport(N_NODES)
+    transport = tr.StackTransport(N_NODES, "cpu")
     state = steps.init_distributed_state(tc, transport, params=params)
     run = train_mod.train(tc, transport, steps=STEPS, global_batch=BATCH,
                           seq_len=SEQ, state=state)
@@ -287,9 +287,8 @@ def test_launcher_targets_cuda_by_default_and_refuses_what_is_not_ported():
     base = ["--arch", ARCH, "--smoke", "--steps", "1"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_mod.main(base)
-    with pytest.raises(SystemExit):
-        train_mod.main(base + ["--device", "cpu", "--sim", "straggler"])
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="tensor parallelism needs more "
+                       "than one GPU and is not ported"):
         train_mod.main(base + ["--device", "cpu", "--mesh", "2x2"])
 
 

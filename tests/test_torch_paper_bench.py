@@ -1,0 +1,226 @@
+"""PyTorch port: the paper's experiment scripts against the JAX scripts.
+
+Each test runs the JAX script and its port (``repro_torch.bench.*``,
+``repro_torch.examples.privacy_sweep``) on the same seed, on the CPU:
+
+- theory: the same ``name,us,derived`` line, string for string, and the
+  same Lemma 1 terms;
+- privacy sweep: the same stdout;
+- fig2 (60 steps, where JAX's two claims hold): losses within 1e-4
+  relative up to the first step where DC-DSGD's loss passes 1e3
+  (divergence amplifies last-bit differences), the same flags;
+- fig3 at a reduced element budget: losses 1e-4 relative, accuracy
+  2e-3, ``comm_bits`` / ``comm_elements`` exactly; at the default
+  budget the same derived line and the same failed accuracy claim;
+- table1 on a cut grid: sigma and T exactly, epsilons 1e-9 relative,
+  accuracy 2e-3.
+
+The port's scripts assert their claims only with ``check=True``; here
+they run with ``check=False`` and the claims' outcomes are compared.
+"""
+import contextlib
+import io
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from repro_torch.bench import common  # noqa: E402
+from repro_torch.bench import (fig2_divergence, fig3_comm_efficiency,  # noqa: E402
+                               run as bench_run, table1_privacy_accuracy,
+                               theory_tradeoff)
+
+ROOT = Path(__file__).resolve().parent.parent
+LOSS_RTOL = 1e-4
+ACC_ATOL = 2e-3
+
+
+def _line(out: str):
+    """(name, us, derived) of the one emitted CSV line in ``out``."""
+    lines = [ln for ln in out.strip().splitlines() if not ln.startswith("#")]
+    assert len(lines) == 1, lines
+    return lines[0].split(",", 2)
+
+
+def _jax_run(fn, **kw):
+    """(return value or the AssertionError, stdout) of a JAX script."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            out = fn(**kw)
+        except AssertionError as e:
+            out = e
+    return out, buf.getvalue()
+
+
+def test_theory_line_and_terms_equal_jax(capsys):
+    from benchmarks import theory_tradeoff as jtheory
+
+    jterms = jtheory.run()
+    want = capsys.readouterr().out
+    got = theory_tradeoff.run(device="cpu", check=False)
+    assert capsys.readouterr().out == want
+    assert got.data == jterms
+    assert got.claims == {"m4_ratios_16": True, "p2_gap_exact": True,
+                          "corollary3_decreasing": True}
+    assert common.settle(got, True) is got
+
+
+def test_privacy_sweep_stdout_equal_jax(capsys):
+    import runpy
+
+    from repro_torch.examples import privacy_sweep
+
+    runpy.run_path(str(ROOT / "examples" / "privacy_sweep.py"),
+                   run_name="__main__")
+    want = capsys.readouterr().out
+    privacy_sweep.main()
+    assert capsys.readouterr().out == want
+    assert "T_max" in want and "1/p^2" in want
+
+
+def test_fig2_losses_and_flags_equal_jax():
+    from benchmarks import fig2_divergence as jfig2
+
+    steps = 60
+    jres, jout = _jax_run(jfig2.run, steps=steps)
+    assert not isinstance(jres, AssertionError), jout   # JAX's claims hold
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = fig2_divergence.run(steps=steps, device="cpu", check=False)
+    _, _, jder = _line(jout)
+    name, _, der = _line(buf.getvalue())
+    assert name == "fig2_divergence"
+    jf = dict(kv.split("=") for kv in jder.split(";"))
+    f = dict(kv.split("=") for kv in der.split(";"))
+    for key in ("lambda_n", "theta_bound", "dc_diverged", "sdm_converged"):
+        assert f[key] == jf[key], key
+    assert f["dc_diverged"] == f["sdm_converged"] == "True"
+    assert got.claims == {"p_below_dc_min_p": True, "dc_diverged": True,
+                          "sdm_converged": True}
+    dc = np.asarray(jres["dc_dsgd_p0.2"])
+    big = np.nonzero(np.abs(dc) > 1e3)[0]
+    stop = int(big[0]) if len(big) else steps
+    assert 10 < stop < steps        # the cut is exercised
+    for key in ("dc_dsgd_p0.2", "sdm_dsgd_p0.2"):
+        assert len(got.data[key]) == steps
+        np.testing.assert_allclose(got.data[key][:stop], jres[key][:stop],
+                                   rtol=LOSS_RTOL)
+    # past the cut both still diverge (finite or not)
+    assert got.data["dc_dsgd_p0.2"][-1] > 1e3
+
+
+@pytest.mark.parametrize("methods", [("dc-dsgd", "sdm-dsgd"), ("dsgd",)])
+def test_fig3_curves_equal_jax_at_a_reduced_budget(methods):
+    """(dsgd and sdm-dsgd together would assert in JAX at this budget:
+    the claims need the default one.)"""
+    from benchmarks import fig3_comm_efficiency as jfig3
+
+    budget = 20_000_000
+    jres, jout = _jax_run(jfig3.run, comm_budget_elems=budget,
+                          methods=methods)
+    assert not isinstance(jres, AssertionError), jout
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = fig3_comm_efficiency.run(comm_budget_elems=budget,
+                                       methods=methods, device="cpu",
+                                       check=False)
+    jname, _, jder = _line(jout)
+    name, _, der = _line(buf.getvalue())
+    assert name == jname and der.split(";")[0] == jder.split(";")[0]
+    assert got.claims == {}
+    assert sorted(got.data) == sorted(jres)
+    for key, (jelems, jbits, jloss, jacc) in jres.items():
+        elems, bits, loss, acc = got.data[key]
+        assert elems == list(jelems) and bits == list(jbits)
+        np.testing.assert_allclose(loss, jloss, rtol=LOSS_RTOL)
+        np.testing.assert_allclose(acc, jacc, atol=ACC_ATOL)
+        d = got.details[key]
+        assert len(loss) == d["steps"] and bits[-1] == \
+            d["steps"] * d["per_step_bits"]
+
+
+def test_fig3_default_budget_reproduces_the_failed_accuracy_claim():
+    """At its default budget the JAX script fails its own accuracy claim
+    on this test bed; the port prints the same line and reports the same
+    claim as not held (and asserts it, as JAX does, when asked)."""
+    from benchmarks import fig3_comm_efficiency as jfig3
+
+    jres, jout = _jax_run(jfig3.run)
+    assert isinstance(jres, AssertionError)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = fig3_comm_efficiency.run(device="cpu", check=False)
+    assert _line(buf.getvalue())[2] == _line(jout)[2]
+    assert got.claims == {"sdm_loss_within_2pct_of_dsgd": True,
+                          "sdm_acc_within_0.01_of_dsgd": False}
+    with pytest.raises(AssertionError, match="sdm_acc_within"):
+        common.settle(got, True)
+
+
+def test_table1_sigma_T_eps_and_accuracy_equal_jax():
+    from benchmarks import table1_privacy_accuracy as jt1
+    from repro.core.privacy import (PrivacyAccountant as JAcct,
+                                    PrivacyParams as JPP)
+
+    grid, max_steps = (0.03,), 40
+    jres, jout = _jax_run(jt1.run, eps_grid=grid, max_steps=max_steps)
+    assert not isinstance(jres, AssertionError), jout
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = table1_privacy_accuracy.run(eps_grid=grid, max_steps=max_steps,
+                                          device="cpu", check=False)
+    assert _line(buf.getvalue())[0] == "table1_privacy_accuracy"
+    assert sorted(got.data) == sorted(jres)
+    assert all(got.claims.values())
+    m = 5000 // common.N_NODES
+    for (eps, name), jacc in jres.items():
+        _, p, _ = table1_privacy_accuracy.METHODS[name]
+        sigma, steps = jt1._sigma_and_T(eps, m, p, max_steps)
+        d = got.details[(eps, name)]
+        assert (d["sigma"], d["steps"]) == (sigma, steps)
+        assert table1_privacy_accuracy.sigma_and_T(eps, m, p, max_steps) \
+            == (sigma, steps)
+        acct = JAcct(JPP(G=jt1.G_CLIP, m=m, tau=common.BATCH_PER_NODE / m,
+                         p=p, sigma=sigma, delta=jt1.DELTA), eps)
+        want = []
+        for _ in range(steps):
+            acct.step()
+            want.append(acct.epsilon)
+        np.testing.assert_allclose(d["epsilons"], want, rtol=1e-9)
+        # sigma at the clamp floor sqrt(1/1.25) squares to one ulp below
+        # 1/1.25, where both accountants report eps = inf
+        assert np.isfinite(want).all() == (sigma ** 2 >= 1 / 1.25)
+        assert len(d["losses"]) == steps and np.isfinite(d["losses"]).all()
+        assert abs(got.data[(eps, name)] - jacc) <= ACC_ATOL
+
+
+def test_aggregator_runs_entries_and_refuses_what_is_not_ported(capsys):
+    bench_run.main(["--only", "theory", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "theory_tradeoff,0.0,m4_ratios=[16.0, 16.0, 16.0]" in out
+    assert out.strip().endswith("# all benchmarks passed")
+    for name in ("roofline", "perf", "serve"):
+        with pytest.raises(SystemExit) as exc:
+            bench_run.main(["--only", f"theory,{name}", "--device", "cpu"])
+        assert exc.value.code == 1
+        out = capsys.readouterr().out
+        assert f"# === {name}: not ported yet" in out
+        assert f"# FAILED: ['{name}']" in out
+    with pytest.raises(SystemExit):
+        bench_run.main(["--only", "nope", "--device", "cpu"])
+    assert set(bench_run.BENCHES) | set(bench_run.NOT_PORTED) == {
+        "theory", "fig2", "fig3", "table1", "kernels", "roofline", "perf",
+        "sim", "serve"}
+
+
+def test_scripts_target_cuda_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for run in (theory_tradeoff.run, fig2_divergence.run,
+                fig3_comm_efficiency.run, table1_privacy_accuracy.run):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()

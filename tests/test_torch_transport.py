@@ -123,7 +123,7 @@ def _worker(backend: str, rank: int, port: int, out: str) -> None:
 def test_stack_transport_ppermute_semantics_and_counters():
     from repro_torch.core.transport import StackTransport
 
-    t = StackTransport(WORLD)
+    t = StackTransport(WORLD, "cpu")
     got, mean = _probe(t)
     want = np.zeros((WORLD, 3), np.float32)
     want[2], want[1], want[0] = [0, 1, 2], [20, 21, 22], [30, 31, 32]
@@ -139,6 +139,18 @@ def test_stack_transport_ppermute_semantics_and_counters():
         t.ppermute(torch.zeros(3, 2), ((0, 1),))
 
 
+def test_stack_transport_defaults_to_the_card():
+    """Like every entry point, the stack transport targets CUDA unless the
+    caller asks for the CPU: without a card the default raises."""
+    from repro_torch.core.transport import StackTransport
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StackTransport(WORLD)
+    assert StackTransport(WORLD, "cpu").device == torch.device("cpu")
+
+
 def test_payload_indices_cross_as_int32():
     """Explicit indices ship at lax.top_k's int32 width (4 bytes each on
     the counters) and come back in their own dtype, unchanged."""
@@ -146,7 +158,7 @@ def test_payload_indices_cross_as_int32():
     from repro_torch.core.compressor import Payload
     from repro_torch.core.transport import StackTransport
 
-    t = StackTransport(WORLD)
+    t = StackTransport(WORLD, "cpu")
     idx = torch.arange(WORLD * 3, dtype=torch.int64).reshape(WORLD, 3) * 7
     vals = torch.ones(WORLD, 3, 2)
     perm = ((0, 1), (1, 2), (2, 3), (3, 0))
@@ -217,7 +229,7 @@ def _spawn_and_compare(backend: str, tmp_path, stack) -> None:
 def test_process_group_transport_gloo_is_bit_equal_to_stack(tmp_path):
     from repro_torch.core.transport import StackTransport
 
-    _spawn_and_compare("gloo", tmp_path, StackTransport(WORLD))
+    _spawn_and_compare("gloo", tmp_path, StackTransport(WORLD, "cpu"))
 
 
 @pytest.mark.cuda
