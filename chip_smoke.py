@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and kernel-bench paths on one
-NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, kernel-bench and benchmark-gate
+paths on one NVIDIA GPU.
 
   python3 chip_smoke.py
 
@@ -71,6 +71,19 @@ Phases (any failure exits non-zero):
      gemma2-2b at full width, 4 layers, 2 nodes through
      ``launch.train.simulate_lm`` (the ``--sim`` path), 3 rounds. Each
      part prints its wall time and peak memory beside the card.
+  18. the two gates on the card: ``bench.serve_bench`` (phi3-medium-14b
+     smoke, 12 ragged requests, static vs continuous) and
+     ``bench.perf_wire`` (9 wire cases x 8 nodes), then ``check_serve`` and
+     ``check_perf`` against their ``"cuda"`` baselines; the paged decode,
+     ``qsgd_pack`` and ``fixedk_gather_pack`` kernels must launch.
+  19. the three dense configs: the paged kernel vs plain at their head
+     layouts (phi3 kvh 10 x group 4, chatglm3 kvh 2 x group 16, qwen1.5
+     kvh 40 x group 1; dh 128, no softcap) and its time at each serving
+     shape; phi3-medium-14b at full width and depth serves phase 3's 16
+     ragged requests (paged launches == decode_steps x 40) and its f32
+     paged step is held to plain attention at 20 layers (relative bound);
+     chatglm3-6b at full depth and qwen1.5-32b at 32 of its 64 layers each
+     serve 4 requests.
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -114,6 +127,7 @@ CPU_LOSS_RTOL = 1e-3
 # the kernels each main path must launch
 SERVE_KERNELS = ("paged_decode",)
 TRAIN_KERNELS = ("qsgd_pack",)
+GATE_KERNELS = ("paged_decode", "qsgd_pack", "fixedk_gather_pack")
 # f32 logits (capped at +-30) of 26 layers: the paged kernel and the
 # plain dense attention sum in different orders (~1e-6 relative per
 # layer), amplified through the depth; 1e-2 is 3e-4 of the cap.
@@ -459,9 +473,9 @@ def step_breakdown(torch, np, state, ins, seq, cfg, n, reps=3):
     ``torch.profiler`` trace of whole steps, and the ATen ops one step
     dispatches."""
     from torch.profiler import ProfilerActivity, profile
-    from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch import prng
+    from repro_torch.bench.counting import OpCount
     from repro_torch.core import method, sdm_dsgd
 
     sim = method.get("sdm-dsgd").make_reference(seq, cfg)
@@ -506,14 +520,7 @@ def step_breakdown(torch, np, state, ins, seq, cfg, n, reps=3):
     busy_ms = sum(dev_us(e) for e in kernels) / reps / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
 
-    class OpCount(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            OpCount.n += 1
-            return func(*args, **(kwargs or {}))
-
-    with OpCount():
+    with OpCount() as ops:
         sim.step(state, grad_fn, batch, key)
     torch.cuda.synchronize()
     step = ms["whole step"]
@@ -529,7 +536,7 @@ def step_breakdown(torch, np, state, ins, seq, cfg, n, reps=3):
     else:
         log("resnet20 step device time: not measured (the profiler "
             "recorded no device time)")
-    log(f"resnet20 step dispatches {OpCount.n} ATen ops")
+    log(f"resnet20 step dispatches {ops.total} ATen ops")
 
 
 # ---- the distributed LM training slice (phases 8-10) ----------------------
@@ -1690,6 +1697,340 @@ def sim_phase(torch, np, card):
     return launched
 
 
+# ---- the serving helpers of phases 3, 4 and 19 ------------------------------
+
+def attn_layers(cfg) -> int:
+    """Attention layers of ``cfg``: paged-decode launches per decode step."""
+    return sum(s.mixer in ("attn", "attn_local") for s in cfg.period) \
+        * cfg.n_periods
+
+
+def init_model(torch, np, cfg, *, seed, dtype, reduced=None):
+    """Seeded ``init_params`` on the card, logged with its size."""
+    from repro_torch.models import transformer
+
+    t0 = time.monotonic()
+    params = transformer.init_params(cfg, seed=seed, dtype=dtype,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(s)) for s in transformer.param_shapes(cfg)
+                   .values())
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads, head_dim "
+        f"{cfg.resolved_head_dim}, {n_params / 1e9:.3f} B params in "
+        f"{str(dtype).split('.')[-1]}, init {time.monotonic() - t0:.1f} s"
+        + (f"; reduced: {reduced}" if reduced else ""))
+    return params
+
+
+def serve_ragged(torch, np, cfg, params, card, kernels, *, n_requests=16,
+                 max_new=32, max_batch=8, ker_ms=None):
+    """Serve ``n_requests`` prompts of 64-1024 tokens (lengths and tokens
+    from ``default_rng(0)``), ``max_new`` new tokens each, through
+    ``ServingEngine`` (bf16, page 16) after a warm-up serve. Every kernel
+    count is set to 0 just before and read just after. Checks: each
+    request returns ``max_new`` valid tokens, and the paged kernel
+    launched ``decode_steps x`` attention layers. Returns the serving
+    kernels' launches."""
+    from repro_torch.serving import Request, ServingEngine
+
+    max_seq = 1024 + max_new
+    engine = ServingEngine(cfg, params, max_batch=max_batch, max_seq=max_seq,
+                           page_size=16, dtype=torch.bfloat16)
+    engine.serve([Request(prompt=list(range(1, 65)), max_new_tokens=2)])
+    torch.cuda.synchronize()            # warm-up (cuBLAS handles etc.)
+
+    rng = np.random.default_rng(0)
+    prompt_lens = rng.integers(64, 1025, n_requests)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=max_new) for n in prompt_lens]
+    torch.cuda.reset_peak_memory_stats()
+    for _, wrapper in kernels.values():
+        wrapper.launches = 0
+    engine.serve(reqs)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, (_, w) in kernels.items()
+                if k in SERVE_KERNELS}
+    stats = engine.last_stats
+    n_attn = attn_layers(cfg)
+    steps_ms = np.asarray(stats.step_wall_s) * 1e3
+    ttft_ms = np.asarray(stats.ttft_s) * 1e3
+    share = "" if ker_ms is None else (
+        f"; the {n_attn} paged-decode calls at {ker_ms * 1e3:.2f} us each "
+        f"(timed alone at the serving shape) take {n_attn * ker_ms:.3f} ms "
+        f"of the mean step ({n_attn * ker_ms / steps_ms.mean():.3f})")
+    log(f"serve {cfg.name} bf16 on {card}: {len(reqs)} requests (prompts "
+        f"{prompt_lens.tolist()}), {stats.tokens} tokens in "
+        f"{stats.wall_s:.3f} s = {stats.tokens / stats.wall_s:.1f} tok/s; "
+        f"decode step ms mean {steps_ms.mean():.3f} p50 "
+        f"{np.percentile(steps_ms, 50):.3f} p99 "
+        f"{np.percentile(steps_ms, 99):.3f} over {stats.decode_steps} steps; "
+        f"TTFT ms mean {ttft_ms.mean():.1f} p50 "
+        f"{np.percentile(ttft_ms, 50):.1f} p99 "
+        f"{np.percentile(ttft_ms, 99):.1f}; {stats.prefills} prefills; pages "
+        f"peak {stats.pages_peak} / dense {stats.pages_dense_equiv}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"launches {launches}{share}")
+    bad = [i for i, r in enumerate(reqs)
+           if r.output is None or len(r.output) != max_new
+           or not all(0 <= t < cfg.padded_vocab for t in r.output)]
+    if bad:
+        raise AssertionError(f"requests {bad} did not return {max_new} "
+                             f"valid tokens")
+    if launches["paged_decode"] != stats.decode_steps * n_attn:
+        raise AssertionError(
+            f"paged_decode launched {launches['paged_decode']} times, "
+            f"expected decode_steps x {n_attn} = "
+            f"{stats.decode_steps * n_attn}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+    return launches
+
+
+def paged_vs_dense(torch, np, cfg, params, *, seed):
+    """One decode step's logits through the paged path (the kernel) and
+    through the dense ``decode_step`` path (plain attention), after a
+    dense prefill of 4 prompts of 16-256 tokens (``default_rng(seed)``)
+    scattered into a paged pool."""
+    from repro_torch.kernels.flash_attn.decode import paged_attention
+    from repro_torch.models import transformer
+    from repro_torch.serving import PagedKVCache
+
+    dtype = params["embed"].dtype
+    rng = np.random.default_rng(seed)
+    e2e_lens = rng.integers(16, 257, 4)
+    b, max_len = len(e2e_lens), 264
+    toks = np.zeros((b, max(e2e_lens)), np.int32)
+    for i, n in enumerate(e2e_lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    lens = torch.as_tensor(e2e_lens.astype(np.int32), device="cuda")
+    with torch.no_grad():
+        cache = transformer.init_cache(cfg, b, max_len, dtype, "cuda")
+        logits, cache = transformer.prefill(
+            params, cfg, torch.as_tensor(toks, device="cuda"), cache,
+            last_index=lens - 1)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        kv = PagedKVCache(cfg, max_batch=b, max_seq=max_len, page_size=16,
+                          dtype=dtype)
+        for r, n in enumerate(e2e_lens.tolist()):
+            kv.alloc(r, max_len)
+            kv.write_prompt(r, {si: (c.k[:, r:r + 1, :n], c.v[:, r:r + 1, :n])
+                                for si, c in cache.slots.items()}, n)
+        n0 = paged_attention.launches
+        paged = transformer.decode_step_paged(
+            params, cfg, nxt, kv.pages, kv.tables(), lens,
+            torch.ones(b, dtype=torch.bool, device="cuda"))
+        launches = paged_attention.launches - n0
+        dense, _ = transformer.decode_step(params, cfg, nxt, cache,
+                                           offsets=lens)
+        torch.cuda.synchronize()
+    return dict(paged=paged, dense=dense, launches=launches, lens=e2e_lens,
+                lens_dev=lens, next=nxt, kv=kv)
+
+
+# ---- slice 7: the gates and the three dense configs (phases 18-19) ---------
+
+# phi3's f32 paged-vs-dense step: f32 weights at all 40 layers take ~57 GB,
+# so the depth is cut to fit beside the dense and paged caches
+DENSE_E2E_LAYERS = 20
+# phi3 sets no logit softcap, so phase 4's absolute bound on +-30 capped
+# logits does not carry over: the two f32 paths sum attention in other
+# orders (phase 4 measured ~5e-7 of logits a few units wide over 26
+# layers); 1e-4 of the largest |logit| leaves two orders of room, while a
+# wrong head layout, mask or page moves logits by their own size
+DENSE_E2E_RTOL = 1e-4
+# qwen1.5-32b: 64 layers of bf16 weights take ~68 GB, plus init_params' f32
+# draw of the largest stacked leaf (64 x 5120 x 27392 x 4 B ~ 36 GB)
+QWEN_LAYERS = 32
+# the three dense head layouts (configs/*.py)
+DENSE_LAYOUTS = {
+    "phi3-medium-14b": dict(kvh=10, group=4, dh=128),
+    "chatglm3-6b": dict(kvh=2, group=16, dh=128),
+    "qwen1.5-32b": dict(kvh=40, group=1, dh=128),
+}
+
+
+def gates_phase(torch, card, kernels):
+    """Phase 18: the ported serving and wire-plane snapshots on the card,
+    gated against the ``"cuda"`` baselines. Every kernel count is set to
+    0 just before and read just after; the serving kernel and both wire
+    kernels must have launched. Returns those launches."""
+    import os
+    import tempfile
+
+    from repro_torch.bench import (check_perf, check_serve, perf_wire,
+                                   serve_bench)
+
+    for _, wrapper in kernels.values():
+        wrapper.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase_clock(torch, "phase 18 serve_bench (phi3 smoke, 12 "
+                         "requests, 2 engines)", card):
+            serve, lines = _quiet(serve_bench.run, device="cuda",
+                                  out_path=os.path.join(tmp, "serve.json"))
+        for line in lines:
+            log(f"  {line}")
+        with phase_clock(torch, f"phase 18 perf_wire ({len(perf_wire.CASES)} "
+                         f"cases x 2 steps, {perf_wire.N_NODES} nodes)", card):
+            perf, lines = _quiet(perf_wire.run, device="cuda",
+                                 out_path=os.path.join(tmp, "perf.json"))
+        for line in lines:
+            log(f"  {line}")
+    launches = {k: w.launches for k, (_, w) in kernels.items()
+                if k in GATE_KERNELS}
+    log(f"phase 18 serve: decode step {serve['decode_aten_ops']} ATen ops, "
+        f"{serve['decode_kernel_launches']} kernel launches (paged "
+        f"{serve['decode_paged_kernel_launches']}); records "
+        f"{json.dumps(serve['records'])}")
+    for rec in perf["records"]:
+        log(f"phase 18 perf {rec['case']}: kernel_launches "
+            f"{rec['kernel_launches']}, ported "
+            f"{rec['ported_kernel_launches']}, aten_ops {rec['aten_ops']}, "
+            f"launches {rec['launches']}, permutes {rec['permutes_per_step']}"
+            f", wire bits {rec['wire_bits_sent']} (acc "
+            f"{rec['wire_bits_acc']})")
+    failures = check_serve.check(serve) + check_perf.check(perf)
+    log(f"phase 18 gates on {card}: check_serve + check_perf "
+        f"{'passed' if not failures else 'FAILED: ' + str(failures)}; "
+        f"launches {launches}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if failures or missing:
+        raise AssertionError(f"gates failed {failures}; kernels not "
+                             f"launched {missing}")
+    return launches
+
+
+def dense_layout_kernels(torch, np):
+    """The paged kernel against its plain version at the three dense head
+    layouts (f32 and bf16, no softcap, no window, ragged lengths incl. an
+    empty row), then its time, the plain version's and the bound at each
+    layout's serving shape (8 rows of phase 3's lengths, 66 blocks of 16,
+    bf16, 8 pools in turn). Returns {arch: timing}."""
+    from repro_torch.kernels.flash_attn.decode import (paged_attention,
+                                                       paged_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    lens = [0, 1, 16, 17, 300, 1000, 1056, 64]
+    out = {}
+    for arch, lay in DENSE_LAYOUTS.items():
+        errs = []
+        for dt_name in ("float32", "bfloat16"):
+            q, kv, tbl, sl = paged_inputs(torch, gen, seq_lens=lens,
+                                          n_blocks=66, page=16,
+                                          dtype=getattr(torch, dt_name),
+                                          **lay)
+            (kp, vp), = kv
+            n0 = paged_attention.launches
+            got = paged_attention(q, kp, vp, tbl, sl)
+            torch.cuda.synchronize()
+            want = paged_attention_ref(q, kp, vp, tbl, sl)
+            err = (got.float() - want.float()).abs().max().item()
+            zero = not got[sl == 0].any().item()
+            errs.append(err)
+            log(f"paged_decode {arch} layout (kvh {lay['kvh']}, group "
+                f"{lay['group']}, dh {lay['dh']}) {dt_name} softcap=None: "
+                f"max|kernel-plain|={err:.3e} (atol {KERNEL_ATOL[dt_name]}) "
+                f"empty-row zeros={zero}")
+            if not (err <= KERNEL_ATOL[dt_name] and zero
+                    and paged_attention.launches == n0 + 1):
+                raise AssertionError(f"paged_decode disagrees with its plain "
+                                     f"version at {arch}'s layout")
+        rng = np.random.default_rng(0)
+        serve_lens = (rng.integers(64, 1025, 8) + 16).tolist()
+        q, kv, tbl, sl = paged_inputs(torch, gen, seq_lens=serve_lens,
+                                      n_blocks=66, page=16,
+                                      dtype=torch.bfloat16, pools=8, **lay)
+        ker_ms, host_ms = cuda_ms(torch, lambda i: paged_attention(
+            q, *kv[i % 8], tbl, sl), iters=208)
+        plain_ms, _ = cuda_ms(torch, lambda i: paged_attention_ref(
+            q, *kv[i % 8], tbl, sl), iters=16)
+        bound_ms, bound_by, nbytes = decode_bound(
+            serve_lens, window=None, n_blocks=66, page=16, elt_bytes=2,
+            **lay)
+        log(f"paged_decode {arch} bf16 b=8 kvh={lay['kvh']} "
+            f"group={lay['group']} dh={lay['dh']} page=16 "
+            f"seq_lens={serve_lens}: kernel {ker_ms * 1e3:.2f} us on the "
+            f"device ({host_ms * 1e3:.2f} us per call on the host), plain "
+            f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+            f"({nbytes} bytes, {bound_by})")
+        out[arch] = dict(ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, max_abs_err=max(errs))
+        del q, kv, tbl, sl
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_configs_phase(torch, np, card, kernels):
+    """Phase 19: the three dense configs served on the card at full width:
+    phi3-medium-14b at full depth with phase 3's workload and its f32
+    paged step against plain attention (depth cut to fit); chatglm3-6b
+    at full depth and qwen1.5-32b at half depth, 4 requests each. Returns
+    (the paged kernel's launches in the three serves, the layouts'
+    kernel timings)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    timings = dense_layout_kernels(torch, np)
+    launches = 0
+    cfg = configs.get_config("phi3-medium-14b")
+    with phase_clock(torch, "phase 19 phi3-medium-14b serve (40 layers)",
+                     card):
+        params = init_model(torch, np, cfg, seed=0, dtype=torch.bfloat16)
+        launches += serve_ragged(torch, np, cfg, params, card, kernels,
+                                 ker_ms=timings[cfg.name]["ms"])[
+            "paged_decode"]
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    e2e_cfg = dataclasses.replace(cfg, n_layers=DENSE_E2E_LAYERS)
+    with phase_clock(torch, f"phase 19 phi3 f32 paged vs dense "
+                     f"({DENSE_E2E_LAYERS} layers)", card):
+        params = init_model(torch, np, e2e_cfg, seed=1, dtype=torch.float32,
+                            reduced=f"n_layers {cfg.n_layers} -> "
+                                    f"{DENSE_E2E_LAYERS}")
+        e2e = paged_vs_dense(torch, np, e2e_cfg, params, seed=1)
+        paged, dense = e2e["paged"], e2e["dense"]
+        scale = dense.abs().max().item()
+        diff = (paged - dense).abs().max().item()
+        finite = bool(torch.isfinite(paged).all()
+                      and torch.isfinite(dense).all())
+        same_top = (paged.argmax(-1) == dense.argmax(-1)).float().mean().item()
+        log(f"e2e f32 phi3-medium-14b, {DENSE_E2E_LAYERS} layers, prompts "
+            f"{e2e['lens'].tolist()}: max|paged(kernel) - dense(plain)| "
+            f"logits = {diff:.3e}, |logits| max {scale:.4f}, relative "
+            f"{diff / scale:.3e} (rtol {DENSE_E2E_RTOL}); argmax agreement "
+            f"{same_top:.2f}; kernel launches {e2e['launches']}; finite "
+            f"{finite}")
+        if not (finite and diff <= DENSE_E2E_RTOL * scale
+                and e2e["launches"] == attn_layers(e2e_cfg)):
+            raise AssertionError("phi3 paged-kernel logits disagree with the "
+                                 "dense plain path")
+        del params, e2e, paged, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qwen = configs.get_config("qwen1.5-32b")
+    for cfg, reduced in ((configs.get_config("chatglm3-6b"), None),
+                         (dataclasses.replace(qwen, n_layers=QWEN_LAYERS),
+                          f"n_layers {qwen.n_layers} -> {QWEN_LAYERS}")):
+        with phase_clock(torch, f"phase 19 {cfg.name} serve "
+                         f"({cfg.n_layers} layers)", card):
+            params = init_model(torch, np, cfg, seed=0, dtype=torch.bfloat16,
+                                reduced=reduced)
+            launches += serve_ragged(
+                torch, np, cfg, params, card, kernels, n_requests=4,
+                max_new=4, max_batch=4,
+                ker_ms=timings[cfg.name]["ms"])["paged_decode"]
+            del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, timings
+
+
 def ptxas_entries(text: str):
     """{mangled kernel name: (registers, spill store bytes)} from an
     ``nvcc -Xptxas -v`` log."""
@@ -1766,7 +2107,6 @@ def main() -> int:
     from repro_torch.kernels.wire_compress import (fixedk_gather_pack,
                                                    qsgd_pack)
     from repro_torch.models import transformer
-    from repro_torch.serving import PagedKVCache, Request, ServingEngine
 
     # every kernel of the path: (record, wrapper with a .launches count)
     kernels = {
@@ -1923,136 +2263,47 @@ def main() -> int:
 
     # ---- 3. the main path: serve gemma2-2b --------------------------------
     cfg = configs.get_config("gemma2-2b")
-    t0 = time.monotonic()
-    params = transformer.init_params(cfg, seed=0, dtype=torch.bfloat16,
-                                     device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(int(np.prod(s)) for s in transformer.param_shapes(cfg)
-                   .values())
-    log(f"gemma2-2b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params / 1e9:.3f} B params in bf16, init "
-        f"{time.monotonic() - t0:.1f} s")
-    max_new, max_seq = 32, 1024 + 32
-    engine = ServingEngine(cfg, params, max_batch=8, max_seq=max_seq,
-                           page_size=16, dtype=torch.bfloat16)
-    engine.serve([Request(prompt=list(range(1, 65)), max_new_tokens=2)])
-    torch.cuda.synchronize()            # warm-up (cuBLAS handles etc.)
-
-    rng = np.random.default_rng(0)
-    prompt_lens = rng.integers(64, 1025, 16)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
-                    max_new_tokens=max_new) for n in prompt_lens]
-    torch.cuda.reset_peak_memory_stats()
-    for _, wrapper in kernels.values():
-        wrapper.launches = 0
-    engine.serve(reqs)
-    torch.cuda.synchronize()
+    params = init_model(torch, np, cfg, seed=0, dtype=torch.bfloat16)
     # the serving path's kernels; the training path's are read in phase 6
-    launches = {k: w.launches for k, (_, w) in kernels.items()
-                if k in SERVE_KERNELS}
-    stats = engine.last_stats
-    n_attn = sum(s.mixer in ("attn", "attn_local") for s in cfg.period) \
-        * cfg.n_periods
-    steps_ms = np.asarray(stats.step_wall_s) * 1e3
-    ttft_ms = np.asarray(stats.ttft_s) * 1e3
-    log(f"serve gemma2-2b bf16 on {card}: {len(reqs)} requests (prompts "
-        f"{prompt_lens.tolist()}), {stats.tokens} tokens in "
-        f"{stats.wall_s:.3f} s = {stats.tokens / stats.wall_s:.1f} tok/s; "
-        f"decode step ms mean {steps_ms.mean():.3f} p50 "
-        f"{np.percentile(steps_ms, 50):.3f} p99 "
-        f"{np.percentile(steps_ms, 99):.3f} over {stats.decode_steps} steps; "
-        f"TTFT ms mean {ttft_ms.mean():.1f} p50 "
-        f"{np.percentile(ttft_ms, 50):.1f} p99 "
-        f"{np.percentile(ttft_ms, 99):.1f}; {stats.prefills} prefills; pages "
-        f"peak {stats.pages_peak} / dense {stats.pages_dense_equiv}; peak "
-        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
-        f"launches {launches}; the {n_attn} paged-decode calls at phase "
-        f"2's device time take {n_attn * ker_ms:.3f} ms of the mean step "
-        f"({n_attn * ker_ms / steps_ms.mean():.3f})")
-    bad = [i for i, r in enumerate(reqs)
-           if r.output is None or len(r.output) != max_new
-           or not all(0 <= t < cfg.padded_vocab for t in r.output)]
-    if bad:
-        raise AssertionError(f"requests {bad} did not return {max_new} "
-                             f"valid tokens")
-    if launches["paged_decode"] != stats.decode_steps * n_attn:
-        raise AssertionError(
-            f"paged_decode launched {launches['paged_decode']} times, "
-            f"expected decode_steps x {n_attn} = "
-            f"{stats.decode_steps * n_attn}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    del engine, params
+    launches = serve_ragged(torch, np, cfg, params, card, kernels,
+                            ker_ms=ker_ms)
+    n_attn = attn_layers(cfg)
+    del params
     torch.cuda.empty_cache()
 
     # ---- 4. end to end against plain, f32 ---------------------------------
     params = transformer.init_params(cfg, seed=1, dtype=torch.float32,
                                      device="cuda")
-    rng = np.random.default_rng(1)
-    e2e_lens = rng.integers(16, 257, 4)
-    b, max_len = len(e2e_lens), 264
-    toks = np.zeros((b, max(e2e_lens)), np.int32)
-    for i, n in enumerate(e2e_lens):
-        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
-    lens = torch.as_tensor(e2e_lens.astype(np.int32), device="cuda")
-    with torch.no_grad():
-        cache = transformer.init_cache(cfg, b, max_len, torch.float32, "cuda")
-        logits, cache = transformer.prefill(
-            params, cfg, torch.as_tensor(toks, device="cuda"), cache,
-            last_index=lens - 1)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        kv = PagedKVCache(cfg, max_batch=b, max_seq=max_len, page_size=16,
-                          dtype=torch.float32)
-        for r, n in enumerate(e2e_lens.tolist()):
-            kv.alloc(r, max_len)
-            kv.write_prompt(r, {si: (c.k[:, r:r + 1, :n], c.v[:, r:r + 1, :n])
-                                for si, c in cache.slots.items()}, n)
-        n0 = paged_attention.launches
-        paged = transformer.decode_step_paged(
-            params, cfg, nxt, kv.pages, kv.tables(), lens,
-            torch.ones(b, dtype=torch.bool, device="cuda"))
-        paged_launches = paged_attention.launches - n0
-        dense, _ = transformer.decode_step(params, cfg, nxt, cache,
-                                           offsets=lens)
-        torch.cuda.synchronize()
+    e2e = paged_vs_dense(torch, np, cfg, params, seed=1)
+    paged, dense = e2e["paged"], e2e["dense"]
     diff = (paged - dense).abs().max().item()
     finite = bool(torch.isfinite(paged).all() and torch.isfinite(dense).all())
     same_top = (paged.argmax(-1) == dense.argmax(-1)).float().mean().item()
     log(f"e2e f32 gemma2-2b, {cfg.n_layers} layers, prompts "
-        f"{e2e_lens.tolist()}: max|paged(kernel) - dense(plain)| logits = "
+        f"{e2e['lens'].tolist()}: max|paged(kernel) - dense(plain)| logits = "
         f"{diff:.3e} (atol {LOGIT_ATOL}); |logits| max "
         f"{dense.abs().max().item():.2f}; argmax agreement {same_top:.2f}; "
-        f"kernel launches {paged_launches}; finite {finite}")
-    if not (finite and diff <= LOGIT_ATOL and paged_launches == n_attn
-            and tuple(paged.shape) == (b, cfg.padded_vocab)):
+        f"kernel launches {e2e['launches']}; finite {finite}")
+    if not (finite and diff <= LOGIT_ATOL and e2e["launches"] == n_attn
+            and tuple(paged.shape) == (len(e2e["lens"]), cfg.padded_vocab)):
         raise AssertionError("paged-kernel logits disagree with the dense "
                              "plain path")
+    nxt, kv, lens = e2e["next"], e2e["kv"], e2e["lens_dev"]
+    b = len(e2e["lens"])
     # host work per decode step: ATen ops the eager step dispatches
-    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.bench.counting import OpCount
 
-    class OpCount(TorchDispatchMode):
-        n = 0
-        by_name: dict = {}
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            OpCount.n += 1
-            key = str(func.overloadpacket)
-            OpCount.by_name[key] = OpCount.by_name.get(key, 0) + 1
-            return func(*args, **(kwargs or {}))
-
-    with torch.no_grad(), OpCount():
+    with torch.no_grad(), OpCount() as ops:
         transformer.decode_step_paged(
             params, cfg, nxt, kv.pages, kv.tables(), lens + 1,
             torch.ones(b, dtype=torch.bool, device="cuda"))
     torch.cuda.synchronize()
-    log(f"decode_step_paged dispatches {OpCount.n} ATen ops per step "
-        f"({OpCount.n / cfg.n_layers:.1f} per layer) plus {n_attn} kernel "
+    log(f"decode_step_paged dispatches {ops.total} ATen ops per step "
+        f"({ops.total / cfg.n_layers:.1f} per layer) plus {n_attn} kernel "
         f"launches through ctypes; most frequent: "
-        f"{sorted(OpCount.by_name.items(), key=lambda kv: -kv[1])[:12]}")
+        f"{ops.by_name.most_common(12)}")
 
-    del params, cache, kv
+    del params, e2e, kv
     torch.cuda.empty_cache()
 
     # ---- 5.-7. the training path (Algorithm 1, qsgdf wire) ----------------
@@ -2101,6 +2352,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     paper_phase(torch, np, card)
     launches["qsgd_pack"] += sim_phase(torch, np, card)
+
+    # ---- 18.-19. the gates on the card, the three dense configs ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in gates_phase(torch, card, kernels).items():
+        launches[key] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_launches, timing["paged_decode"]["dense_layouts"] = \
+        dense_configs_phase(torch, np, card, kernels)
+    launches["paged_decode"] += dense_launches
 
     # ---- results -----------------------------------------------------------
     for key, rows in resources.items():

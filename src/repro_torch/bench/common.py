@@ -14,6 +14,8 @@ their ``__main__``); otherwise the caller reads and reports them.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Any, Dict
 
@@ -26,7 +28,8 @@ from repro_torch.data import classification_dataset, node_partitioned_batches
 from repro_torch.models import vision_small
 
 __all__ = ["N_NODES", "N_FEATURES", "N_CLASSES", "N_TRAIN", "BATCH_PER_NODE",
-           "make_mlr_testbed", "timeit_us", "emit", "PaperRun", "settle"]
+           "make_mlr_testbed", "timeit_us", "emit", "store_baseline",
+           "PaperRun", "settle"]
 
 N_NODES = 50
 N_FEATURES = 784          # MNIST-shaped
@@ -93,6 +96,20 @@ def timeit_us(fn, *args, iters: int = 20, warmup: int = 3) -> float:
 
 def emit(name: str, us_per_call: float, derived: str) -> None:
     print(f"{name},{us_per_call:.1f},{derived}")
+
+
+def store_baseline(path: str, device: str, section: dict) -> None:
+    """Set a gate's baseline file's ``device`` section, keeping the other
+    devices' sections."""
+    base = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            base = json.load(f)
+    base[device] = section
+    with open(path, "w") as f:
+        json.dump(base, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"# updated {path} [{device}]")
 
 
 @dataclasses.dataclass

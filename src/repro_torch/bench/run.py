@@ -8,8 +8,11 @@ A failing entry is reported and the aggregator exits 1.
   PYTHONPATH=src python -m repro_torch.bench.run                 # everything
   PYTHONPATH=src python -m repro_torch.bench.run --only fig2,theory --device cpu
 
-``roofline``, ``perf`` and ``serve`` are not ported yet: asking for one
-(or for everything) prints why and exits 1.
+``perf`` and ``serve`` write their snapshots (``BENCH_perf_torch.json``,
+``BENCH_serve_torch.json``, in the working directory); their gates run
+apart, as in the JAX package (``bench.check_perf``, ``bench.check_serve``).
+``roofline`` is not ported yet: asking for it (or for everything) prints
+why and exits 1.
 """
 from __future__ import annotations
 
@@ -35,16 +38,18 @@ BENCHES = {
             "edge-fleet simulation -> BENCH_sim_torch.json (simulated "
             "seconds-to-target, wire bits, epsilon per method x fault "
             "scenario)"),
+    "perf": ("repro_torch.bench.perf_wire",
+             "wire-plane perf snapshot -> BENCH_perf_torch.json "
+             "(permutes/step, wire bits, sorts, ATen ops, kernel launches)"),
+    "serve": ("repro_torch.bench.serve_bench",
+              "serving snapshot -> BENCH_serve_torch.json (continuous vs "
+              "static tok/s, decode steps, KV pages, decode-step launches)"),
 }
 
 # the JAX aggregator's other entries, with what they still need
 NOT_PORTED = {
     "roofline": "the three-term roofline reads the JAX package's dry-run "
                 "artefacts (launch/dryrun), which have no port",
-    "perf": "the wire-plane perf snapshot (benchmarks/perf_wire.py) counts "
-            "collectives from HLO and is not ported yet",
-    "serve": "the serving snapshot (benchmarks/serve_bench.py) and its "
-             "gate are not ported yet",
 }
 
 

@@ -7,25 +7,28 @@ not yet ported.
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ["gemma2_2b"]
+ARCH_IDS = ["gemma2_2b", "qwen1_5_32b", "phi3_medium_14b", "chatglm3_6b"]
 
 # public ids (with dashes/dots) -> module name
-ALIASES = {"gemma2-2b": "gemma2_2b"}
+ALIASES = {
+    "gemma2-2b": "gemma2_2b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "chatglm3-6b": "chatglm3_6b",
+}
 
 # registered in the JAX package, not yet in the port (public id -> module)
 NOT_YET_PORTED = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
-    "qwen1.5-32b": "qwen1_5_32b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "whisper-large-v3": "whisper_large_v3",
     "llama-3.2-vision-11b": "llama3_2_vision_11b",
-    "phi3-medium-14b": "phi3_medium_14b",
     "rwkv6-3b": "rwkv6_3b",
-    "chatglm3-6b": "chatglm3_6b",
 }
 
 
@@ -46,3 +49,7 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
+
+def all_configs() -> Dict[str, ModelConfig]:
+    """The full config of every ported arch, by public id."""
+    return {a: get_config(a) for a in sorted(ALIASES)}

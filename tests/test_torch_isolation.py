@@ -38,7 +38,15 @@ def test_every_module_imports_without_jax():
         "             'repro_torch.core.sdm_dsgd', 'repro_torch.prng',\n"
         "             'repro_torch.sim', 'repro_torch.sim.runner',\n"
         "             'repro_torch.bench.fig2_divergence',\n"
-        "             'repro_torch.bench.run'):\n"
+        "             'repro_torch.bench.run',\n"
+        "             'repro_torch.bench.counting',\n"
+        "             'repro_torch.bench.serve_bench',\n"
+        "             'repro_torch.bench.check_serve',\n"
+        "             'repro_torch.bench.perf_wire',\n"
+        "             'repro_torch.bench.check_perf',\n"
+        "             'repro_torch.configs.phi3_medium_14b',\n"
+        "             'repro_torch.configs.chatglm3_6b',\n"
+        "             'repro_torch.configs.qwen1_5_32b'):\n"
         "    assert want in names, (want, names)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"

@@ -48,6 +48,16 @@ PAGED_CASES = {
     # gemma2-2b decode head layout: kvh 4, group 2, dh 256, page 16
     "gemma2": dict(b=4, kvh=4, group=2, dh=256, page=16, n_blocks=5,
                    seq_lens=[0, 16, 17, 80]),
+    # phi3-medium-14b: 40 query heads over 10 KV heads, dh 128
+    "phi3": dict(b=3, kvh=10, group=4, dh=128, page=16, n_blocks=3,
+                 seq_lens=[0, 17, 40]),
+    # chatglm3-6b: 32 query heads over 2 KV heads; group 16 > the kernel's
+    # 8 query heads a block, so each KV head spreads over two blocks
+    "chatglm3": dict(b=3, kvh=2, group=16, dh=128, page=16, n_blocks=3,
+                     seq_lens=[5, 0, 48]),
+    # qwen1.5-32b: MHA, 40 KV heads, one query head each
+    "qwen1_5": dict(b=2, kvh=40, group=1, dh=128, page=16, n_blocks=2,
+                    seq_lens=[16, 30]),
 }
 
 # f32: the JAX package's flash-vs-oracle tolerance. bf16: both sides

@@ -198,12 +198,21 @@ def test_table1_sigma_T_eps_and_accuracy_equal_jax():
         assert abs(got.data[(eps, name)] - jacc) <= ACC_ATOL
 
 
-def test_aggregator_runs_entries_and_refuses_what_is_not_ported(capsys):
+def test_aggregator_runs_entries_and_refuses_what_is_not_ported(
+        capsys, tmp_path, monkeypatch):
     bench_run.main(["--only", "theory", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "theory_tradeoff,0.0,m4_ratios=[16.0, 16.0, 16.0]" in out
     assert out.strip().endswith("# all benchmarks passed")
-    for name in ("roofline", "perf", "serve"):
+    monkeypatch.chdir(tmp_path)       # the snapshots land in the cwd
+    bench_run.main(["--only", "perf,serve", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "perf_wire_sdm-dsgd_ring_qsgdf:4,0.0,permutes/step=2;" in out
+    assert "serve/continuous," in out and "steps=29" in out
+    assert out.strip().endswith("# all benchmarks passed")
+    assert {p.name for p in tmp_path.iterdir()} == {
+        "BENCH_perf_torch.json", "BENCH_serve_torch.json"}
+    for name in ("roofline",):
         with pytest.raises(SystemExit) as exc:
             bench_run.main(["--only", f"theory,{name}", "--device", "cpu"])
         assert exc.value.code == 1
