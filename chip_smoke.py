@@ -1882,7 +1882,8 @@ def gates_phase(torch, card, kernels):
                 if k in GATE_KERNELS}
     log(f"phase 18 serve: decode step {serve['decode_aten_ops']} ATen ops, "
         f"{serve['decode_kernel_launches']} kernel launches (paged "
-        f"{serve['decode_paged_kernel_launches']}); records "
+        f"{serve['decode_paged_kernel_launches']}; the profiler holds "
+        f"{serve['decode_kernel_records']} kernel records); records "
         f"{json.dumps(serve['records'])}")
     for rec in perf["records"]:
         log(f"phase 18 perf {rec['case']}: kernel_launches "

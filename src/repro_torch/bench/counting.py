@@ -13,17 +13,22 @@ over one call made inside the counters' ``with`` blocks:
   so the counts of such a call differ between the two devices;
   elsewhere they are the same on any device.
 * ``KernelLaunches``: on CUDA, the device kernels the call launches,
-  read from the ``torch.profiler`` CUDA activity of the block (memory
-  copies and sets are not kernels). It includes the hand-written kernels
-  launched through ``ctypes``, which each wrapper's ``.launches`` also
-  counts. Warm the call up first: a first call also loads libraries and
-  sets up cuBLAS. On the CPU there are no kernels and ``n`` stays None.
+  counted as the kernel-launch API calls (``cudaLaunchKernel``,
+  ``cuLaunchKernel``, ...) in the block's ``torch.profiler`` trace. It
+  includes the hand-written kernels (launched through ``ctypes``),
+  which each wrapper's ``.launches`` also counts, and cuBLAS's. Memory
+  copies and sets are not kernels. ``records`` is the device's own
+  kernel records in the trace: a process that has traced much work
+  before loses some of them (``chip_smoke.py`` phase 18 prints both),
+  so only the launch calls read the same in any process. Warm the call
+  up first: a first call also loads libraries and sets up cuBLAS. On
+  the CPU there are no kernels and ``n`` and ``records`` stay None.
 
 The two nest, with the op counter inside::
 
     with KernelLaunches(device) as kl, OpCount() as ops:
         step()
-    ops.total, ops.launches, ops.by_name, kl.n, kl.by_name
+    ops.total, ops.launches, ops.by_name, kl.n, kl.by_name, kl.records
 """
 from __future__ import annotations
 
@@ -67,14 +72,22 @@ class OpCount(TorchDispatchMode):
         return sum(self.by_name[n] for n in names)
 
 
+# the host calls that launch one kernel each
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cuLaunchCooperativeKernel")
+
+
 class KernelLaunches:
-    """Device kernels launched inside the block, on CUDA: ``n`` and
-    ``by_name``. The block is synchronised before the trace stops."""
+    """Kernels launched inside the block, on CUDA: ``n``, ``by_name``
+    (launch call -> count) and ``records`` (device kernel records). The
+    block is synchronised before the trace stops."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.n: Optional[int] = None
         self.by_name: Counter = Counter()
+        self.records: Optional[int] = None
         self._prof = None
 
     def __enter__(self) -> "KernelLaunches":
@@ -94,9 +107,11 @@ class KernelLaunches:
         self._prof.__exit__(*exc)
         if exc[0] is not None:
             return
+        events = self._prof.events()
+        self.by_name = Counter(e.name for e in events
+                               if e.name in _LAUNCH_CALLS)
+        self.n = sum(self.by_name.values())
         cuda = torch.autograd.DeviceType.CUDA
-        names = [e.name for e in self._prof.events()
-                 if e.device_type == cuda
-                 and not e.name.startswith(("Memcpy", "Memset"))]
-        self.by_name = Counter(names)
-        self.n = len(names)
+        self.records = sum(e.device_type == cuda
+                           and not e.name.startswith(("Memcpy", "Memset"))
+                           for e in events)

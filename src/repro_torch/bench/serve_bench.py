@@ -29,6 +29,9 @@ eagerly and counts one warmed-up ``decode_step_paged`` call instead
                             kernel is one of them in every attention layer
                             (``paged_attention.launches`` rises by the
                             layer count, checked here)
+    decode_kernel_records   the profiler's device kernel records of that
+                            call, CUDA only, not gated (a process that has
+                            traced much work before loses some)
 
 The plain paged attention runs only on CPU tensors, so the reference
 path has no kernel-launch counterpart; on the CPU the step's ATen ops
@@ -165,6 +168,7 @@ def _decode_counts(cfg, params, device) -> dict:
             raise RuntimeError(f"the decode step launched the paged kernel "
                                f"{paged} times, expected {n_attn}")
         out["decode_kernel_launches"] = kl.n
+        out["decode_kernel_records"] = kl.records
         out["decode_paged_kernel_launches"] = paged
     return out
 

@@ -85,12 +85,12 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     b, h, dh = q.shape
     _, page, kvh, _ = k_pages.shape
     group = h // kvh
-    nb = block_table.shape[1]
-    # index_select: the same pages as k_pages[table], without advanced
-    # indexing's per-call cost on the CPU
-    tbl = block_table.reshape(-1).long()
-    k = k_pages.index_select(0, tbl).float().reshape(b, nb * page, kvh, dh)
-    v = v_pages.index_select(0, tbl).float().reshape(b, nb * page, kvh, dh)
+    tbl = block_table.long()
+    k = k_pages[tbl].float()             # (b, nb, page, kvh, dh)
+    v = v_pages[tbl].float()
+    nb = k.shape[1]
+    k = k.reshape(b, nb * page, kvh, dh)
+    v = v.reshape(b, nb * page, kvh, dh)
     qg = q.float().reshape(b, kvh, group, dh)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, k) / math.sqrt(dh)
     if softcap is not None:

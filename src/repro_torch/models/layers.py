@@ -20,8 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ParamSpec", "rms_norm", "rope", "rope_tables", "apply_rope",
-           "model_rope_tables", "paged_write_index", "attention_specs",
+__all__ = ["ParamSpec", "rms_norm", "rope", "attention_specs",
            "attention_apply", "attention_decode_paged", "mlp_specs",
            "mlp_apply", "KVCache", "softcap"]
 
@@ -57,55 +56,27 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
-def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
-                fraction: float = 1.0
-                ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """cos / sin (b, s, 1, rot/2) of the rotary embedding at
-    ``positions`` (b, s), angles in f32; None when nothing rotates.
-    One table serves q and k of every layer at these positions."""
-    rot = int(head_dim * fraction)
-    rot -= rot % 2
-    if rot == 0:
-        return None
-    half = rot // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    freqs = torch.pow(float(theta), exps)
-    angles = positions[..., None].float() * freqs          # (b, s, half)
-    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
-
-
-def apply_rope(x: torch.Tensor,
-               tables: Optional[Tuple[torch.Tensor, torch.Tensor]]
-               ) -> torch.Tensor:
-    """Rotate the first ``rot`` dims of x (b, s, heads, head_dim) by
-    ``rope_tables``' cos / sin."""
-    if tables is None:
-        return x
-    cos, sin = tables
-    half = cos.shape[-1]
-    x_rot, x_pass = x[..., :2 * half], x[..., 2 * half:]
-    x1, x2 = x_rot[..., :half], x_rot[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
-
-
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
          fraction: float = 1.0) -> torch.Tensor:
     """Rotary embedding on the first ``fraction`` of the head dim.
 
     x: (b, s, heads, head_dim); positions: (b, s) int. Angles in f32.
     """
-    return apply_rope(x, rope_tables(positions, x.shape[-1], theta,
-                                     fraction))
-
-
-def model_rope_tables(cfg: ModelConfig, positions: torch.Tensor):
-    """``rope_tables`` for ``cfg`` at ``positions``; None without RoPE."""
-    if cfg.pos_embedding != "rope":
-        return None
-    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta,
-                       cfg.rope_fraction)
+    head_dim = x.shape[-1]
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(float(theta), exps)
+    angles = positions[..., None].float() * freqs          # (b, s, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x_rot[..., :half], x_rot[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -187,12 +158,10 @@ def _attend(q, k, v, *, chunk_q: Optional[int] = None, **kw) -> torch.Tensor:
 
 
 def _project_qkv(params: Dict[str, torch.Tensor], cfg: ModelConfig,
-                 x: torch.Tensor, *, positions: torch.Tensor,
-                 rope_cs=None):
+                 x: torch.Tensor, *, positions: torch.Tensor):
     """Shared pre-attention stage: norm, fused projections, head split,
-    RoPE (``rope_cs``: the step's ``model_rope_tables``, computed here
-    when not given). Returns (residual, q, k, v) with q: (b, s, h, hd)
-    and k/v: (b, s, kv, hd)."""
+    RoPE. Returns (residual, q, k, v) with q: (b, s, h, hd) and
+    k/v: (b, s, kv, hd)."""
     residual = x
     h = rms_norm(x, params["norm"], cfg.norm_eps,
                  plus_one=cfg.post_block_norm)
@@ -208,10 +177,8 @@ def _project_qkv(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     k = k.reshape(*k.shape[:2], -1, hd)
     v = v.reshape(*v.shape[:2], -1, hd)
     if cfg.pos_embedding == "rope":
-        if rope_cs is None:
-            rope_cs = model_rope_tables(cfg, positions)
-        q = apply_rope(q, rope_cs)
-        k = apply_rope(k, rope_cs)
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     return residual, q, k, v
 
 
@@ -232,7 +199,6 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                     cache: Optional[KVCache] = None,
                     cache_offset: Optional[int] = None,
                     cache_offsets: Optional[torch.Tensor] = None,
-                    rope_cs=None,
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Causal self-attention with an optional dense KV cache.
 
@@ -241,11 +207,9 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``cache_offset``; with ``cache_offsets`` (b,) (ragged decode, sq=1)
     row i writes at its own offset and attends only its own
     ``offsets[i]+1`` valid positions. The cache is written in place and
-    returned. ``rope_cs``: ``model_rope_tables(cfg, positions)``, shared
-    by the layers of one call (computed here when not given).
+    returned.
     """
-    residual, q, k, v = _project_qkv(params, cfg, x, positions=positions,
-                                     rope_cs=rope_cs)
+    residual, q, k, v = _project_qkv(params, cfg, x, positions=positions)
     window = cfg.sliding_window if layer_kind == "attn_local" else None
     kw = dict(chunk_q=cfg.attn_chunk_q, q_positions=positions, causal=True,
               window=window, softcap_val=cfg.attn_softcap)
@@ -271,22 +235,6 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     return _project_out(params, cfg, out, residual), cache
 
 
-def paged_write_index(block_table: torch.Tensor, offsets: torch.Tensor,
-                      write_enabled: torch.Tensor, page_size: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Where one decode step writes each row's token in a paged pool, the
-    same in every layer: (page id, slot in the page, seq_lens read after
-    the write). Rows that do not write go to the trash page 0 and do not
-    read their (absent) current token."""
-    rows = torch.arange(block_table.shape[0], device=block_table.device)
-    blk = torch.clamp(offsets // page_size, 0, block_table.shape[1] - 1)
-    zero = torch.zeros_like(offsets)
-    page_id = torch.where(write_enabled, block_table[rows, blk], zero)
-    in_page = torch.where(write_enabled, offsets % page_size, zero)
-    seq_lens = offsets + write_enabled.to(offsets.dtype)
-    return page_id, in_page, seq_lens
-
-
 def attention_decode_paged(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                            x: torch.Tensor, *,
                            pages: Tuple[torch.Tensor, torch.Tensor],
@@ -294,7 +242,6 @@ def attention_decode_paged(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                            offsets: torch.Tensor,
                            write_enabled: torch.Tensor,
                            layer_kind: str = "attn",
-                           rope_cs=None, write_index=None,
                            ) -> torch.Tensor:
     """Single-token self-attention over a PAGED KV cache.
 
@@ -304,25 +251,26 @@ def attention_decode_paged(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     a physical page; ``offsets`` (b,) int32 is each row's next write
     position; ``write_enabled`` (b,) bool routes finished / empty rows'
     writes to the trash page 0 (see ``repro_torch.serving.kv_cache``).
-    ``rope_cs`` / ``write_index`` are the step's ``model_rope_tables`` /
-    ``paged_write_index``, shared by its layers (computed here when not
-    given). Attention goes through
-    ``kernels.flash_attn.decode.paged_attention``: the CUDA kernel for
-    CUDA tensors, its plain version on the CPU.
+    Attention goes through ``kernels.flash_attn.decode.paged_attention``:
+    the CUDA kernel for CUDA tensors, its plain version on the CPU.
     """
     from repro_torch.kernels.flash_attn.decode import paged_attention
 
+    b = x.shape[0]
     residual, q, k, v = _project_qkv(params, cfg, x,
-                                     positions=offsets[:, None],
-                                     rope_cs=rope_cs)
+                                     positions=offsets[:, None])
     k_pages, v_pages = pages
-    if write_index is None:
-        write_index = paged_write_index(block_table, offsets, write_enabled,
-                                        k_pages.shape[1])
-    page_id, in_page, seq_lens = write_index
+    page = k_pages.shape[1]
+    rows = torch.arange(b, device=x.device)
+    blk = torch.clamp(offsets // page, 0, block_table.shape[1] - 1)
+    zero = torch.zeros_like(offsets)
+    page_id = torch.where(write_enabled, block_table[rows, blk], zero)
+    in_page = torch.where(write_enabled, offsets % page, zero)
     k_pages[page_id, in_page] = k[:, 0].to(k_pages.dtype)
     v_pages[page_id, in_page] = v[:, 0].to(v_pages.dtype)
 
+    # a row that did not write must not read its (absent) current token
+    seq_lens = offsets + write_enabled.to(offsets.dtype)
     window = cfg.sliding_window if layer_kind == "attn_local" else None
     out = paged_attention(q[:, 0], k_pages, v_pages, block_table, seq_lens,
                           window=window, softcap=cfg.attn_softcap)

@@ -23,7 +23,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (KVCache, ParamSpec, attention_apply,
                                        attention_decode_paged,
                                        attention_specs, mlp_apply, mlp_specs,
-                                       model_rope_tables, paged_write_index,
                                        rms_norm, softcap)
 
 __all__ = ["model_specs", "param_shapes", "flat_specs", "init_params",
@@ -190,12 +189,12 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _period(params: Params, cfg: ModelConfig, i: int, x: torch.Tensor,
-            positions: torch.Tensor, rope_cs=None) -> torch.Tensor:
+            positions: torch.Tensor) -> torch.Tensor:
     """Period ``i`` of the layer stack over a full sequence (no cache)."""
     for si, spec in enumerate(cfg.period):
         sp = period_params(params, str(si), i)
         x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
-                               layer_kind=spec.mixer, rope_cs=rope_cs)
+                               layer_kind=spec.mixer)
         x = mlp_apply(sp["mlp"], cfg, x)
     return x
 
@@ -208,15 +207,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, device=x.device).expand(b, s)
-    rope_cs = model_rope_tables(cfg, positions)
     for i in range(cfg.n_periods):
         if cfg.remat and torch.is_grad_enabled():
             from torch.utils.checkpoint import checkpoint
 
-            x = checkpoint(_period, params, cfg, i, x, positions, rope_cs,
+            x = checkpoint(_period, params, cfg, i, x, positions,
                            use_reentrant=False)
         else:
-            x = _period(params, cfg, i, x, positions, rope_cs)
+            x = _period(params, cfg, i, x, positions)
     return _logits(params, cfg, x), torch.zeros((), device=x.device)
 
 
@@ -247,14 +245,13 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, device=x.device).expand(b, s)
-    rope_cs = model_rope_tables(cfg, positions)
     for i in range(cfg.n_periods):
         for si, spec in enumerate(cfg.period):
             sp = period_params(params, str(si), i)
             x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
                                    layer_kind=spec.mixer,
                                    cache=_layer_cache(cache, str(si), i),
-                                   cache_offset=0, rope_cs=rope_cs)
+                                   cache_offset=0)
             x = mlp_apply(sp["mlp"], cfg, x)
     if last_index is None:
         x_last = x[:, -1:, :]
@@ -273,14 +270,13 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     valid prefix. Attention is the plain ``_sdpa`` (no kernel)."""
     x = _embed_tokens(params, cfg, token[:, None])
     positions = offsets[:, None]
-    rope_cs = model_rope_tables(cfg, positions)
     for i in range(cfg.n_periods):
         for si, spec in enumerate(cfg.period):
             sp = period_params(params, str(si), i)
             x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
                                    layer_kind=spec.mixer,
                                    cache=_layer_cache(cache, str(si), i),
-                                   cache_offsets=offsets, rope_cs=rope_cs)
+                                   cache_offsets=offsets)
             x = mlp_apply(sp["mlp"], cfg, x)
     logits = _logits(params, cfg, x)
     return logits[:, 0, :], cache._replace(offset=cache.offset + 1)
@@ -298,14 +294,9 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
     n_blocks) and ``offsets`` (b,) int32 are per request slot;
     ``write_enabled`` (b,) bool sends finished / empty rows' writes to
     the trash page. Returns logits (b, V). Every attention layer calls
-    ``paged_attention`` once: the kernel on CUDA. The RoPE tables and
-    the page-write indices are computed once for all layers.
+    ``paged_attention`` once: the kernel on CUDA.
     """
     x = _embed_tokens(params, cfg, token[:, None])
-    rope_cs = model_rope_tables(cfg, offsets[:, None])
-    page_size = next(iter(pages.values()))[0].shape[2]
-    write_index = paged_write_index(block_tables, offsets, write_enabled,
-                                    page_size)
     for i in range(cfg.n_periods):
         for si, spec in enumerate(cfg.period):
             sp = period_params(params, str(si), i)
@@ -313,7 +304,6 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
             x = attention_decode_paged(
                 sp["attn"], cfg, x, pages=(kp[i], vp[i]),
                 block_table=block_tables, offsets=offsets,
-                write_enabled=write_enabled, layer_kind=spec.mixer,
-                rope_cs=rope_cs, write_index=write_index)
+                write_enabled=write_enabled, layer_kind=spec.mixer)
             x = mlp_apply(sp["mlp"], cfg, x)
     return _logits(params, cfg, x)[:, 0, :]

@@ -4,10 +4,8 @@ Port of ``repro.serving.engine`` for attention-only models.
 
 ``ServingEngine`` is a slot-based continuous-batching scheduler over the
 paged KV cache (``kv_cache.py``): finished requests free their slot and
-their pages, queued requests are admitted mid-flight (the requests
-admitted together are prefilled as one right-padded batch, each row
-landing in its freed slot; the JAX engine prefills them one at a time,
-with the same tokens out) and the decode step keeps a device-side
+their pages, queued requests are admitted mid-flight (a single-request
+prefill lands in the freed slot) and the decode step keeps a device-side
 done-mask and token buffer. Per decode step the host does one small
 done-mask poll; the rest of the bookkeeping (prefill, page alloc/free,
 output read-back) happens only when a request is admitted or retired.
@@ -58,7 +56,7 @@ class ServeStats:
     ttft_s: List[float] = dataclasses.field(default_factory=list)
     pages_peak: int = 0
     pages_dense_equiv: int = 0
-    prefills: int = 0              # prefill calls (batches)
+    prefills: int = 0
     decode_steps: int = 0
 
 
@@ -77,7 +75,7 @@ class _DecodeState:
 
 def _bucket(n: int, cap: int) -> int:
     """Next power-of-two prefill length (the JAX engine bounds its jit
-    retraces with it; here it bounds the prefill shapes the same way)."""
+    retraces with it; kept so both engines compute the same shapes)."""
     return min(max(8, 1 << (n - 1).bit_length()), cap)
 
 
@@ -167,24 +165,16 @@ class ServingEngine:
                 kv.can_admit(len(queue[0].prompt) +
                              queue[0].max_new_tokens)
 
-        none_done = done_np = np.zeros(B, bool)
         while queue or live:
-            admits = []
             while admit_ready():
                 req = queue.popleft()
                 slot = free.pop()
                 kv.alloc(slot, len(req.prompt) + req.max_new_tokens)
-                admits.append((slot, req))
-            if admits:
-                self._prefill_into(st, kv, admits)
-                now = time.monotonic()
-                for slot, req in admits:
-                    live[slot] = req
-                    req.ttft_s = now - submit[id(req)]
-                    stats.ttft_s.append(req.ttft_s)
-                stats.prefills += 1         # one batched prefill
-                # a one-token request is done at its prefill
-                done_np = (st.done & st.active).cpu().numpy()
+                self._prefill_into(st, kv, slot, req)
+                live[slot] = req
+                req.ttft_s = time.monotonic() - submit[id(req)]
+                stats.ttft_s.append(req.ttft_s)
+                stats.prefills += 1
             if not live:
                 need = kv.pages_needed(len(queue[0].prompt) +
                                        queue[0].max_new_tokens)
@@ -192,8 +182,9 @@ class ServingEngine:
                     f"request needs {need} pages but the pool only has "
                     f"{kv.n_pages}; raise n_pages or max_seq")
 
+            done_np = (st.done & st.active).cpu().numpy()
             if not done_np.any():
-                emit_n = len(live)      # no live slot is done
+                emit_n = int((st.active & ~st.done).sum())
                 ts = time.monotonic()
                 self._step(st, kv, kv.tables())
                 stats.decode_steps += 1
@@ -212,7 +203,6 @@ class ServingEngine:
                 st.done[slot] = False
                 st.offsets[slot] = 0
                 free.append(slot)
-            done_np = none_done          # every done slot is retired
 
         stats.pages_peak = kv.peak_in_use
         stats.pages_dense_equiv = kv.dense_equivalent_pages()
@@ -222,50 +212,36 @@ class ServingEngine:
         return requests
 
     @torch.no_grad()
-    def _prefill_into(self, st: _DecodeState, kv: PagedKVCache,
-                      admits: List) -> None:
-        """Prefill the requests admitted together, ``admits`` = [(slot,
-        request)], as one right-padded batch, and hand each row to its
-        slot's pages and decode state."""
-        reqs = [r for _, r in admits]
-        lens = np.array([len(r.prompt) for r in reqs], np.int32)
-        if lens.min() < 1:
+    def _prefill_into(self, st: _DecodeState, kv: PagedKVCache, slot: int,
+                      req: Request) -> None:
+        L = len(req.prompt)
+        if L < 1:
             raise ValueError("empty prompt")
-        if min(r.max_new_tokens for r in reqs) < 1:
+        if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         # prefill at a power-of-two bucket; causal masking + last_index
         # keep the padded prefill exact
-        Lp = _bucket(int(lens.max()), self.max_seq)
-        toks = np.zeros((len(reqs), Lp), np.int32)
-        for i, r in enumerate(reqs):
-            toks[i, :lens[i]] = r.prompt
-        dev = self.device
-        cache = transformer.init_cache(self.cfg, len(reqs), Lp, self.dtype,
-                                       dev)
+        Lp = _bucket(L, self.max_seq)
+        toks = np.zeros((1, Lp), np.int32)
+        toks[0, :L] = req.prompt
+        cache = transformer.init_cache(self.cfg, 1, Lp, self.dtype,
+                                       self.device)
         logits, cache = transformer.prefill(
-            self.params, self.cfg, torch.as_tensor(toks, device=dev),
-            cache, last_index=torch.as_tensor(lens - 1, device=dev))
-        first = torch.argmax(logits, dim=-1).to(torch.int32)
-        for i, ((slot, _), n) in enumerate(zip(admits, lens.tolist())):
-            kv.write_prompt(slot, {si: (cache.slots[si].k[:, i:i + 1],
-                                        cache.slots[si].v[:, i:i + 1])
-                                   for si in self._attn_slots}, n)
-
-        def col(values):
-            return torch.as_tensor(np.asarray(values, np.int32), device=dev)
-
-        slots = torch.as_tensor([s for s, _ in admits], device=dev)
-        budget = col([r.max_new_tokens for r in reqs])
-        eos = col([-1 if r.eos_id is None else r.eos_id for r in reqs])
-        st.offsets[slots] = col(lens)
-        st.last_tok[slots] = first
-        st.out_buf[slots] = 0
-        st.out_buf[slots, 0] = first
-        st.n_out[slots] = 1
-        st.budget[slots] = budget
-        st.eos[slots] = eos
-        st.active[slots] = True
-        st.done[slots] = (budget <= 1) | (first == eos)
+            self.params, self.cfg, torch.as_tensor(toks, device=self.device),
+            cache, last_index=torch.tensor([L - 1], device=self.device))
+        first = int(torch.argmax(logits, dim=-1)[0])
+        kv.write_prompt(slot, {si: (cache.slots[si].k, cache.slots[si].v)
+                               for si in self._attn_slots}, L)
+        eos = -1 if req.eos_id is None else req.eos_id
+        st.offsets[slot] = L
+        st.last_tok[slot] = first
+        st.out_buf[slot] = 0
+        st.out_buf[slot, 0] = first
+        st.n_out[slot] = 1
+        st.budget[slot] = req.max_new_tokens
+        st.eos[slot] = eos
+        st.active[slot] = True
+        st.done[slot] = req.max_new_tokens <= 1 or first == eos
 
 
 # --------------------------------------------------------------------------
