@@ -84,6 +84,18 @@ Phases (any failure exits non-zero):
      paged step is held to plain attention at 20 layers (relative bound);
      chatglm3-6b at full depth and qwen1.5-32b at 32 of its 64 layers each
      serve 4 requests.
+  20. the MoE and recurrent families: the paged kernel vs plain at their
+     head layouts (granite-moe kvh 8 x group 2 dh 64, qwen3-moe kvh 4 x
+     group 8, jamba kvh 8 x group 4; dh 128) and its time at each serving
+     shape; granite-moe-1b-a400m at full width and depth serves phase 3's
+     16 requests (paged launches == decode_steps x 24), its f32 paged step
+     against plain attention (relative bound) and its continuous engine's
+     greedy outputs against one-at-a-time serving; rwkv6-3b (attention
+     free) at full width and depth serves phase 3's requests, then f32
+     continuous == static (length-grouped) == one-at-a-time; qwen3-moe-30b-
+     a3b at 32 of 48 layers and jamba-v0.1-52b at 16 of 32 each serve 8
+     requests of <= 256 prompt tokens; granite-moe at 4 layers trains 3
+     steps on 2 nodes (fixedk:128, ``fixedk_gather_pack`` once a step).
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -679,14 +691,17 @@ def _profile_busy(torch, fn, reps):
                          e.count // reps) for e in top]
 
 
-def lm_phase(torch, np, card, dev="cuda", smoke=False):
-    """Phase 10: the slice at full width through the launcher's step
-    function: gemma2-2b at its published widths (d_model 2304, 8 / 4
-    heads, head_dim 256, d_ff 9216, vocab 256000), depth cut to
-    LM_LAYERS, LM_NODES nodes as one node block on the card, sdm-dsgd
-    with fixedk:128 on the ring, sigma > 0 with clipping, seq LM_SEQ.
-    Then the fixedk_gather_pack kernel against its plain version on the
-    run's own final differential, and its time."""
+def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
+             layers=LM_LAYERS, steps=LM_STEPS):
+    """Phases 10 and 20g: the slice at full width through the launcher's
+    step function: ``arch`` at its published widths (phase 10: gemma2-2b,
+    d_model 2304, 8 / 4 heads, head_dim 256, d_ff 9216, vocab 256000),
+    depth cut to ``layers``, LM_NODES nodes as one node block on the
+    card, sdm-dsgd with fixedk:128 on the ring, sigma > 0 with clipping,
+    seq LM_SEQ, ``steps`` steps; an MoE config's load-balance term is
+    logged beside node 0's cross entropy. Then the fixedk_gather_pack
+    kernel against its plain version on the run's own final
+    differential, its time, and the step's breakdown."""
     import dataclasses
     import math
 
@@ -704,9 +719,9 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False):
     from repro_torch.models import transformer
     from repro_torch.train import steps as steps_mod
 
-    base = (configs.get_smoke_config("gemma2-2b") if smoke
-            else configs.get_config("gemma2-2b"))
-    cfg = dataclasses.replace(base, n_layers=LM_LAYERS)
+    base = (configs.get_smoke_config(arch) if smoke
+            else configs.get_config(arch))
+    cfg = dataclasses.replace(base, n_layers=layers)
     # sigma^2 >= 1/1.25 is Theorem 1's precondition; G = clip_c sqrt(d)
     n, clip_c, sigma, m_local = LM_NODES, 1e-4, 1.0, 10_000
     sdm = SDMConfig(p=0.2, theta=0.5, gamma=1e-3, sigma=sigma, clip_c=clip_c,
@@ -734,9 +749,11 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False):
     # one node's activations and f32 logits
     act_b = 6 * LM_BATCH * LM_SEQ * cfg.padded_vocab * 4
     predicted = state_b + 4 * plane_b + 3 * n * d * 2 + act_b
-    log(f"lm slice: gemma2-2b widths (d_model {cfg.d_model}, heads "
+    log(f"lm slice: {arch} widths (d_model {cfg.d_model}, heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.resolved_head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth cut "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts
+           else "") + "), depth cut "
         f"{base.n_layers} -> {cfg.n_layers} layers; {d / 1e9:.4f} B params "
         f"per node ({plane.buckets[0].rows} x 128 wire plane); {n} nodes; predicted "
         f"peak {predicted / 1e9:.2f} GB = state {state_b / 1e9:.2f} GB "
@@ -752,48 +769,65 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False):
         torch.cuda.reset_peak_memory_stats()
     log(f"lm slice init {time.monotonic() - t0:.1f} s")
     fixedk_gather_pack.launches = 0
-    run = train(tc, transport, steps=LM_STEPS, global_batch=n * LM_BATCH,
+    run = train(tc, transport, steps=steps, global_batch=n * LM_BATCH,
                 seq_len=LM_SEQ, seed=0, state=state,
                 on_step=lambda t, loss, sec: log(
-                    f"  lm step {t} loss {loss:.5f} ({sec * 1e3:.1f} ms)"))
+                    f"  {arch} lm step {t} loss {loss:.5f} ({sec * 1e3:.1f} ms)"))
     launches = fixedk_gather_pack.launches
     peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
     ms = np.asarray(run.step_s) * 1e3
     bits = sdm_dsgd.transmitted_bits_per_step(template, mcfg, seq=seq)
     mode = wire_count.mode_of(meth.name, mcfg)
-    calls = LM_STEPS * wire_count.expected_permutes(meth.name, mode, seq)
-    want_bytes = {i: LM_STEPS * bits // 8 for i in range(n)}
+    calls = steps * wire_count.expected_permutes(meth.name, mode, seq)
+    want_bytes = {i: steps * bits // 8 for i in range(n)}
     comp = sdm_dsgd.compressor_of(mcfg)
     acct = PrivacyAccountant(PrivacyParams.from_compressor(
         comp, G=clip_c * math.sqrt(d), m=m_local, tau=LM_BATCH / m_local,
         sigma=sigma), eps_target=1.0)
-    acct.step(LM_STEPS)
+    acct.step(steps)
     tok_s = run.tokens_per_step / (ms[1:].mean() / 1e3)
-    log(f"train gemma2-2b x{cfg.n_layers} layers bf16, sdm-dsgd "
+    log(f"train {arch} x{cfg.n_layers} layers bf16, sdm-dsgd "
         f"{seq.name} n={n}, fixedk:128, sigma {sigma} clip_c {clip_c}, seq "
-        f"{LM_SEQ}, batch {LM_BATCH}/node, {LM_STEPS} steps on {card}: "
+        f"{LM_SEQ}, batch {LM_BATCH}/node, {steps} steps on {card}: "
         f"step ms mean {ms.mean():.3f} p50 {np.percentile(ms, 50):.3f} p99 "
         f"{np.percentile(ms, 99):.3f} (first {ms[0]:.3f}; steps 2.. mean "
         f"{ms[1:].mean():.3f}); {tok_s:.1f} tokens/s over steps 2..; peak "
         f"memory {peak / 1e9:.3f} GB (predicted {predicted / 1e9:.2f}); "
         f"losses {[round(v, 5) for v in run.losses]}; wire bits per node "
         f"per step {bits} (bytes sent per node "
-        f"{sorted(set(transport.bytes_sent.values()))} == {LM_STEPS} x "
+        f"{sorted(set(transport.bytes_sent.values()))} == {steps} x "
         f"{bits // 8}: {transport.bytes_sent == want_bytes}); ppermute "
-        f"calls {transport.permutes} == {LM_STEPS} x expected_permutes "
-        f"{calls // LM_STEPS}; eps {acct.epsilon:.6e} (G = clip_c sqrt(d) "
+        f"calls {transport.permutes} == {steps} x expected_permutes "
+        f"{calls // steps}; eps {acct.epsilon:.6e} (G = clip_c sqrt(d) "
         f"{clip_c * math.sqrt(d):.3f}, m {m_local}, tau {LM_BATCH}/"
         f"{m_local}, delta 1e-5); fixedk_gather_pack launches {launches} "
         f"({plane.n_buckets} bucket)")
     failures = []
     if not all(math.isfinite(v) for v in run.losses):
         failures.append("non-finite loss")
+    if cfg.n_experts:
+        # the aux term: node 0's final parameters on node 0's step-0 batch
+        from repro_torch.data import TokenStream
+        tokens, labels = (torch.as_tensor(a[:LM_BATCH], device=dev) for a in
+                          TokenStream(vocab_size=cfg.vocab_size,
+                                      batch=n * LM_BATCH, seq_len=LM_SEQ,
+                                      seed=0).batch_at(0))
+        with torch.no_grad():
+            logits, aux = transformer.forward(
+                tree_mod.tree_map(lambda v: v[0], run.state.x), cfg, tokens)
+            ce = float(transformer.lm_loss(logits, labels, cfg.vocab_size))
+            del logits
+        log(f"{arch} node 0 after the run: cross entropy {ce:.5f} + 0.01 x "
+            f"aux {float(aux):.5f} (the MoE load-balance term, summed over "
+            f"{cfg.n_layers} layers)")
+        if not math.isfinite(ce + float(aux)):
+            failures.append("non-finite cross entropy or aux")
     if transport.permutes != calls or transport.bytes_sent != want_bytes:
         failures.append("wire counters disagree with the accounting")
-    if launches != LM_STEPS * plane.n_buckets:
+    if launches != steps * plane.n_buckets:
         failures.append(f"fixedk_gather_pack launched {launches} times, "
                         f"expected steps x buckets "
-                        f"{LM_STEPS * plane.n_buckets}")
+                        f"{steps * plane.n_buckets}")
 
     out = dict(launches=launches, failures=failures)
     if dev == "cpu":
@@ -804,7 +838,7 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False):
     stream = TokenStream(vocab_size=cfg.vocab_size, batch=n * LM_BATCH,
                          seq_len=LM_SEQ, seed=0)
     tokens, labels = (torch.as_tensor(a, device=dev)
-                      for a in stream.batch_at(LM_STEPS))
+                      for a in stream.batch_at(steps))
     holder = {"state": run.state}
     del run, state
 
@@ -1724,24 +1758,24 @@ def init_model(torch, np, cfg, *, seed, dtype, reduced=None):
 
 
 def serve_ragged(torch, np, cfg, params, card, kernels, *, n_requests=16,
-                 max_new=32, max_batch=8, ker_ms=None):
-    """Serve ``n_requests`` prompts of 64-1024 tokens (lengths and tokens
-    from ``default_rng(0)``), ``max_new`` new tokens each, through
-    ``ServingEngine`` (bf16, page 16) after a warm-up serve. Every kernel
-    count is set to 0 just before and read just after. Checks: each
-    request returns ``max_new`` valid tokens, and the paged kernel
-    launched ``decode_steps x`` attention layers. Returns the serving
-    kernels' launches."""
+                 max_new=32, max_batch=8, ker_ms=None, prompt_max=1024):
+    """Serve ``n_requests`` prompts of 64-``prompt_max`` tokens (lengths
+    and tokens from ``default_rng(0)``), ``max_new`` new tokens each,
+    through ``ServingEngine`` (bf16, page 16) after a warm-up serve. Every
+    kernel count is set to 0 just before and read just after. Checks:
+    each request returns ``max_new`` valid tokens, and the paged kernel
+    launched ``decode_steps x`` attention layers (an attention-free model
+    launches it 0 times). Returns the serving kernels' launches."""
     from repro_torch.serving import Request, ServingEngine
 
-    max_seq = 1024 + max_new
+    max_seq = prompt_max + max_new
     engine = ServingEngine(cfg, params, max_batch=max_batch, max_seq=max_seq,
                            page_size=16, dtype=torch.bfloat16)
     engine.serve([Request(prompt=list(range(1, 65)), max_new_tokens=2)])
     torch.cuda.synchronize()            # warm-up (cuBLAS handles etc.)
 
     rng = np.random.default_rng(0)
-    prompt_lens = rng.integers(64, 1025, n_requests)
+    prompt_lens = rng.integers(64, prompt_max + 1, n_requests)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
                     max_new_tokens=max_new) for n in prompt_lens]
     torch.cuda.reset_peak_memory_stats()
@@ -1783,7 +1817,7 @@ def serve_ragged(torch, np, cfg, params, card, kernels, *, n_requests=16,
             f"expected decode_steps x {n_attn} = "
             f"{stats.decode_steps * n_attn}")
     missing = [k for k, n in launches.items() if n == 0]
-    if missing:
+    if missing and n_attn:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
     return launches
@@ -1832,23 +1866,17 @@ def paged_vs_dense(torch, np, cfg, params, *, seed):
 
 # ---- slice 7: the gates and the three dense configs (phases 18-19) ---------
 
-# phi3's f32 paged-vs-dense step: f32 weights at all 40 layers take ~57 GB,
-# so the depth is cut to fit beside the dense and paged caches
-DENSE_E2E_LAYERS = 20
 # phi3 sets no logit softcap, so phase 4's absolute bound on +-30 capped
 # logits does not carry over: the two f32 paths sum attention in other
 # orders (phase 4 measured ~5e-7 of logits a few units wide over 26
 # layers); 1e-4 of the largest |logit| leaves two orders of room, while a
 # wrong head layout, mask or page moves logits by their own size
 DENSE_E2E_RTOL = 1e-4
-# qwen1.5-32b: 64 layers of bf16 weights take ~68 GB, plus init_params' f32
-# draw of the largest stacked leaf (64 x 5120 x 27392 x 4 B ~ 36 GB)
-QWEN_LAYERS = 32
-# the three dense head layouts (configs/*.py)
+# the three dense head layouts (configs/*.py) and their served tables
 DENSE_LAYOUTS = {
-    "phi3-medium-14b": dict(kvh=10, group=4, dh=128),
-    "chatglm3-6b": dict(kvh=2, group=16, dh=128),
-    "qwen1.5-32b": dict(kvh=40, group=1, dh=128),
+    "phi3-medium-14b": (dict(kvh=10, group=4, dh=128), (66,)),
+    "chatglm3-6b": (dict(kvh=2, group=16, dh=128), (66,)),
+    "qwen1.5-32b": (dict(kvh=40, group=1, dh=128), (66,)),
 }
 
 
@@ -1903,41 +1931,56 @@ def gates_phase(torch, card, kernels):
     return launches
 
 
-def dense_layout_kernels(torch, np):
-    """The paged kernel against its plain version at the three dense head
-    layouts (f32 and bf16, no softcap, no window, ragged lengths incl. an
-    empty row), then its time, the plain version's and the bound at each
-    layout's serving shape (8 rows of phase 3's lengths, 66 blocks of 16,
-    bf16, 8 pools in turn). Returns {arch: timing}."""
-    from repro_torch.kernels.flash_attn.decode import (paged_attention,
-                                                       paged_attention_ref)
+# ragged lengths (incl. an empty row) for the kernel-vs-plain checks at a
+# table of 66 blocks of 16 (max_seq 1056: phase 3's workload) and of 17
+# (max_seq 264: the 8-request workload of phases 20d-e), where the split
+# plan differs
+TABLE_LENS = {66: [0, 1, 16, 17, 300, 1000, 1056, 64],
+              17: [0, 64, 65, 100, 200, 256, 263, 264]}
 
-    gen = torch.Generator(device="cuda").manual_seed(19)
-    lens = [0, 1, 16, 17, 300, 1000, 1056, 64]
+
+def layout_kernels(torch, np, layouts, seed):
+    """The paged kernel against its plain version at each of ``layouts``
+    (``{arch: (head layout, served tables)}``: 8 rows at each served
+    table's TABLE_LENS, f32 and bf16, no softcap, no window), then its
+    time, the plain version's and the bound at each layout's serving
+    shape (8 rows of phase 3's lengths, 66 blocks of 16, bf16, 8 pools in
+    turn). Returns {arch: timing}."""
+    from repro_torch.kernels.flash_attn.decode import (paged_attention,
+                                                       paged_attention_ref,
+                                                       split_plan)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
-    for arch, lay in DENSE_LAYOUTS.items():
+    for arch, (lay, tables) in layouts.items():
         errs = []
-        for dt_name in ("float32", "bfloat16"):
-            q, kv, tbl, sl = paged_inputs(torch, gen, seq_lens=lens,
-                                          n_blocks=66, page=16,
-                                          dtype=getattr(torch, dt_name),
-                                          **lay)
-            (kp, vp), = kv
-            n0 = paged_attention.launches
-            got = paged_attention(q, kp, vp, tbl, sl)
-            torch.cuda.synchronize()
-            want = paged_attention_ref(q, kp, vp, tbl, sl)
-            err = (got.float() - want.float()).abs().max().item()
-            zero = not got[sl == 0].any().item()
-            errs.append(err)
-            log(f"paged_decode {arch} layout (kvh {lay['kvh']}, group "
-                f"{lay['group']}, dh {lay['dh']}) {dt_name} softcap=None: "
-                f"max|kernel-plain|={err:.3e} (atol {KERNEL_ATOL[dt_name]}) "
-                f"empty-row zeros={zero}")
-            if not (err <= KERNEL_ATOL[dt_name] and zero
-                    and paged_attention.launches == n0 + 1):
-                raise AssertionError(f"paged_decode disagrees with its plain "
-                                     f"version at {arch}'s layout")
+        for n_blocks in tables:
+            plan = split_plan(8, lay["kvh"], lay["group"], lay["dh"],
+                              n_blocks)
+            for dt_name in ("float32", "bfloat16"):
+                q, kv, tbl, sl = paged_inputs(
+                    torch, gen, seq_lens=TABLE_LENS[n_blocks],
+                    n_blocks=n_blocks, page=16,
+                    dtype=getattr(torch, dt_name), **lay)
+                (kp, vp), = kv
+                n0 = paged_attention.launches
+                got = paged_attention(q, kp, vp, tbl, sl)
+                torch.cuda.synchronize()
+                want = paged_attention_ref(q, kp, vp, tbl, sl)
+                err = (got.float() - want.float()).abs().max().item()
+                zero = not got[sl == 0].any().item()
+                errs.append(err)
+                log(f"paged_decode {arch} layout (kvh {lay['kvh']}, group "
+                    f"{lay['group']}, dh {lay['dh']}) {dt_name} softcap=None,"
+                    f" 8 rows x {n_blocks} blocks (split plan P "
+                    f"{plan.pages_per_split}, S {plan.n_splits}), lengths "
+                    f"{TABLE_LENS[n_blocks]}: max|kernel-plain|={err:.3e} "
+                    f"(atol {KERNEL_ATOL[dt_name]}) empty-row zeros={zero}")
+                if not (err <= KERNEL_ATOL[dt_name] and zero
+                        and paged_attention.launches == n0 + 1):
+                    raise AssertionError(
+                        f"paged_decode disagrees with its plain version at "
+                        f"{arch}'s layout, {n_blocks} blocks")
         rng = np.random.default_rng(0)
         serve_lens = (rng.integers(64, 1025, 8) + 16).tolist()
         q, kv, tbl, sl = paged_inputs(torch, gen, seq_lens=serve_lens,
@@ -1965,16 +2008,15 @@ def dense_layout_kernels(torch, np):
 
 def dense_configs_phase(torch, np, card, kernels):
     """Phase 19: the three dense configs served on the card at full width:
-    phi3-medium-14b at full depth with phase 3's workload and its f32
-    paged step against plain attention (depth cut to fit); chatglm3-6b
-    at full depth and qwen1.5-32b at half depth, 4 requests each. Returns
+    phi3-medium-14b with phase 3's workload and its f32 paged step
+    against plain attention; chatglm3-6b and qwen1.5-32b, 4 requests
+    each; all at full depth (init_params draws one period at a time, so
+    qwen1.5's 68.8 GB of bf16 and phi3's 56.6 GB of f32 fit). Returns
     (the paged kernel's launches in the three serves, the layouts'
     kernel timings)."""
-    import dataclasses
-
     from repro_torch import configs
 
-    timings = dense_layout_kernels(torch, np)
+    timings = layout_kernels(torch, np, DENSE_LAYOUTS, seed=19)
     launches = 0
     cfg = configs.get_config("phi3-medium-14b")
     with phase_clock(torch, "phase 19 phi3-medium-14b serve (40 layers)",
@@ -1987,41 +2029,35 @@ def dense_configs_phase(torch, np, card, kernels):
     gc.collect()
     torch.cuda.empty_cache()
 
-    e2e_cfg = dataclasses.replace(cfg, n_layers=DENSE_E2E_LAYERS)
     with phase_clock(torch, f"phase 19 phi3 f32 paged vs dense "
-                     f"({DENSE_E2E_LAYERS} layers)", card):
-        params = init_model(torch, np, e2e_cfg, seed=1, dtype=torch.float32,
-                            reduced=f"n_layers {cfg.n_layers} -> "
-                                    f"{DENSE_E2E_LAYERS}")
-        e2e = paged_vs_dense(torch, np, e2e_cfg, params, seed=1)
+                     f"({cfg.n_layers} layers)", card):
+        params = init_model(torch, np, cfg, seed=1, dtype=torch.float32)
+        e2e = paged_vs_dense(torch, np, cfg, params, seed=1)
         paged, dense = e2e["paged"], e2e["dense"]
         scale = dense.abs().max().item()
         diff = (paged - dense).abs().max().item()
         finite = bool(torch.isfinite(paged).all()
                       and torch.isfinite(dense).all())
         same_top = (paged.argmax(-1) == dense.argmax(-1)).float().mean().item()
-        log(f"e2e f32 phi3-medium-14b, {DENSE_E2E_LAYERS} layers, prompts "
+        log(f"e2e f32 phi3-medium-14b, {cfg.n_layers} layers, prompts "
             f"{e2e['lens'].tolist()}: max|paged(kernel) - dense(plain)| "
             f"logits = {diff:.3e}, |logits| max {scale:.4f}, relative "
             f"{diff / scale:.3e} (rtol {DENSE_E2E_RTOL}); argmax agreement "
             f"{same_top:.2f}; kernel launches {e2e['launches']}; finite "
             f"{finite}")
         if not (finite and diff <= DENSE_E2E_RTOL * scale
-                and e2e["launches"] == attn_layers(e2e_cfg)):
+                and e2e["launches"] == attn_layers(cfg)):
             raise AssertionError("phi3 paged-kernel logits disagree with the "
                                  "dense plain path")
         del params, e2e, paged, dense
     gc.collect()
     torch.cuda.empty_cache()
 
-    qwen = configs.get_config("qwen1.5-32b")
-    for cfg, reduced in ((configs.get_config("chatglm3-6b"), None),
-                         (dataclasses.replace(qwen, n_layers=QWEN_LAYERS),
-                          f"n_layers {qwen.n_layers} -> {QWEN_LAYERS}")):
+    for arch in ("chatglm3-6b", "qwen1.5-32b"):
+        cfg = configs.get_config(arch)
         with phase_clock(torch, f"phase 19 {cfg.name} serve "
                          f"({cfg.n_layers} layers)", card):
-            params = init_model(torch, np, cfg, seed=0, dtype=torch.bfloat16,
-                                reduced=reduced)
+            params = init_model(torch, np, cfg, seed=0, dtype=torch.bfloat16)
             launches += serve_ragged(
                 torch, np, cfg, params, card, kernels, n_requests=4,
                 max_new=4, max_batch=4,
@@ -2030,6 +2066,192 @@ def dense_configs_phase(torch, np, card, kernels):
         gc.collect()
         torch.cuda.empty_cache()
     return launches, timings
+
+
+# ---- slice 8: the MoE and recurrent families (phase 20) --------------------
+
+# the MoE and hybrid head layouts (configs/*.py) and their served tables:
+# granite-moe serves phase 3's workload, qwen3-moe and jamba 8 requests
+# of <= 256 + 8 tokens
+MOE_LAYOUTS = {
+    "granite-moe-1b-a400m": (dict(kvh=8, group=2, dh=64), (66,)),
+    "qwen3-moe-30b-a3b": (dict(kvh=4, group=8, dh=128), (66, 17)),
+    "jamba-v0.1-52b": (dict(kvh=8, group=4, dh=128), (66, 17)),
+}
+# jamba-v0.1-52b: 2 of its 4 periods (25.8 B parameters, 51.6 GB of
+# bf16); 3 periods (77.1 GB) serve this workload at an 80.7 GB peak with
+# 81.5 GB reserved of the H100's 85.0, too little room to run after the
+# earlier phases
+JAMBA_LAYERS = 16
+# granite-moe's LM training part: phase 10's shape at 4 of its 24 layers
+MOE_LM_LAYERS, MOE_LM_STEPS = 4, 3
+# f32 greedy serving, engine against engine. granite: power-of-two
+# prompt lengths, so that the continuous engine's bucketed prefill holds
+# the very tokens of the one-at-a-time exact-length prefill (MoE capacity
+# counts every token a call receives, padding included); rwkv6: the CPU
+# test's ragged set (tests/test_torch_recurrent_serving.py)
+GRANITE_F32 = ((8, 16, 32, 64), (8, 8, 8, 8))
+RWKV_F32 = ((4, 7, 4, 9), (5, 3, 6, 4))
+
+
+def engines_agree(torch, np, cfg, params, lens, budgets, *, batched_static):
+    """Greedy outputs of the paged ``ServingEngine`` (4 slots), of
+    one-at-a-time serving (``StaticServingEngine``, max_batch 1) and, if
+    ``batched_static``, of the static engine at max_batch 4 (which groups
+    a recurrent model's prompts by length). Returns {engine: outputs}."""
+    from repro_torch.serving import (Request, ServingEngine,
+                                     StaticServingEngine)
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+    def requests():
+        return [Request(prompt=list(p), max_new_tokens=m)
+                for p, m in zip(prompts, budgets)]
+
+    max_seq = max(lens) + max(budgets) + 16
+    outs = {}
+    reqs = requests()
+    ServingEngine(cfg, params, max_batch=4, max_seq=max_seq,
+                  page_size=16).serve(reqs)
+    outs["continuous"] = [r.output for r in reqs]
+    if batched_static:
+        reqs = requests()
+        StaticServingEngine(cfg, params, max_batch=4,
+                            max_seq=max_seq).serve(reqs)
+        outs["static"] = [r.output for r in reqs]
+    outs["one_at_a_time"] = []
+    for r in requests():
+        StaticServingEngine(cfg, params, max_batch=1,
+                            max_seq=max_seq).serve([r])
+        outs["one_at_a_time"].append(r.output)
+    return outs
+
+
+def moe_recurrent_phase(torch, np, card, kernels):
+    """Phase 20: the MoE and recurrent families on the card. (f) the paged
+    kernel vs plain at their three head layouts; (a) granite-moe-1b-a400m
+    at full width and depth serving phase 3's workload; (b) its f32 paged
+    step against plain attention and its engines' greedy outputs; (c)
+    rwkv6-3b at full width and depth, phase 3's workload, then f32
+    continuous / static / one-at-a-time outputs; (d) qwen3-moe-30b-a3b at
+    full width and depth and (e) jamba-v0.1-52b at full width, depth cut,
+    8 requests of <= 256 prompt tokens; (g) granite-moe LM training
+    (``lm_phase``). Returns (launches of the
+    paged kernel and of fixedk_gather_pack, the layouts' timings)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    timings = layout_kernels(torch, np, MOE_LAYOUTS, seed=20)
+    paged = 0
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    granite = configs.get_config("granite-moe-1b-a400m")
+    with phase_clock(torch, "phase 20a granite-moe-1b-a400m serve (24 "
+                     "layers)", card):
+        params = init_model(torch, np, granite, seed=0, dtype=torch.bfloat16)
+        paged += serve_ragged(torch, np, granite, params, card, kernels,
+                              ker_ms=timings[granite.name]["ms"])[
+            "paged_decode"]
+        del params
+    free()
+
+    with phase_clock(torch, "phase 20b granite-moe f32 paged vs dense, "
+                     "engines", card):
+        params = init_model(torch, np, granite, seed=1, dtype=torch.float32)
+        e2e = paged_vs_dense(torch, np, granite, params, seed=1)
+        diff = (e2e["paged"] - e2e["dense"]).abs().max().item()
+        scale = e2e["dense"].abs().max().item()
+        finite = bool(torch.isfinite(e2e["paged"]).all()
+                      and torch.isfinite(e2e["dense"]).all())
+        log(f"e2e f32 granite-moe-1b-a400m, {granite.n_layers} layers, "
+            f"prompts {e2e['lens'].tolist()}: max|paged(kernel) - "
+            f"dense(plain)| logits = {diff:.3e}, |logits| max {scale:.4f}, "
+            f"relative {diff / scale:.3e} (rtol {DENSE_E2E_RTOL}); kernel "
+            f"launches {e2e['launches']}; finite {finite}")
+        if not (finite and diff <= DENSE_E2E_RTOL * scale
+                and e2e["launches"] == attn_layers(granite)):
+            raise AssertionError("granite-moe paged-kernel logits disagree "
+                                 "with the dense plain path")
+        # host work of an MoE decode step: the ATen ops it dispatches
+        from repro_torch.bench.counting import OpCount
+        from repro_torch.models import transformer
+
+        b = len(e2e["lens"])
+        with torch.no_grad(), OpCount() as ops:
+            transformer.decode_step_paged(
+                params, granite, e2e["next"], e2e["kv"].pages,
+                e2e["kv"].tables(), e2e["lens_dev"] + 1,
+                torch.ones(b, dtype=torch.bool, device="cuda"))
+        torch.cuda.synchronize()
+        log(f"granite-moe decode_step_paged dispatches {ops.total} ATen ops "
+            f"per step ({ops.total / granite.n_layers:.1f} per layer) plus "
+            f"{attn_layers(granite)} kernel launches through ctypes; most "
+            f"frequent: {ops.by_name.most_common(12)}")
+        del e2e
+        outs = engines_agree(torch, np, granite, params, *GRANITE_F32,
+                             batched_static=False)
+        log(f"granite-moe f32 greedy, prompts {GRANITE_F32[0]}: continuous "
+            f"(paged kernel) == one-at-a-time (plain) "
+            f"{outs['continuous'] == outs['one_at_a_time']}; "
+            f"{outs['continuous']}")
+        if outs["continuous"] != outs["one_at_a_time"]:
+            raise AssertionError(f"granite-moe engines disagree: {outs}")
+        del params
+    free()
+
+    rwkv = configs.get_config("rwkv6-3b")
+    with phase_clock(torch, "phase 20c rwkv6-3b serve (32 layers)", card):
+        params = init_model(torch, np, rwkv, seed=0, dtype=torch.bfloat16)
+        paged += serve_ragged(torch, np, rwkv, params, card, kernels)[
+            "paged_decode"]
+        del params
+    free()
+    with phase_clock(torch, "phase 20c rwkv6-3b f32 engines", card):
+        params = init_model(torch, np, rwkv, seed=1, dtype=torch.float32)
+        outs = engines_agree(torch, np, rwkv, params, *RWKV_F32,
+                             batched_static=True)
+        same = outs["continuous"] == outs["static"] == outs["one_at_a_time"]
+        log(f"rwkv6-3b f32 greedy, prompts {RWKV_F32[0]}: continuous == "
+            f"static (length-grouped) == one-at-a-time {same}; "
+            f"{outs['continuous']}")
+        if not same:
+            raise AssertionError(f"rwkv6-3b engines disagree: {outs}")
+        del params
+    free()
+
+    qwen3 = configs.get_config("qwen3-moe-30b-a3b")
+    jamba = configs.get_config("jamba-v0.1-52b")
+    for cfg, layers in ((qwen3, qwen3.n_layers), (jamba, JAMBA_LAYERS)):
+        cut = dataclasses.replace(cfg, n_layers=layers)
+        with phase_clock(torch, f"phase 20 {cfg.name} serve ({layers} of "
+                         f"{cfg.n_layers} layers)", card):
+            params = init_model(
+                torch, np, cut, seed=0, dtype=torch.bfloat16,
+                reduced=(f"n_layers {cfg.n_layers} -> {layers}"
+                         if layers != cfg.n_layers else None))
+            paged += serve_ragged(
+                torch, np, cut, params, card, kernels, n_requests=8,
+                max_new=8, prompt_max=256,
+                ker_ms=timings[cfg.name]["ms"])["paged_decode"]
+            del params
+        free()
+
+    with phase_clock(torch, f"phase 20g granite-moe LM training "
+                     f"({MOE_LM_LAYERS} layers, {LM_NODES} nodes)", card):
+        lm = lm_phase(torch, np, card, arch=granite.name,
+                      layers=MOE_LM_LAYERS, steps=MOE_LM_STEPS)
+        if lm["failures"]:
+            raise AssertionError(f"granite-moe training failed: "
+                                 f"{lm['failures']}")
+        gather = lm["launches"]
+        del lm
+    free()
+    return {"paged_decode": paged, "fixedk_gather_pack": gather}, timings
 
 
 def ptxas_entries(text: str):
@@ -2364,6 +2586,14 @@ def main() -> int:
     dense_launches, timing["paged_decode"]["dense_layouts"] = \
         dense_configs_phase(torch, np, card, kernels)
     launches["paged_decode"] += dense_launches
+
+    # ---- 20. the MoE and recurrent families ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches, timing["paged_decode"]["moe_recurrent_layouts"] = \
+        moe_recurrent_phase(torch, np, card, kernels)
+    for key, n in moe_launches.items():
+        launches[key] += n
 
     # ---- results -----------------------------------------------------------
     for key, rows in resources.items():

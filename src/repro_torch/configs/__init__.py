@@ -11,7 +11,9 @@ from typing import Dict
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ["gemma2_2b", "qwen1_5_32b", "phi3_medium_14b", "chatglm3_6b"]
+ARCH_IDS = ["gemma2_2b", "qwen1_5_32b", "phi3_medium_14b", "chatglm3_6b",
+            "granite_moe_1b_a400m", "qwen3_moe_30b_a3b", "jamba_v0_1_52b",
+            "rwkv6_3b"]
 
 # public ids (with dashes/dots) -> module name
 ALIASES = {
@@ -19,16 +21,16 @@ ALIASES = {
     "qwen1.5-32b": "qwen1_5_32b",
     "phi3-medium-14b": "phi3_medium_14b",
     "chatglm3-6b": "chatglm3_6b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 # registered in the JAX package, not yet in the port (public id -> module)
 NOT_YET_PORTED = {
-    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
-    "jamba-v0.1-52b": "jamba_v0_1_52b",
-    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "whisper-large-v3": "whisper_large_v3",
     "llama-3.2-vision-11b": "llama3_2_vision_11b",
-    "rwkv6-3b": "rwkv6_3b",
 }
 
 

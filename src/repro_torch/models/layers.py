@@ -29,7 +29,7 @@ NEG_INF = -1e30
 
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
-    init: str = "normal"      # normal | zeros | ones
+    init: str = "normal"      # normal | zeros | ones | half
     scale: float = 1.0        # stddev multiplier for normal init
 
 

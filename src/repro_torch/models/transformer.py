@@ -1,16 +1,23 @@
 """Model composition: embeddings + layer periods + heads.
 
-Port of ``repro.models.transformer`` for the attention + MLP layer slots
-(dense decoder LMs such as gemma2). The parameter tree keeps the JAX
-layout -- ``embed``, ``final_norm``, ``blocks/<slot>/{attn,mlp}/...``
-with every block leaf stacked over a leading ``n_periods`` axis -- so a
-JAX checkpoint carries over by renaming only (``repro_torch.convert``).
-A Python loop over periods replaces ``lax.scan``; ``cfg.remat``
-recomputes each period in the backward pass (``torch.utils.checkpoint``,
-the counterpart of ``jax.checkpoint``: the same numbers, less memory).
+Port of ``repro.models.transformer`` for decoder LMs: attention, mamba
+and rwkv mixers with MLP, MoE and rwkv channel-mix feed-forwards (the
+dense, MoE, hybrid and ssm families). The parameter tree keeps the JAX
+layout -- ``embed``, ``final_norm``, ``blocks/<slot>/{attn,mamba,
+time_mix}/...`` and ``{mlp,moe,channel_mix}/...`` with every block leaf
+stacked over a leading ``n_periods`` axis -- so a JAX checkpoint carries
+over by renaming only (``repro_torch.convert``). A Python loop over
+periods replaces ``lax.scan``; ``cfg.remat`` recomputes each period in
+the backward pass (``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint``: the same numbers, less memory).
 
-Not yet ported (they raise ``NotImplementedError``): MoE, mamba and
-rwkv slots, cross-attention, encoders and learned position embeddings.
+Caches: attention slots keep a dense ``KVCache`` written in place;
+mamba / rwkv slots keep a ``MambaState`` / ``RWKVState`` stacked over
+the periods, which prefill and the dense decode step return anew and the
+paged decode step (``rec=``) writes in place.
+
+Not yet ported (they raise ``NotImplementedError``): cross-attention,
+encoders and learned position embeddings.
 """
 from __future__ import annotations
 
@@ -19,7 +26,10 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (KVCache, ParamSpec, attention_apply,
                                        attention_decode_paged,
                                        attention_specs, mlp_apply, mlp_specs,
@@ -36,14 +46,11 @@ Params = Dict[str, Any]
 # Parameter specs
 # --------------------------------------------------------------------------
 
+ATTN = ("attn", "attn_local")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.period:
-        if spec.mixer not in ("attn", "attn_local"):
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.mixer!r} layers are not yet ported")
-        if spec.ffn != "mlp":
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.ffn!r} feed-forward is not yet ported")
         if spec.cross_attn:
             raise NotImplementedError(
                 f"{cfg.name}: cross-attention is not yet ported")
@@ -52,6 +59,27 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.pos_embedding == "learned":
         raise NotImplementedError(
             f"{cfg.name}: learned position embeddings are not yet ported")
+
+
+def _slot_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    if spec.mixer in ATTN:
+        out["attn"] = attention_specs(cfg)
+    elif spec.mixer == "mamba":
+        out["mamba"] = mamba_mod.mamba_specs(cfg)
+    elif spec.mixer == "rwkv":
+        out["time_mix"] = rwkv_mod.rwkv_time_mix_specs(cfg)
+    else:
+        raise ValueError(spec.mixer)
+    if spec.ffn == "mlp":
+        out["mlp"] = mlp_specs(cfg)
+    elif spec.ffn == "moe":
+        out["moe"] = moe_mod.moe_specs(cfg)
+    elif spec.ffn == "rwkv_ffn":
+        out["channel_mix"] = rwkv_mod.rwkv_channel_mix_specs(cfg)
+    elif spec.ffn is not None:
+        raise ValueError(spec.ffn)
+    return out
 
 
 def _stack(specs: Dict[str, ParamSpec], n: int) -> Dict[str, ParamSpec]:
@@ -66,9 +94,9 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
         "embed": ParamSpec((cfg.padded_vocab, d)),
         "final_norm": ParamSpec((d,), "ones"),
         "blocks": {
-            str(i): {"attn": _stack(attention_specs(cfg), cfg.n_periods),
-                     "mlp": _stack(mlp_specs(cfg), cfg.n_periods)}
-            for i in range(len(cfg.period))
+            str(i): {name: _stack(sub, cfg.n_periods)
+                     for name, sub in _slot_specs(cfg, spec).items()}
+            for i, spec in enumerate(cfg.period)
         },
     }
     if not cfg.tie_embeddings:
@@ -113,9 +141,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cuda") -> Params:
     """The JAX ``init_tree`` rule: normal leaves have std
     ``scale / sqrt(shape[-2])`` (``shape[-1]`` for 1-D), the others are
-    zeros or ones. Drawn from a ``torch.Generator`` seeded with ``seed``
-    on the target device, so the values differ from JAX's for the same
-    seed (tests carry JAX's tree over with ``convert.params_from_jax``)."""
+    zeros, ones or halves (0.5). Drawn from a ``torch.Generator`` seeded
+    with ``seed`` on the target device, so the values differ from JAX's
+    for the same seed (tests carry JAX's tree over with
+    ``convert.params_from_jax``). A stacked leaf (``blocks/...``) is drawn
+    in f32 one period at a time and cast before the next draw, so no
+    leaf's whole f32 draw is ever held (qwen3-moe-30b-a3b's ``w_up``:
+    38.7 GB at 48 layers)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     flat = {}
@@ -124,11 +156,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             flat[key] = torch.zeros(s.shape, dtype=dtype, device=dev)
         elif s.init == "ones":
             flat[key] = torch.ones(s.shape, dtype=dtype, device=dev)
+        elif s.init == "half":
+            flat[key] = torch.full(s.shape, 0.5, dtype=dtype, device=dev)
         else:
             fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
             std = s.scale / max(fan_in, 1) ** 0.5
-            w = torch.randn(s.shape, generator=gen, device=dev)
-            flat[key] = (w.mul_(std)).to(dtype)
+            w = torch.empty(s.shape, dtype=dtype, device=dev)
+            for part in (w if key.startswith("blocks/") else w[None]):
+                part.copy_(torch.randn(part.shape, generator=gen,
+                                       device=dev).mul_(std))
+            flat[key] = w
     return unflatten(flat)
 
 
@@ -143,28 +180,118 @@ def period_params(params: Params, slot: str, i: int) -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 
 class Cache(NamedTuple):
-    """Per-slot dense KV caches, each stacked over the period axis:
-    k/v (n_periods, batch, max_len, kv_heads, head_dim)."""
-    slots: Dict[str, KVCache]
+    """Per-slot caches, each stacked over the period axis: an attention
+    slot's dense ``KVCache`` k/v (n_periods, batch, max_len, kv_heads,
+    head_dim), a mamba / rwkv slot's ``MambaState`` / ``RWKVState`` with a
+    leading n_periods axis."""
+    slots: Dict[str, Any]
     offset: int  # number of tokens already in the cache
+
+
+def _slot_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
+                dtype: torch.dtype, dev: torch.device):
+    n = cfg.n_periods
+    if spec.mixer in ATTN:
+        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                       torch.zeros(shape, dtype=dtype, device=dev))
+    init = (mamba_mod.init_mamba_state if spec.mixer == "mamba"
+            else rwkv_mod.init_rwkv_state)
+    st = init(cfg, batch, dtype, dev)
+    return type(st)(*(a.new_zeros((n,) + tuple(a.shape)) for a in st))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype, device) -> Cache:
     _check_supported(cfg)
-    shape = (cfg.n_periods, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
     dev = torch.device(device)
     return Cache(
-        slots={str(i): KVCache(torch.zeros(shape, dtype=dtype, device=dev),
-                               torch.zeros(shape, dtype=dtype, device=dev))
-               for i in range(len(cfg.period))},
+        slots={str(i): _slot_cache(cfg, s, batch, max_len, dtype, dev)
+               for i, s in enumerate(cfg.period)},
         offset=0)
 
 
-def _layer_cache(cache: Cache, slot: str, i: int) -> KVCache:
-    kv = cache.slots[slot]
-    return KVCache(kv.k[i], kv.v[i])
+def _at(st, i: int):
+    """Period ``i`` of a slot's stacked cache or state (views)."""
+    return type(st)(*(a[i] for a in st))
+
+
+def _with_states(cache: Cache, states: Dict[str, List[Any]],
+                 offset: int) -> Cache:
+    """``cache`` with the recurrent slots' per-period states stacked in."""
+    slots = dict(cache.slots)
+    for slot, per_period in states.items():
+        slots[slot] = type(per_period[0])(
+            *(torch.stack(f) for f in zip(*per_period)))
+    return Cache(slots=slots, offset=offset)
+
+
+# --------------------------------------------------------------------------
+# Layer slots
+# --------------------------------------------------------------------------
+
+def _ffn_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
+              state):
+    """A slot's feed-forward over a full sequence: (x, MoE aux or None,
+    the slot's recurrent state)."""
+    if spec.ffn == "mlp":
+        return mlp_apply(sp["mlp"], cfg, x), None, state
+    if spec.ffn == "moe":
+        x, aux = moe_mod.moe_apply(sp["moe"], cfg, x)
+        return x, aux, state
+    if spec.ffn == "rwkv_ffn":
+        x, state = rwkv_mod.rwkv_channel_mix(sp["channel_mix"], cfg, x, state)
+    return x, None, state
+
+
+def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
+               positions: torch.Tensor, cache=None):
+    """One layer slot over a full sequence. ``cache``: an attention
+    slot's ``KVCache`` to fill from position 0 (prefill), or an rwkv
+    slot's initial state (zeros when None). Returns (x, MoE aux or None,
+    the recurrent slot's final state or None)."""
+    state = None
+    if spec.mixer in ATTN:
+        if cache is None:
+            x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
+                                   layer_kind=spec.mixer)
+        else:
+            x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
+                                   layer_kind=spec.mixer, cache=cache,
+                                   cache_offset=0)
+    elif spec.mixer == "mamba":
+        x, state = mamba_mod.mamba_apply(sp["mamba"], cfg, x,
+                                         return_state=True)
+    else:
+        if cache is None:
+            cache = rwkv_mod.init_rwkv_state(cfg, x.shape[0], x.dtype,
+                                             x.device)
+        x, state = rwkv_mod.rwkv_time_mix(sp["time_mix"], cfg, x, cache)
+    return _ffn_full(cfg, spec, sp, x, state)
+
+
+def _slot_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
+               state):
+    """A recurrent slot (mamba / rwkv mixer, then its feed-forward) for
+    one token. Returns (x, the slot's new state)."""
+    if spec.mixer == "mamba":
+        x, state = mamba_mod.mamba_decode_step(sp["mamba"], cfg, x, state)
+    else:
+        x, state = rwkv_mod.rwkv_time_mix_step(sp["time_mix"], cfg, x, state)
+    return _ffn_step(cfg, spec, sp, x, state)
+
+
+def _ffn_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
+              state):
+    """A slot's feed-forward for one token: (x, the slot's state)."""
+    if spec.ffn == "mlp":
+        return mlp_apply(sp["mlp"], cfg, x), state
+    if spec.ffn == "moe":
+        return moe_mod.moe_apply(sp["moe"], cfg, x)[0], state
+    if spec.ffn == "rwkv_ffn":
+        return rwkv_mod.rwkv_channel_mix_step(sp["channel_mix"], cfg, x,
+                                              state)
+    return x, state
 
 
 # --------------------------------------------------------------------------
@@ -189,33 +316,41 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _period(params: Params, cfg: ModelConfig, i: int, x: torch.Tensor,
-            positions: torch.Tensor) -> torch.Tensor:
-    """Period ``i`` of the layer stack over a full sequence (no cache)."""
+            positions: torch.Tensor):
+    """Period ``i`` of the layer stack over a full sequence (no cache).
+    Returns (x, the period's summed MoE aux or None without MoE)."""
+    aux = None
     for si, spec in enumerate(cfg.period):
         sp = period_params(params, str(si), i)
-        x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
-                               layer_kind=spec.mixer)
-        x = mlp_apply(sp["mlp"], cfg, x)
-    return x
+        x, a, _ = _slot_full(cfg, spec, sp, x, positions)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training forward. tokens (b, s) -> (logits (b, s, V), aux loss).
-    Attention + MLP slots carry no auxiliary loss: aux is 0."""
+    """Training forward. tokens (b, s) -> (logits (b, s, V), aux loss):
+    the MoE slots' load-balance losses summed over slots and periods (0
+    without MoE)."""
     _check_supported(cfg)
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, device=x.device).expand(b, s)
+    auxs = []
     for i in range(cfg.n_periods):
         if cfg.remat and torch.is_grad_enabled():
             from torch.utils.checkpoint import checkpoint
 
-            x = checkpoint(_period, params, cfg, i, x, positions,
-                           use_reentrant=False)
+            x, aux = checkpoint(_period, params, cfg, i, x, positions,
+                                use_reentrant=False)
         else:
-            x = _period(params, cfg, i, x, positions)
-    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+            x, aux = _period(params, cfg, i, x, positions)
+        if aux is not None:
+            auxs.append(aux)
+    total = (torch.sum(torch.stack(auxs)) if auxs
+             else torch.zeros((), device=x.device))
+    return _logits(params, cfg, x), total
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
@@ -234,31 +369,34 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Cache, *, last_index: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
-    """Process a prompt, filling ``cache`` in place. Returns (last-token
-    logits (b, V), cache).
+    """Process a prompt. Attention slots fill ``cache`` in place; the
+    recurrent slots' final states come back in the returned cache.
+    Returns (last-token logits (b, V), cache).
 
     ``cache`` must come from init_cache with max_len >= prompt + new.
     ``last_index`` (b,) selects each row's OWN last real token for the
     returned logits (right-padded unequal-length prompts; causal masking
-    keeps their hidden states exact).
+    keeps their hidden states exact -- recurrent models need equal
+    lengths, their state would consume the padding).
     """
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, device=x.device).expand(b, s)
+    states: Dict[str, List[Any]] = {}
     for i in range(cfg.n_periods):
         for si, spec in enumerate(cfg.period):
-            sp = period_params(params, str(si), i)
-            x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
-                                   layer_kind=spec.mixer,
-                                   cache=_layer_cache(cache, str(si), i),
-                                   cache_offset=0)
-            x = mlp_apply(sp["mlp"], cfg, x)
+            key = str(si)
+            sp = period_params(params, key, i)
+            x, _, st = _slot_full(cfg, spec, sp, x, positions,
+                                  cache=_at(cache.slots[key], i))
+            if st is not None:
+                states.setdefault(key, []).append(st)
     if last_index is None:
         x_last = x[:, -1:, :]
     else:
         x_last = x[torch.arange(b, device=x.device), last_index.long()][:, None]
     logits = _logits(params, cfg, x_last)
-    return logits[:, 0, :], cache._replace(offset=s)
+    return logits[:, 0, :], _with_states(cache, states, s)
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -267,43 +405,61 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     """One greedy-decode step over a dense cache. token: (b,) -> (logits
     (b, V), cache). Ragged: with ``offsets`` (b,) each row writes at its
     own position, takes its own RoPE phase and attends only its own
-    valid prefix. Attention is the plain ``_sdpa`` (no kernel)."""
+    valid prefix. Attention is the plain ``_sdpa`` (no kernel); the
+    recurrent slots' new states come back in the returned cache."""
     x = _embed_tokens(params, cfg, token[:, None])
     positions = offsets[:, None]
+    states: Dict[str, List[Any]] = {}
     for i in range(cfg.n_periods):
         for si, spec in enumerate(cfg.period):
-            sp = period_params(params, str(si), i)
-            x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
-                                   layer_kind=spec.mixer,
-                                   cache=_layer_cache(cache, str(si), i),
-                                   cache_offsets=offsets)
-            x = mlp_apply(sp["mlp"], cfg, x)
+            key = str(si)
+            sp = period_params(params, key, i)
+            if spec.mixer in ATTN:
+                x, _ = attention_apply(sp["attn"], cfg, x,
+                                       positions=positions,
+                                       layer_kind=spec.mixer,
+                                       cache=_at(cache.slots[key], i),
+                                       cache_offsets=offsets)
+                x, _ = _ffn_step(cfg, spec, sp, x, None)
+            else:
+                x, st = _slot_step(cfg, spec, sp, x, _at(cache.slots[key], i))
+                states.setdefault(key, []).append(st)
     logits = _logits(params, cfg, x)
-    return logits[:, 0, :], cache._replace(offset=cache.offset + 1)
+    return logits[:, 0, :], _with_states(cache, states, cache.offset + 1)
 
 
 def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
                       pages: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
                       block_tables: torch.Tensor, offsets: torch.Tensor,
-                      write_enabled: torch.Tensor) -> torch.Tensor:
+                      write_enabled: torch.Tensor, *,
+                      rec: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """One decode step over a PAGED KV cache (continuous-batching engine).
 
     ``pages``: {period-slot -> (k_pages, v_pages)}, each (n_periods,
     n_pages+1, page_size, kv_heads, head_dim) -- one shared physical
-    page pool per layer slot, written IN PLACE. ``block_tables`` (b,
-    n_blocks) and ``offsets`` (b,) int32 are per request slot;
-    ``write_enabled`` (b,) bool sends finished / empty rows' writes to
-    the trash page. Returns logits (b, V). Every attention layer calls
-    ``paged_attention`` once: the kernel on CUDA.
+    page pool per attention slot, written IN PLACE. ``rec``:
+    {period-slot -> recurrent state stacked over the periods} for the
+    mamba / rwkv slots (dense per-row state: paging applies to KV only),
+    advanced IN PLACE for every row, emitting or not, as in the JAX
+    engine. ``block_tables`` (b, n_blocks) and ``offsets`` (b,) int32 are
+    per request slot; ``write_enabled`` (b,) bool sends finished / empty
+    rows' KV writes to the trash page. Returns logits (b, V). Every
+    attention layer calls ``paged_attention`` once: the kernel on CUDA.
     """
     x = _embed_tokens(params, cfg, token[:, None])
     for i in range(cfg.n_periods):
         for si, spec in enumerate(cfg.period):
-            sp = period_params(params, str(si), i)
-            kp, vp = pages[str(si)]
-            x = attention_decode_paged(
-                sp["attn"], cfg, x, pages=(kp[i], vp[i]),
-                block_table=block_tables, offsets=offsets,
-                write_enabled=write_enabled, layer_kind=spec.mixer)
-            x = mlp_apply(sp["mlp"], cfg, x)
+            key = str(si)
+            sp = period_params(params, key, i)
+            if spec.mixer in ATTN:
+                kp, vp = pages[key]
+                x = attention_decode_paged(
+                    sp["attn"], cfg, x, pages=(kp[i], vp[i]),
+                    block_table=block_tables, offsets=offsets,
+                    write_enabled=write_enabled, layer_kind=spec.mixer)
+                x, _ = _ffn_step(cfg, spec, sp, x, None)
+            else:
+                x, st = _slot_step(cfg, spec, sp, x, _at(rec[key], i))
+                for dst, src in zip(rec[key], st):
+                    dst[i].copy_(src)
     return _logits(params, cfg, x)[:, 0, :]

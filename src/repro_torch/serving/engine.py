@@ -1,6 +1,7 @@
 """Serving engines: continuous batching (default) + static batch baseline.
 
-Port of ``repro.serving.engine`` for attention-only models.
+Port of ``repro.serving.engine`` for decoder LMs: attention-only models
+and those with recurrent (mamba / rwkv) mixers.
 
 ``ServingEngine`` is a slot-based continuous-batching scheduler over the
 paged KV cache (``kv_cache.py``): finished requests free their slot and
@@ -16,13 +17,20 @@ jitted step for the same effect.
 together and decodes until every row is done, over a dense cache with
 per-row offsets -- the baseline the continuous engine is held against
 (batched == one-at-a-time).
+
+Models with recurrent mixers: a recurrent state that has consumed
+right-padding cannot be repaired by masking, so the continuous engine
+prefills them at the exact prompt length (not a power-of-two bucket) and
+the static engine groups them into equal-prompt-length batches. Their
+states sit beside the page pools, one row per slot, and advance every
+step for every row, as in the JAX engine.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -63,6 +71,7 @@ class ServeStats:
 @dataclasses.dataclass
 class _DecodeState:
     """Device-resident continuous-batching state (one row per slot)."""
+    rec: Dict[str, Any]       # {period-slot -> recurrent state (n, B, ...)}
     offsets: torch.Tensor     # (B,) int32 tokens already cached per slot
     last_tok: torch.Tensor    # (B,) int32 token to feed next
     out_buf: torch.Tensor     # (B, max_out) int32 generated tokens
@@ -71,6 +80,10 @@ class _DecodeState:
     eos: torch.Tensor         # (B,) int32 eos id or -1
     active: torch.Tensor      # (B,) bool: slot holds a live request
     done: torch.Tensor        # (B,) bool: finished, awaiting retirement
+
+
+def _is_recurrent(cfg: ModelConfig) -> bool:
+    return any(s.mixer not in transformer.ATTN for s in cfg.period)
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -109,8 +122,12 @@ class ServingEngine:
         self.dtype = dtype
         self.page_size = page_size
         self.n_pages = n_pages
+        self.recurrent = _is_recurrent(cfg)
         self.last_stats: Optional[ServeStats] = None
-        self._attn_slots = [str(i) for i in range(len(cfg.period))]
+        self._attn_slots = [str(i) for i, s in enumerate(cfg.period)
+                            if s.mixer in transformer.ATTN]
+        self._rec_slots = [str(i) for i, s in enumerate(cfg.period)
+                           if s.mixer not in transformer.ATTN]
 
     def _zeros(self, *shape, dtype=torch.int32) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -121,7 +138,7 @@ class ServingEngine:
         emit = st.active & ~st.done
         logits = transformer.decode_step_paged(
             self.params, self.cfg, st.last_tok, kv.pages, tables,
-            st.offsets, emit)
+            st.offsets, emit, rec=st.rec)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         rows = torch.arange(st.out_buf.shape[0], device=self.device)
         idx = torch.clamp(st.n_out, 0, st.out_buf.shape[1] - 1)
@@ -147,8 +164,13 @@ class ServingEngine:
         kv = PagedKVCache(self.cfg, max_batch=B, max_seq=self.max_seq,
                           page_size=self.page_size, n_pages=self.n_pages,
                           dtype=self.dtype, device=self.device)
+        rec = {}
+        if self._rec_slots:
+            slots = transformer.init_cache(self.cfg, B, 1, self.dtype,
+                                           self.device).slots
+            rec = {si: slots[si] for si in self._rec_slots}
         st = _DecodeState(
-            offsets=self._zeros(B), last_tok=self._zeros(B),
+            rec=rec, offsets=self._zeros(B), last_tok=self._zeros(B),
             out_buf=self._zeros(B, max_out), n_out=self._zeros(B),
             budget=torch.ones(B, dtype=torch.int32, device=self.device),
             eos=torch.full((B,), -1, dtype=torch.int32, device=self.device),
@@ -219,9 +241,10 @@ class ServingEngine:
             raise ValueError("empty prompt")
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        # prefill at a power-of-two bucket; causal masking + last_index
-        # keep the padded prefill exact
-        Lp = _bucket(L, self.max_seq)
+        # recurrent mixers must see the EXACT prompt (a right-padded tail
+        # would enter their state); attention models prefill at a
+        # power-of-two bucket, which causal masking + last_index keep exact
+        Lp = L if self.recurrent else _bucket(L, self.max_seq)
         toks = np.zeros((1, Lp), np.int32)
         toks[0, :L] = req.prompt
         cache = transformer.init_cache(self.cfg, 1, Lp, self.dtype,
@@ -232,6 +255,11 @@ class ServingEngine:
         first = int(torch.argmax(logits, dim=-1)[0])
         kv.write_prompt(slot, {si: (cache.slots[si].k, cache.slots[si].v)
                                for si in self._attn_slots}, L)
+        for si in self._rec_slots:
+            # a state shorter than the slot's (mamba's conv after a prompt
+            # of fewer than d_conv - 1 tokens) broadcasts, as in JAX
+            for dst, src in zip(st.rec[si], cache.slots[si]):
+                dst[:, slot] = src[:, 0]
         eos = -1 if req.eos_id is None else req.eos_id
         st.offsets[slot] = L
         st.last_tok[slot] = first
@@ -264,14 +292,24 @@ class StaticServingEngine:
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.dtype = dtype
+        self.recurrent = _is_recurrent(cfg)
         self.last_stats: Optional[ServeStats] = None
 
     def serve(self, requests: List[Request]) -> List[Request]:
-        """Serve requests in static batches of max_batch."""
+        """Serve requests in static batches of max_batch (recurrent-mixer
+        models additionally split into equal-prompt-length groups)."""
         t0 = time.monotonic()
         stats = ServeStats()
-        for i in range(0, len(requests), self.max_batch):
-            self._serve_batch(requests[i:i + self.max_batch], t0, stats)
+        if self.recurrent:
+            by_len: Dict[int, List[Request]] = {}
+            for r in requests:
+                by_len.setdefault(len(r.prompt), []).append(r)
+            groups = [g for _, g in sorted(by_len.items())]
+        else:
+            groups = [requests]
+        for group in groups:
+            for i in range(0, len(group), self.max_batch):
+                self._serve_batch(group[i:i + self.max_batch], t0, stats)
         stats.tokens = sum(len(r.output) for r in requests)
         stats.wall_s = time.monotonic() - t0
         self.last_stats = stats

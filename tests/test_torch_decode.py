@@ -113,14 +113,16 @@ def test_split_plan_covers_the_table_exactly(b, kvh, n_blocks):
     assert plan.scratch_shape == (None if n == 1 else (b, kvh * 2, n, 258))
 
 
-@pytest.mark.parametrize("case", ["phi3", "chatglm3", "qwen1_5"])
+@pytest.mark.parametrize("case", ["phi3", "chatglm3", "qwen1_5",
+                                  "granite_moe", "qwen3_moe", "jamba"])
 @pytest.mark.parametrize("b", [1, 3, 8])
 def test_split_plan_covers_the_table_at_the_dense_layouts(case, b):
-    """The three dense configs' head layouts, at the kernel tests' table
-    and at phase 19's serving tables (66 blocks of 16: max_seq 1056)."""
+    """The dense, MoE and hybrid configs' head layouts, at the kernel
+    tests' table and at the serving tables of phases 19-20 (66 blocks of
+    16: max_seq 1056; 17: max_seq 264)."""
     shape = PAGED_CASES[case]
     kvh, group, dh = shape["kvh"], shape["group"], shape["dh"]
-    for n_blocks in (1, shape["n_blocks"], 66, 67, 1000):
+    for n_blocks in (1, shape["n_blocks"], 17, 66, 67, 1000):
         plan = split_plan(b, kvh, group, dh, n_blocks)
         p, n = plan.pages_per_split, plan.n_splits
         assert (n - 1) * p < n_blocks <= n * p

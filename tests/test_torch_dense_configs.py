@@ -32,8 +32,10 @@ from repro_torch.serving import (PagedKVCache, Request,  # noqa: E402
 torch.set_num_threads(2)
 
 ARCHS = ["phi3-medium-14b", "chatglm3-6b", "qwen1.5-32b"]
-UNPORTED = ["granite-moe-1b-a400m", "jamba-v0.1-52b", "qwen3-moe-30b-a3b",
-            "whisper-large-v3", "llama-3.2-vision-11b", "rwkv6-3b"]
+# the MoE and recurrent arches (tests/test_torch_moe_recurrent.py)
+MOE_RECURRENT = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b",
+                 "jamba-v0.1-52b", "rwkv6-3b"]
+UNPORTED = ["whisper-large-v3", "llama-3.2-vision-11b"]
 LOGIT_ATOL = 1e-4     # tests/test_torch_serving.py's JAX-derived bounds
 ACT_ATOL = 2e-5
 
@@ -120,8 +122,8 @@ def test_full_configs_match_assignment():
 
 def test_all_configs_covers_exactly_the_ported_arches():
     got = configs.all_configs()
-    assert sorted(got) == sorted(ARCHS + ["gemma2-2b"]) == sorted(
-        configs.ALIASES)
+    assert sorted(got) == sorted(ARCHS + MOE_RECURRENT + ["gemma2-2b"]) \
+        == sorted(configs.ALIASES)
     for arch, cfg in got.items():
         assert _fields(cfg) == _fields(jax_configs.get_config(arch))
     assert not set(got) & set(configs.NOT_YET_PORTED)

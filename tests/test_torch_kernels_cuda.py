@@ -58,6 +58,16 @@ PAGED_CASES = {
     # qwen1.5-32b: MHA, 40 KV heads, one query head each
     "qwen1_5": dict(b=2, kvh=40, group=1, dh=128, page=16, n_blocks=2,
                     seq_lens=[16, 30]),
+    # granite-moe-1b-a400m: 16 query heads over 8 KV heads, dh 64
+    "granite_moe": dict(b=3, kvh=8, group=2, dh=64, page=16, n_blocks=3,
+                        seq_lens=[33, 0, 16]),
+    # qwen3-moe-30b-a3b: 32 query heads over 4 KV heads (a full block of
+    # 8 a KV head), dh 128
+    "qwen3_moe": dict(b=3, kvh=4, group=8, dh=128, page=16, n_blocks=3,
+                      seq_lens=[1, 48, 0]),
+    # jamba-v0.1-52b: 32 query heads over 8 KV heads, dh 128, no RoPE
+    "jamba": dict(b=2, kvh=8, group=4, dh=128, page=16, n_blocks=3,
+                  seq_lens=[40, 17]),
 }
 
 # f32: the JAX package's flash-vs-oracle tolerance. bf16: both sides
@@ -111,6 +121,16 @@ def split_cases():
         # b * kvh >= 264: one split, no scratch, no merge launch
         ("one_split", dict(b=66, kvh=4, group=2, dh=64, page=4, n_blocks=8),
          [(7 * i) % 33 for i in range(66)], None),
+    ] + [
+        # the MoE and hybrid layouts at the tables their 8-slot engines
+        # serve: 66 blocks of 16 (max_seq 1056) and 17 (max_seq 264), where
+        # split_plan picks other splits (qwen3-moe: P 8 / S 9 at 66, P 2 /
+        # S 9 at 17; jamba: P 16 / S 5 at 66, P 4 / S 5 at 17)
+        (f"{case}_{n}_blocks", dict(b=8, n_blocks=n, **{
+            k: PAGED_CASES[case][k] for k in ("kvh", "group", "dh", "page")}),
+         [0, 64, 65, 16 * n // 3, 8 * n, 16 * n - 8, 16 * n - 1, 16 * n],
+         None)
+        for case in ("granite_moe", "qwen3_moe", "jamba") for n in (17, 66)
     ]
 
 

@@ -81,7 +81,7 @@ def test_configs_match_jax_and_registry_refuses_unported():
         assert [(s.mixer, s.ffn, s.cross_attn) for s in a.period] == \
             [(s.mixer, s.ffn, s.cross_attn) for s in b.period]
         assert a.param_count() == b.param_count()
-    for arch in ("granite-moe-1b-a400m", "rwkv6-3b", "llama-3.2-vision-11b"):
+    for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
         with pytest.raises(KeyError, match="not yet ported"):
             configs.get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
@@ -89,14 +89,41 @@ def test_configs_match_jax_and_registry_refuses_unported():
 
 
 @pytest.mark.parametrize("period", [
-    (LayerSpec(mixer="mamba"),), (LayerSpec(ffn="moe"),),
+    (LayerSpec(mixer="mamba", cross_attn=True),),
+    (LayerSpec(ffn="moe", cross_attn=True),),
     (LayerSpec(cross_attn=True),)])
 def test_unported_layers_raise(period):
+    """Cross-attention is refused beside any mixer or feed-forward."""
     cfg = ModelConfig(name="x", family="dense", n_layers=2, d_model=32,
                       n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64,
                       period=period)
     with pytest.raises(NotImplementedError):
         transformer.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(pos_embedding="learned"),
+                                dict(n_encoder_layers=2)],
+                         ids=["learned_positions", "encoder"])
+def test_unported_model_features_raise(kw):
+    cfg = ModelConfig(name="x", family="dense", n_layers=2, d_model=32,
+                      n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64, **kw)
+    with pytest.raises(NotImplementedError):
+        transformer.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("period", [
+    (LayerSpec(mixer="mamba"),), (LayerSpec(ffn="moe"),),
+    (LayerSpec(mixer="rwkv", ffn="rwkv_ffn"),)],
+    ids=["mamba", "moe", "rwkv"])
+def test_moe_and_recurrent_layers_build(period):
+    cfg = ModelConfig(name="x", family="dense", n_layers=2, d_model=32,
+                      n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64,
+                      period=period, n_experts=4, top_k=2, d_ff_expert=16,
+                      rwkv_head_size=16)
+    params = transformer.init_params(cfg, device="cpu")
+    logits, _ = transformer.forward(params, cfg,
+                                    torch.zeros((1, 5), dtype=torch.int32))
+    assert logits.shape == (1, 5, cfg.padded_vocab)
 
 
 def test_params_from_jax_carries_the_tree_over_exactly():
