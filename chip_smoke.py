@@ -96,6 +96,19 @@ Phases (any failure exits non-zero):
      a3b at 32 of 48 layers and jamba-v0.1-52b at 16 of 32 each serve 8
      requests of <= 256 prompt tokens; granite-moe at 4 layers trains 3
      steps on 2 nodes (fixedk:128, ``fixedk_gather_pack`` once a step).
+  21. the encoder families: the paged kernel vs plain at whisper's head
+     layout (kvh 20 x group 1, dh 64, at 18 and 66 blocks) and
+     llama-3.2-vision's (kvh 8 x group 4, dh 128) and its time at each
+     serving shape; whisper-large-v3 at full width and depth (32 encoder
+     + 32 decoder layers) serves 16 requests of 4-224 prompt tokens and
+     64 new on one 1500-frame embedding a context row (paged launches ==
+     decode_steps x 32), its encoder timed alone; its f32 paged step
+     against plain attention with the encoded context; llama-3.2-vision-
+     11b at full width and depth (40 layers, 1024 image tokens) serves
+     phase 3's 16 requests (paged launches == decode_steps x 40), then
+     its f32 paged step against plain; for both in f32 on equal context
+     rows, continuous == static == one-at-a-time; whisper at 4 + 4
+     layers trains 3 steps on 2 nodes (fixedk:128, seq 448).
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -692,16 +705,19 @@ def _profile_busy(torch, fn, reps):
 
 
 def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
-             layers=LM_LAYERS, steps=LM_STEPS):
-    """Phases 10 and 20g: the slice at full width through the launcher's
-    step function: ``arch`` at its published widths (phase 10: gemma2-2b,
-    d_model 2304, 8 / 4 heads, head_dim 256, d_ff 9216, vocab 256000),
-    depth cut to ``layers``, LM_NODES nodes as one node block on the
-    card, sdm-dsgd with fixedk:128 on the ring, sigma > 0 with clipping,
-    seq LM_SEQ, ``steps`` steps; an MoE config's load-balance term is
-    logged beside node 0's cross entropy. Then the fixedk_gather_pack
-    kernel against its plain version on the run's own final
-    differential, its time, and the step's breakdown."""
+             layers=LM_LAYERS, steps=LM_STEPS, seq_len=LM_SEQ,
+             enc_layers=None):
+    """Phases 10, 20g and 21f: the slice at full width through the
+    launcher's step function: ``arch`` at its published widths (phase 10:
+    gemma2-2b, d_model 2304, 8 / 4 heads, head_dim 256, d_ff 9216, vocab
+    256000), depth cut to ``layers`` (and an encoder to ``enc_layers``),
+    LM_NODES nodes as one node block on the card, sdm-dsgd with
+    fixedk:128 on the ring, sigma > 0 with clipping, seq ``seq_len``,
+    ``steps`` steps (the audio / vlm families on the launcher's stub
+    context); an MoE config's load-balance term is logged beside node 0's
+    cross entropy. Then the fixedk_gather_pack kernel against its plain
+    version on the run's own final differential, its time, and the
+    step's breakdown."""
     import dataclasses
     import math
 
@@ -722,6 +738,11 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
     base = (configs.get_smoke_config(arch) if smoke
             else configs.get_config(arch))
     cfg = dataclasses.replace(base, n_layers=layers)
+    reduced = [f"n_layers {base.n_layers} -> {layers}"]
+    if enc_layers is not None:
+        cfg = dataclasses.replace(cfg, n_encoder_layers=enc_layers)
+        reduced.append(f"n_encoder_layers {base.n_encoder_layers} -> "
+                       f"{enc_layers}")
     # sigma^2 >= 1/1.25 is Theorem 1's precondition; G = clip_c sqrt(d)
     n, clip_c, sigma, m_local = LM_NODES, 1e-4, 1.0, 10_000
     sdm = SDMConfig(p=0.2, theta=0.5, gamma=1e-3, sigma=sigma, clip_c=clip_c,
@@ -747,14 +768,14 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
     # and g planes, the mixing temporary, the new d (4 planes), the
     # noised gradient block twice and the gradient block (bf16), plus
     # one node's activations and f32 logits
-    act_b = 6 * LM_BATCH * LM_SEQ * cfg.padded_vocab * 4
+    act_b = 6 * LM_BATCH * seq_len * cfg.padded_vocab * 4
     predicted = state_b + 4 * plane_b + 3 * n * d * 2 + act_b
     log(f"lm slice: {arch} widths (d_model {cfg.d_model}, heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.resolved_head_dim}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
         + (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts
-           else "") + "), depth cut "
-        f"{base.n_layers} -> {cfg.n_layers} layers; {d / 1e9:.4f} B params "
+           else "") + f"), reduced: {', '.join(reduced)}; "
+        f"{d / 1e9:.4f} B params "
         f"per node ({plane.buckets[0].rows} x 128 wire plane); {n} nodes; predicted "
         f"peak {predicted / 1e9:.2f} GB = state {state_b / 1e9:.2f} GB "
         f"(x bf16 + s, d f32 planes) + 4 f32 planes {4 * plane_b / 1e9:.2f}"
@@ -770,7 +791,7 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
     log(f"lm slice init {time.monotonic() - t0:.1f} s")
     fixedk_gather_pack.launches = 0
     run = train(tc, transport, steps=steps, global_batch=n * LM_BATCH,
-                seq_len=LM_SEQ, seed=0, state=state,
+                seq_len=seq_len, seed=0, state=state,
                 on_step=lambda t, loss, sec: log(
                     f"  {arch} lm step {t} loss {loss:.5f} ({sec * 1e3:.1f} ms)"))
     launches = fixedk_gather_pack.launches
@@ -788,7 +809,7 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
     tok_s = run.tokens_per_step / (ms[1:].mean() / 1e3)
     log(f"train {arch} x{cfg.n_layers} layers bf16, sdm-dsgd "
         f"{seq.name} n={n}, fixedk:128, sigma {sigma} clip_c {clip_c}, seq "
-        f"{LM_SEQ}, batch {LM_BATCH}/node, {steps} steps on {card}: "
+        f"{seq_len}, batch {LM_BATCH}/node, {steps} steps on {card}: "
         f"step ms mean {ms.mean():.3f} p50 {np.percentile(ms, 50):.3f} p99 "
         f"{np.percentile(ms, 99):.3f} (first {ms[0]:.3f}; steps 2.. mean "
         f"{ms[1:].mean():.3f}); {tok_s:.1f} tokens/s over steps 2..; peak "
@@ -810,7 +831,7 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
         from repro_torch.data import TokenStream
         tokens, labels = (torch.as_tensor(a[:LM_BATCH], device=dev) for a in
                           TokenStream(vocab_size=cfg.vocab_size,
-                                      batch=n * LM_BATCH, seq_len=LM_SEQ,
+                                      batch=n * LM_BATCH, seq_len=seq_len,
                                       seed=0).batch_at(0))
         with torch.no_grad():
             logits, aux = transformer.forward(
@@ -836,14 +857,17 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
     step_fn = steps_mod.make_distributed_train(tc, transport)
     from repro_torch.data import TokenStream
     stream = TokenStream(vocab_size=cfg.vocab_size, batch=n * LM_BATCH,
-                         seq_len=LM_SEQ, seed=0)
+                         seq_len=seq_len, seed=0)
     tokens, labels = (torch.as_tensor(a, device=dev)
                       for a in stream.batch_at(steps))
+    context = transformer.stub_context(cfg, n * LM_BATCH, tc.param_dtype,
+                                       dev)           # train()'s
     holder = {"state": run.state}
     del run, state
 
     def one_step():
-        holder["state"], _ = step_fn(holder["state"], tokens, labels)
+        holder["state"], _ = step_fn(holder["state"], tokens, labels,
+                                     context)
 
     busy, wall, top = _profile_busy(torch, one_step, 2)
     log(f"lm step device time {busy:.3f} ms of {wall:.3f} ms wall: device "
@@ -939,10 +963,12 @@ def lm_breakdown(torch, holder, mcfg, seq, transport, step_ms, whole,
         + f"; state and zero gradients {base / 1e9:.3f} allocated")
     rest = step_ms - ms["distributed_commit (incl. masked_grad, pack, mix)"] \
         - ms["distributed_advance (selection, kernel, exchange, unpack)"]
+    masked = ms["masked_grad (clip + threefry/erfinv noise, both nodes)"]
     log("lm step breakdown (ms, each part alone, synchronised): "
         + "; ".join(f"{k} {v:.3f}" for k, v in ms.items())
         + f"; gradients (2 nodes' forward + backward) and the rest = step "
-        f"{step_ms:.3f} less advance and commit = {rest:.3f}")
+        f"{step_ms:.3f} less advance and commit = {rest:.3f}; masked_grad "
+        f"share of the step {masked / step_ms:.3f}")
 
 
 # ---- slice 4: the fused update, prefill flash attention, kernel_bench and
@@ -1758,30 +1784,33 @@ def init_model(torch, np, cfg, *, seed, dtype, reduced=None):
 
 
 def serve_ragged(torch, np, cfg, params, card, kernels, *, n_requests=16,
-                 max_new=32, max_batch=8, ker_ms=None, prompt_max=1024):
-    """Serve ``n_requests`` prompts of 64-``prompt_max`` tokens (lengths
-    and tokens from ``default_rng(0)``), ``max_new`` new tokens each,
-    through ``ServingEngine`` (bf16, page 16) after a warm-up serve. Every
-    kernel count is set to 0 just before and read just after. Checks:
-    each request returns ``max_new`` valid tokens, and the paged kernel
-    launched ``decode_steps x`` attention layers (an attention-free model
+                 max_new=32, max_batch=8, ker_ms=None, prompt_max=1024,
+                 prompt_min=64, context=None):
+    """Serve ``n_requests`` prompts of ``prompt_min``-``prompt_max``
+    tokens (lengths and tokens from ``default_rng(0)``), ``max_new`` new
+    tokens each, through ``ServingEngine`` (bf16, page 16; ``context``
+    for the encoder families) after a warm-up serve. Every kernel count
+    is set to 0 just before and read just after. Checks: each request
+    returns ``max_new`` valid tokens, and the paged kernel launched
+    ``decode_steps x`` attention layers (an attention-free model
     launches it 0 times). Returns the serving kernels' launches."""
     from repro_torch.serving import Request, ServingEngine
 
     max_seq = prompt_max + max_new
     engine = ServingEngine(cfg, params, max_batch=max_batch, max_seq=max_seq,
                            page_size=16, dtype=torch.bfloat16)
-    engine.serve([Request(prompt=list(range(1, 65)), max_new_tokens=2)])
+    engine.serve([Request(prompt=list(range(1, 65)), max_new_tokens=2)],
+                 context=context)
     torch.cuda.synchronize()            # warm-up (cuBLAS handles etc.)
 
     rng = np.random.default_rng(0)
-    prompt_lens = rng.integers(64, prompt_max + 1, n_requests)
+    prompt_lens = rng.integers(prompt_min, prompt_max + 1, n_requests)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
                     max_new_tokens=max_new) for n in prompt_lens]
     torch.cuda.reset_peak_memory_stats()
     for _, wrapper in kernels.values():
         wrapper.launches = 0
-    engine.serve(reqs)
+    engine.serve(reqs, context=context)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, (_, w) in kernels.items()
                 if k in SERVE_KERNELS}
@@ -1823,11 +1852,12 @@ def serve_ragged(torch, np, cfg, params, card, kernels, *, n_requests=16,
     return launches
 
 
-def paged_vs_dense(torch, np, cfg, params, *, seed):
+def paged_vs_dense(torch, np, cfg, params, *, seed, context=None):
     """One decode step's logits through the paged path (the kernel) and
     through the dense ``decode_step`` path (plain attention), after a
     dense prefill of 4 prompts of 16-256 tokens (``default_rng(seed)``)
-    scattered into a paged pool."""
+    scattered into a paged pool. ``context`` (4 rows, raw): prefill
+    takes it raw, both decode steps encoded once."""
     from repro_torch.kernels.flash_attn.decode import paged_attention
     from repro_torch.models import transformer
     from repro_torch.serving import PagedKVCache
@@ -1844,8 +1874,9 @@ def paged_vs_dense(torch, np, cfg, params, *, seed):
         cache = transformer.init_cache(cfg, b, max_len, dtype, "cuda")
         logits, cache = transformer.prefill(
             params, cfg, torch.as_tensor(toks, device="cuda"), cache,
-            last_index=lens - 1)
+            context=context, last_index=lens - 1)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        enc = transformer.encode_context(params, cfg, context)
         kv = PagedKVCache(cfg, max_batch=b, max_seq=max_len, page_size=16,
                           dtype=dtype)
         for r, n in enumerate(e2e_lens.tolist()):
@@ -1855,13 +1886,13 @@ def paged_vs_dense(torch, np, cfg, params, *, seed):
         n0 = paged_attention.launches
         paged = transformer.decode_step_paged(
             params, cfg, nxt, kv.pages, kv.tables(), lens,
-            torch.ones(b, dtype=torch.bool, device="cuda"))
+            torch.ones(b, dtype=torch.bool, device="cuda"), context=enc)
         launches = paged_attention.launches - n0
         dense, _ = transformer.decode_step(params, cfg, nxt, cache,
-                                           offsets=lens)
+                                           context=enc, offsets=lens)
         torch.cuda.synchronize()
     return dict(paged=paged, dense=dense, launches=launches, lens=e2e_lens,
-                lens_dev=lens, next=nxt, kv=kv)
+                lens_dev=lens, next=nxt, kv=kv, context=enc)
 
 
 # ---- slice 7: the gates and the three dense configs (phases 18-19) ---------
@@ -1932,27 +1963,30 @@ def gates_phase(torch, card, kernels):
 
 
 # ragged lengths (incl. an empty row) for the kernel-vs-plain checks at a
-# table of 66 blocks of 16 (max_seq 1056: phase 3's workload) and of 17
-# (max_seq 264: the 8-request workload of phases 20d-e), where the split
-# plan differs
+# table of 66 blocks of 16 (max_seq 1056: phase 3's workload), of 17
+# (max_seq 264: the 8-request workload of phases 20d-e) and of 18 (max_seq
+# 288: whisper's transcription workload, phase 21b), where the split plan
+# differs
 TABLE_LENS = {66: [0, 1, 16, 17, 300, 1000, 1056, 64],
-              17: [0, 64, 65, 100, 200, 256, 263, 264]}
+              17: [0, 64, 65, 100, 200, 256, 263, 264],
+              18: [0, 1, 16, 17, 100, 224, 287, 288]}
 
 
 def layout_kernels(torch, np, layouts, seed):
     """The paged kernel against its plain version at each of ``layouts``
-    (``{arch: (head layout, served tables)}``: 8 rows at each served
-    table's TABLE_LENS, f32 and bf16, no softcap, no window), then its
-    time, the plain version's and the bound at each layout's serving
-    shape (8 rows of phase 3's lengths, 66 blocks of 16, bf16, 8 pools in
-    turn). Returns {arch: timing}."""
+    (``{arch: (head layout, served tables[, serving shape])}``: 8 rows at
+    each served table's TABLE_LENS, f32 and bf16, no softcap, no window),
+    then its time, the plain version's and the bound at each layout's
+    serving shape (by default 8 rows of phase 3's lengths, 66 blocks of
+    16; else the given (n_blocks, lengths)), bf16, 8 pools in turn.
+    Returns {arch: timing}."""
     from repro_torch.kernels.flash_attn.decode import (paged_attention,
                                                        paged_attention_ref,
                                                        split_plan)
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
-    for arch, (lay, tables) in layouts.items():
+    for arch, (lay, tables, *serve) in layouts.items():
         errs = []
         for n_blocks in tables:
             plan = split_plan(8, lay["kvh"], lay["group"], lay["dh"],
@@ -1981,26 +2015,34 @@ def layout_kernels(torch, np, layouts, seed):
                     raise AssertionError(
                         f"paged_decode disagrees with its plain version at "
                         f"{arch}'s layout, {n_blocks} blocks")
-        rng = np.random.default_rng(0)
-        serve_lens = (rng.integers(64, 1025, 8) + 16).tolist()
+        if serve:
+            sb, serve_lens = serve[0]
+        else:
+            rng = np.random.default_rng(0)
+            sb, serve_lens = 66, (rng.integers(64, 1025, 8) + 16).tolist()
+        plan = split_plan(8, lay["kvh"], lay["group"], lay["dh"], sb)
         q, kv, tbl, sl = paged_inputs(torch, gen, seq_lens=serve_lens,
-                                      n_blocks=66, page=16,
+                                      n_blocks=sb, page=16,
                                       dtype=torch.bfloat16, pools=8, **lay)
         ker_ms, host_ms = cuda_ms(torch, lambda i: paged_attention(
             q, *kv[i % 8], tbl, sl), iters=208)
         plain_ms, _ = cuda_ms(torch, lambda i: paged_attention_ref(
             q, *kv[i % 8], tbl, sl), iters=16)
         bound_ms, bound_by, nbytes = decode_bound(
-            serve_lens, window=None, n_blocks=66, page=16, elt_bytes=2,
+            serve_lens, window=None, n_blocks=sb, page=16, elt_bytes=2,
             **lay)
         log(f"paged_decode {arch} bf16 b=8 kvh={lay['kvh']} "
             f"group={lay['group']} dh={lay['dh']} page=16 "
+            f"{sb} blocks (split plan P {plan.pages_per_split}, S "
+            f"{plan.n_splits}) "
             f"seq_lens={serve_lens}: kernel {ker_ms * 1e3:.2f} us on the "
             f"device ({host_ms * 1e3:.2f} us per call on the host), plain "
             f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
             f"({nbytes} bytes, {bound_by})")
         out[arch] = dict(ms=ker_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, max_abs_err=max(errs))
+                         bound_by=bound_by, max_abs_err=max(errs),
+                         serve_blocks=sb,
+                         split_plan=[plan.pages_per_split, plan.n_splits])
         del q, kv, tbl, sl
         torch.cuda.empty_cache()
     return out
@@ -2094,11 +2136,13 @@ GRANITE_F32 = ((8, 16, 32, 64), (8, 8, 8, 8))
 RWKV_F32 = ((4, 7, 4, 9), (5, 3, 6, 4))
 
 
-def engines_agree(torch, np, cfg, params, lens, budgets, *, batched_static):
+def engines_agree(torch, np, cfg, params, lens, budgets, *, batched_static,
+                  context=None):
     """Greedy outputs of the paged ``ServingEngine`` (4 slots), of
     one-at-a-time serving (``StaticServingEngine``, max_batch 1) and, if
     ``batched_static``, of the static engine at max_batch 4 (which groups
-    a recurrent model's prompts by length). Returns {engine: outputs}."""
+    a recurrent model's prompts by length); every serve gets
+    ``context``. Returns {engine: outputs}."""
     from repro_torch.serving import (Request, ServingEngine,
                                      StaticServingEngine)
 
@@ -2113,17 +2157,17 @@ def engines_agree(torch, np, cfg, params, lens, budgets, *, batched_static):
     outs = {}
     reqs = requests()
     ServingEngine(cfg, params, max_batch=4, max_seq=max_seq,
-                  page_size=16).serve(reqs)
+                  page_size=16).serve(reqs, context=context)
     outs["continuous"] = [r.output for r in reqs]
     if batched_static:
         reqs = requests()
         StaticServingEngine(cfg, params, max_batch=4,
-                            max_seq=max_seq).serve(reqs)
+                            max_seq=max_seq).serve(reqs, context=context)
         outs["static"] = [r.output for r in reqs]
     outs["one_at_a_time"] = []
     for r in requests():
         StaticServingEngine(cfg, params, max_batch=1,
-                            max_seq=max_seq).serve([r])
+                            max_seq=max_seq).serve([r], context=context)
         outs["one_at_a_time"].append(r.output)
     return outs
 
@@ -2254,6 +2298,173 @@ def moe_recurrent_phase(torch, np, card, kernels):
     return {"paged_decode": paged, "fixedk_gather_pack": gather}, timings
 
 
+# ---- slice 9: the encoder families (phase 21) --------------------------------
+
+# the encoder families' head layouts (configs/*.py), their served tables
+# and, for whisper, its serving shape: 8 rows of 21b-like prompts
+# (default_rng(0).integers(4, 225, 8)) 32 tokens into their answers, 18
+# blocks of 16 (max_seq 288)
+ENCODER_LAYOUTS = {
+    "whisper-large-v3": (dict(kvh=20, group=1, dh=64), (18, 66),
+                         (18, [223, 176, 148, 95, 104, 45, 52, 39])),
+    "llama-3.2-vision-11b": (dict(kvh=8, group=4, dh=128), (66,)),
+}
+# whisper's transcription-shaped workload: the real decoder holds 448
+# positions, a prompt of at most 224 and the rest for its output
+WHISPER_SERVE = dict(n_requests=16, max_new=64, prompt_min=4,
+                     prompt_max=224)
+# whisper's training part: full width, 4 of its 32 decoder and 4 of its
+# 32 encoder layers, the decoder's 448 positions
+WHISPER_LM_LAYERS, WHISPER_LM_ENC_LAYERS, WHISPER_LM_SEQ = 4, 4, 448
+WHISPER_LM_STEPS = 3
+# f32 greedy serving, engine against engine, all context rows equal (as
+# the launchers give them; with distinct rows the continuous engine, row
+# 0 for every slot, and the static engine, rows 0..b-1, differ by design)
+ENCODER_F32 = ((5, 9, 17, 30), (6, 4, 8, 5))
+
+
+def encoder_families_phase(torch, np, card, kernels):
+    """Phase 21: the encoder families on the card. (a) the paged kernel
+    vs plain at whisper's layout (kvh 20 x group 1, dh 64, at 18 and 66
+    blocks) and llama-3.2-vision's (kvh 8 x group 4, dh 128, 66 blocks);
+    (b) whisper-large-v3 at full width and depth (32 + 32 layers, bf16)
+    serving 16 requests of 4-224 prompt tokens and 64 new, one 1500-frame
+    embedding a context row, and its encoder timed alone; (c) its f32
+    paged step against plain attention with the encoded context; (d)
+    llama-3.2-vision-11b at full width and depth serving phase 3's
+    workload on 1024 image tokens a row, then its f32 paged step against
+    plain; (e) for both in f32, continuous == static == one-at-a-time on
+    equal context rows; (f) whisper LM training (``lm_phase``). Returns
+    (launches of the paged kernel and of fixedk_gather_pack, the
+    layouts' timings)."""
+    from repro_torch import configs
+    from repro_torch.bench.counting import OpCount
+    from repro_torch.models import transformer
+
+    timings = layout_kernels(torch, np, ENCODER_LAYOUTS, seed=21)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    paged = 0
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def contexts(cfg, b, dtype, equal=False):
+        """(b, encoder_seq or n_image_tokens, d_model) seeded normal
+        rows on the card: distinct, or one row repeated."""
+        n = cfg.encoder_seq if cfg.family == "audio" else cfg.n_image_tokens
+        c = torch.randn(1 if equal else b, n, cfg.d_model, generator=gen,
+                        device="cuda").to(dtype)
+        return c.expand(b, n, cfg.d_model).contiguous() if equal else c
+
+    def paged_vs_plain(cfg, params, ctx):
+        e2e = paged_vs_dense(torch, np, cfg, params, seed=1, context=ctx)
+        diff = (e2e["paged"] - e2e["dense"]).abs().max().item()
+        scale = e2e["dense"].abs().max().item()
+        finite = bool(torch.isfinite(e2e["paged"]).all()
+                      and torch.isfinite(e2e["dense"]).all())
+        log(f"e2e f32 {cfg.name}, {cfg.n_layers} layers, prompts "
+            f"{e2e['lens'].tolist()}, encoded context "
+            f"{tuple(e2e['context'].shape)}: max|paged(kernel) - "
+            f"dense(plain)| logits = {diff:.3e}, |logits| max {scale:.4f}, "
+            f"relative {diff / scale:.3e} (rtol {DENSE_E2E_RTOL}); kernel "
+            f"launches {e2e['launches']}; finite {finite}")
+        if not (finite and diff <= DENSE_E2E_RTOL * scale
+                and e2e["launches"] == attn_layers(cfg)):
+            raise AssertionError(f"{cfg.name} paged-kernel logits disagree "
+                                 f"with the dense plain path")
+        b = len(e2e["lens"])
+        with torch.no_grad(), OpCount() as ops:
+            transformer.decode_step_paged(
+                params, cfg, e2e["next"], e2e["kv"].pages,
+                e2e["kv"].tables(), e2e["lens_dev"] + 1,
+                torch.ones(b, dtype=torch.bool, device="cuda"),
+                context=e2e["context"])
+        torch.cuda.synchronize()
+        log(f"{cfg.name} decode_step_paged dispatches {ops.total} ATen ops "
+            f"per step ({ops.total / cfg.n_layers:.1f} per layer) plus "
+            f"{attn_layers(cfg)} kernel launches through ctypes; most "
+            f"frequent: {ops.by_name.most_common(8)}")
+
+    def engines(cfg, params):
+        outs = engines_agree(torch, np, cfg, params, *ENCODER_F32,
+                             batched_static=True,
+                             context=contexts(cfg, 4, torch.float32,
+                                              equal=True))
+        same = outs["continuous"] == outs["static"] == outs["one_at_a_time"]
+        log(f"{cfg.name} f32 greedy, prompts {ENCODER_F32[0]}, equal "
+            f"context rows: continuous (paged kernel) == static == "
+            f"one-at-a-time {same}; {outs['continuous']}")
+        if not same:
+            raise AssertionError(f"{cfg.name} engines disagree: {outs}")
+
+    whisper = configs.get_config("whisper-large-v3")
+    with phase_clock(torch, "phase 21b whisper-large-v3 serve (32 + 32 "
+                     "layers)", card):
+        params = init_model(torch, np, whisper, seed=0, dtype=torch.bfloat16)
+        ctx = contexts(whisper, 8, torch.bfloat16)
+        enc = {}
+        with torch.no_grad():
+            for rows in (1, 8):
+                enc[rows], _ = cuda_ms(torch, lambda i: transformer
+                                       .encode_context(params, whisper,
+                                                       ctx[:rows]), iters=3)
+        log(f"whisper-large-v3 encoder alone (32 layers, 1500 frames, "
+            f"bf16): {enc[1]:.3f} ms for 1 row (the continuous engine's "
+            f"once a serve; each prefill encodes that row again), "
+            f"{enc[8]:.3f} ms for 8 rows (the static engine's batch) on "
+            f"{card}")
+        paged += serve_ragged(torch, np, whisper, params, card, kernels,
+                              ker_ms=timings[whisper.name]["ms"],
+                              context=ctx, **WHISPER_SERVE)["paged_decode"]
+        timings[whisper.name]["encoder_ms"] = {str(k): v
+                                               for k, v in enc.items()}
+        del params, ctx
+    free()
+
+    with phase_clock(torch, "phase 21c/e whisper-large-v3 f32 paged vs "
+                     "dense, engines", card):
+        params = init_model(torch, np, whisper, seed=1, dtype=torch.float32)
+        paged_vs_plain(whisper, params, contexts(whisper, 4, torch.float32))
+        engines(whisper, params)
+        del params
+    free()
+
+    vision = configs.get_config("llama-3.2-vision-11b")
+    with phase_clock(torch, "phase 21d llama-3.2-vision-11b serve (40 "
+                     "layers)", card):
+        params = init_model(torch, np, vision, seed=0, dtype=torch.bfloat16)
+        paged += serve_ragged(torch, np, vision, params, card, kernels,
+                              ker_ms=timings[vision.name]["ms"],
+                              context=contexts(vision, 8, torch.bfloat16))[
+            "paged_decode"]
+        del params
+    free()
+
+    with phase_clock(torch, "phase 21d/e llama-3.2-vision-11b f32 paged "
+                     "vs dense (40 layers), engines", card):
+        params = init_model(torch, np, vision, seed=1, dtype=torch.float32)
+        paged_vs_plain(vision, params, contexts(vision, 4, torch.float32))
+        engines(vision, params)
+        del params
+    free()
+
+    with phase_clock(torch, f"phase 21f whisper-large-v3 LM training "
+                     f"({WHISPER_LM_LAYERS} + {WHISPER_LM_ENC_LAYERS} "
+                     f"layers, {LM_NODES} nodes)", card):
+        lm = lm_phase(torch, np, card, arch=whisper.name,
+                      layers=WHISPER_LM_LAYERS, steps=WHISPER_LM_STEPS,
+                      seq_len=WHISPER_LM_SEQ,
+                      enc_layers=WHISPER_LM_ENC_LAYERS)
+        if lm["failures"]:
+            raise AssertionError(f"whisper training failed: "
+                                 f"{lm['failures']}")
+        gather = lm["launches"]
+        del lm
+    free()
+    return {"paged_decode": paged, "fixedk_gather_pack": gather}, timings
+
+
 def ptxas_entries(text: str):
     """{mangled kernel name: (registers, spill store bytes)} from an
     ``nvcc -Xptxas -v`` log."""
@@ -2309,30 +2520,16 @@ def kernel_resources(libs):
     return res
 
 
-def main() -> int:
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import configs
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attn.decode import (SplitPlan,
-                                                       _paged_decode_cuda,
-                                                       paged_attention,
-                                                       paged_attention_ref,
-                                                       split_plan)
+def path_kernels():
+    """Every kernel of the path: {name: (record, wrapper with a
+    ``.launches`` count)}."""
+    from repro_torch.kernels.flash_attn.decode import paged_attention
     from repro_torch.kernels.flash_attn.ops import flash_attention
     from repro_torch.kernels.sdm_update import sdm_update_planes
     from repro_torch.kernels.wire_compress import (fixedk_gather_pack,
                                                    qsgd_pack)
-    from repro_torch.models import transformer
 
-    # every kernel of the path: (record, wrapper with a .launches count)
-    kernels = {
+    return {
         "paged_decode": (dict(
             name="paged_decode", route="cuda",
             source="src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -2359,6 +2556,27 @@ def main() -> int:
             replaces="src/repro/kernels/flash_attn/flash_attn.py:78"),
             flash_attention),
     }
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn.decode import (SplitPlan,
+                                                       _paged_decode_cuda,
+                                                       paged_attention,
+                                                       paged_attention_ref,
+                                                       split_plan)
+    from repro_torch.models import transformer
+
+    kernels = path_kernels()
 
     # ---- 1. card and build ----------------------------------------------
     card = smi()
@@ -2593,6 +2811,14 @@ def main() -> int:
     moe_launches, timing["paged_decode"]["moe_recurrent_layouts"] = \
         moe_recurrent_phase(torch, np, card, kernels)
     for key, n in moe_launches.items():
+        launches[key] += n
+
+    # ---- 21. the encoder families ----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc_launches, timing["paged_decode"]["encoder_layouts"] = \
+        encoder_families_phase(torch, np, card, kernels)
+    for key, n in enc_launches.items():
         launches[key] += n
 
     # ---- results -----------------------------------------------------------

@@ -2,9 +2,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch whisper-large-v3 --dtype bfloat16 --requests 8
 
 Runs on CUDA by default, where decode attention goes through the paged
 flash-decode kernel; ``--device cpu`` runs the plain versions instead.
+The audio and vlm families get the JAX launcher's stub context: every
+row filled with 0.01, (max_batch, encoder_seq or n_image_tokens,
+d_model), in the model's dtype.
 Serve a trained decentralized checkpoint (the trainer's npz holds all n
 node replicas; they are consensus-averaged into one model at load):
 
@@ -81,8 +86,10 @@ def main(argv=None) -> None:
             prompt=rng.integers(0, cfg.vocab_size, size=plen).tolist(),
             max_new_tokens=args.max_new))
 
+    context = transformer.stub_context(cfg, args.max_batch, dtype,
+                                       engine.device)
     t0 = time.time()
-    engine.serve(reqs)
+    engine.serve(reqs, context=context)
     dt = time.time() - t0
     total_new = sum(len(r.output) for r in reqs)
     where = (torch.cuda.get_device_name(engine.device)

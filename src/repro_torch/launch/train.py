@@ -18,7 +18,9 @@ wire bits of each round:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
       --smoke --mesh 4 --steps 3 --sim straggler --device cpu
 
-Not ported: the audio / VLM families (no encoders yet); they raise.
+The audio and vlm families train on the JAX launcher's stub context
+(every row 0.01, in the parameter dtype); ``--sim`` takes text models
+only, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import time
 from typing import Callable, List, Optional
 
 __all__ = ["TrainRun", "train", "simulate_lm", "main"]
+
+SIM_TEXT_ONLY = "--sim supports text models only"
 
 
 @dataclasses.dataclass
@@ -45,12 +49,15 @@ def train(tc, transport, *, steps: int, global_batch: int, seq_len: int,
           seed: int = 0, state=None, on_step: Optional[Callable] = None
           ) -> TrainRun:
     """The launcher's step loop: ``steps`` steps of
-    ``make_distributed_train`` on the synthetic token stream. ``state``
-    defaults to ``init_distributed_state`` from ``seed``;
-    ``on_step(t, loss, seconds)`` is called after each step."""
+    ``make_distributed_train`` on the synthetic token stream, with the
+    JAX launcher's stub context (``transformer.stub_context``) for the
+    audio / vlm families, in the parameter dtype. ``state`` defaults to
+    ``init_distributed_state`` from ``seed``; ``on_step(t, loss,
+    seconds)`` is called after each step."""
     import torch
 
     from repro_torch.data import TokenStream
+    from repro_torch.models import transformer
     from repro_torch.train import steps as steps_mod
 
     cfg = tc.model
@@ -60,6 +67,8 @@ def train(tc, transport, *, steps: int, global_batch: int, seq_len: int,
     stream = TokenStream(vocab_size=cfg.vocab_size, batch=global_batch,
                          seq_len=seq_len, seed=seed)
     dev = transport.device
+    context = transformer.stub_context(cfg, global_batch, tc.param_dtype,
+                                       dev)
     losses, step_s = [], []
     for t in range(steps):
         tokens, labels = (torch.as_tensor(a, device=dev)
@@ -67,7 +76,7 @@ def train(tc, transport, *, steps: int, global_batch: int, seq_len: int,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        state, loss = step_fn(state, tokens, labels)
+        state, loss = step_fn(state, tokens, labels, context)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         step_s.append(time.perf_counter() - t0)
@@ -85,7 +94,7 @@ def simulate_lm(cfg, sdm_cfg, method: str, n_nodes: int, *, batch: int,
     the stacked reference executor, all ``n_nodes`` nodes on ``device``,
     f32 parameters (``params``, or ``transformer.init_params`` from
     ``seed``), each node's gradient by autograd one node at a time.
-    Returns the ``sim.SimResult``."""
+    Returns the ``sim.SimResult``. Text models only."""
     import torch
 
     from repro_torch import tree as tree_mod
@@ -95,6 +104,8 @@ def simulate_lm(cfg, sdm_cfg, method: str, n_nodes: int, *, batch: int,
     from repro_torch.sim import simulate
     from repro_torch.train.steps import node_grads
 
+    if cfg.family in ("audio", "vlm"):
+        raise ValueError(SIM_TEXT_ONLY)
     dev = resolve_device(device)
     per_node = max(batch // n_nodes, 1)
     stream = TokenStream(vocab_size=cfg.vocab_size, batch=n_nodes * per_node,
@@ -250,8 +261,6 @@ def main(argv=None) -> None:
     method_mod.get(meth_name)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    if cfg.family in ("audio", "vlm"):
-        raise SystemExit(f"{cfg.name}: {cfg.family} encoders are not ported")
     mesh = parse_mesh(args.mesh)
     n_nodes = mesh.n_nodes
     dev = resolve_device(args.device)
@@ -291,6 +300,8 @@ def main(argv=None) -> None:
           + f" device={where}", flush=True)
 
     if args.sim:
+        if cfg.family in ("audio", "vlm"):
+            raise SystemExit(SIM_TEXT_ONLY)
         if n_nodes < 2:
             raise SystemExit("--sim needs a >= 2-node mesh (e.g. --mesh 4)")
         _run_simulated(args, cfg, sdm_cfg, meth_name, n_nodes, batch, seq,

@@ -88,7 +88,10 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+def attention_specs(cfg: ModelConfig,
+                    cross: bool = False) -> Dict[str, ParamSpec]:
+    """A self-attention block's parameters; a cross-attention block
+    (``cross``) carries no QKV biases, even under ``cfg.qkv_bias``."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     specs = {
         "wq": ParamSpec((d, h * hd)),
@@ -97,7 +100,7 @@ def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         "wo": ParamSpec((h * hd, d)),
         "norm": ParamSpec((d,), "zeros" if cfg.post_block_norm else "ones"),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         specs["bq"] = ParamSpec((h * hd,), "zeros")
         specs["bk"] = ParamSpec((kv * hd,), "zeros")
         specs["bv"] = ParamSpec((kv * hd,), "zeros")
@@ -158,17 +161,22 @@ def _attend(q, k, v, *, chunk_q: Optional[int] = None, **kw) -> torch.Tensor:
 
 
 def _project_qkv(params: Dict[str, torch.Tensor], cfg: ModelConfig,
-                 x: torch.Tensor, *, positions: torch.Tensor):
+                 x: torch.Tensor, *, positions: torch.Tensor,
+                 kv_source: Optional[torch.Tensor] = None,
+                 use_rope: bool = True):
     """Shared pre-attention stage: norm, fused projections, head split,
     RoPE. Returns (residual, q, k, v) with q: (b, s, h, hd) and
-    k/v: (b, s, kv, hd)."""
+    k/v: (b, skv, kv, hd). Cross-attention (``kv_source``): k/v come
+    from the raw ``kv_source`` (not the normed x) and neither q nor k is
+    rotated; ``use_rope=False`` also skips RoPE (the encoder)."""
     residual = x
     h = rms_norm(x, params["norm"], cfg.norm_eps,
                  plus_one=cfg.post_block_norm)
+    kv_in = kv_source if kv_source is not None else h
     hd = cfg.resolved_head_dim
     q = h @ params["wq"]
-    k = h @ params["wk"]
-    v = h @ params["wv"]
+    k = kv_in @ params["wk"]
+    v = kv_in @ params["wv"]
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -176,7 +184,7 @@ def _project_qkv(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     q = q.reshape(*q.shape[:2], -1, hd)
     k = k.reshape(*k.shape[:2], -1, hd)
     v = v.reshape(*v.shape[:2], -1, hd)
-    if cfg.pos_embedding == "rope":
+    if use_rope and kv_source is None and cfg.pos_embedding == "rope":
         q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     return residual, q, k, v
@@ -199,21 +207,37 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                     cache: Optional[KVCache] = None,
                     cache_offset: Optional[int] = None,
                     cache_offsets: Optional[torch.Tensor] = None,
+                    kv_source: Optional[torch.Tensor] = None,
+                    causal: bool = True,
+                    use_rope: bool = True,
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Causal self-attention with an optional dense KV cache.
+    """Self- or cross-attention with an optional dense KV cache.
 
-    No cache: full-sequence attention. With ``cache`` + ``cache_offset``
-    (prefill / equal-length decode) this call's k/v are written at
-    ``cache_offset``; with ``cache_offsets`` (b,) (ragged decode, sq=1)
-    row i writes at its own offset and attends only its own
-    ``offsets[i]+1`` valid positions. The cache is written in place and
-    returned.
+    No cache: full-sequence attention, causal unless ``causal=False``
+    (the encoder, which also passes ``use_rope=False``). With ``cache`` +
+    ``cache_offset`` (prefill / equal-length decode) this call's k/v are
+    written at ``cache_offset``; with ``cache_offsets`` (b,) (ragged
+    decode, sq=1) row i writes at its own offset and attends only its
+    own ``offsets[i]+1`` valid positions. The cache is written in place
+    and returned. Cross-attention (``kv_source``: encoder or image
+    states (b, skv, d)): every query sees every key, nothing is cached,
+    and no cache comes back.
     """
-    residual, q, k, v = _project_qkv(params, cfg, x, positions=positions)
+    residual, q, k, v = _project_qkv(params, cfg, x, positions=positions,
+                                     kv_source=kv_source, use_rope=use_rope)
+    if kv_source is not None:
+        skv = k.shape[1]
+        kv_pos = torch.arange(skv, device=x.device).expand(x.shape[0], skv)
+        out = _attend(q, k, v, chunk_q=cfg.attn_chunk_q,
+                      q_positions=positions, kv_positions=kv_pos,
+                      causal=False, window=None,
+                      softcap_val=cfg.attn_softcap, kv_valid_len=None)
+        return _project_out(params, cfg, out, residual), None
     window = cfg.sliding_window if layer_kind == "attn_local" else None
     kw = dict(chunk_q=cfg.attn_chunk_q, q_positions=positions, causal=True,
               window=window, softcap_val=cfg.attn_softcap)
     if cache is None:
+        kw["causal"] = causal
         out = _attend(q, k, v, kv_positions=positions, kv_valid_len=None,
                       **kw)
         return _project_out(params, cfg, out, residual), None

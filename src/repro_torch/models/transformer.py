@@ -1,23 +1,31 @@
 """Model composition: embeddings + layer periods + heads.
 
-Port of ``repro.models.transformer`` for decoder LMs: attention, mamba
-and rwkv mixers with MLP, MoE and rwkv channel-mix feed-forwards (the
-dense, MoE, hybrid and ssm families). The parameter tree keeps the JAX
-layout -- ``embed``, ``final_norm``, ``blocks/<slot>/{attn,mamba,
-time_mix}/...`` and ``{mlp,moe,channel_mix}/...`` with every block leaf
-stacked over a leading ``n_periods`` axis -- so a JAX checkpoint carries
-over by renaming only (``repro_torch.convert``). A Python loop over
-periods replaces ``lax.scan``; ``cfg.remat`` recomputes each period in
+Port of ``repro.models.transformer``: attention, mamba and rwkv mixers
+with MLP, MoE and rwkv channel-mix feed-forwards (the dense, MoE, hybrid
+and ssm families), cross-attention sub-blocks, learned position
+embeddings and an encoder stack (the audio and vlm families). The
+parameter tree keeps the JAX layout -- ``embed``, ``final_norm``,
+``blocks/<slot>/{attn,mamba,time_mix}/...``, ``blocks/<slot>/cross/...``
+and ``{mlp,moe,channel_mix}/...`` with every block leaf stacked over a
+leading ``n_periods`` axis, ``pos_embed`` and ``encoder/{layers/{attn,
+mlp}/..., final_norm}`` with the encoder's leaves stacked over its
+layers -- so a JAX checkpoint carries over by renaming only
+(``repro_torch.convert``). A Python loop over periods replaces
+``lax.scan``; ``cfg.remat`` recomputes each period (not the encoder) in
 the backward pass (``torch.utils.checkpoint``, the counterpart of
 ``jax.checkpoint``: the same numbers, less memory).
+
+Context (whisper's 1500 frame embeddings, the VLM's image-patch
+embeddings; the modality frontends are stubs, as in the JAX package):
+``forward`` and ``prefill`` take it raw and encode it themselves
+(``encode_context``: whisper's non-causal encoder without positions,
+the identity for the VLM); ``decode_step`` and ``decode_step_paged``
+take it pre-encoded. Its dtype must be the weights'.
 
 Caches: attention slots keep a dense ``KVCache`` written in place;
 mamba / rwkv slots keep a ``MambaState`` / ``RWKVState`` stacked over
 the periods, which prefill and the dense decode step return anew and the
 paged decode step (``rec=``) writes in place.
-
-Not yet ported (they raise ``NotImplementedError``): cross-attention,
-encoders and learned position embeddings.
 """
 from __future__ import annotations
 
@@ -37,7 +45,8 @@ from repro_torch.models.layers import (KVCache, ParamSpec, attention_apply,
 
 __all__ = ["model_specs", "param_shapes", "flat_specs", "init_params",
            "forward", "lm_loss", "init_cache", "prefill", "decode_step",
-           "decode_step_paged", "Cache", "period_params"]
+           "decode_step_paged", "encode_context", "stub_context", "Cache",
+           "period_params"]
 
 Params = Dict[str, Any]
 
@@ -47,18 +56,6 @@ Params = Dict[str, Any]
 # --------------------------------------------------------------------------
 
 ATTN = ("attn", "attn_local")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    for spec in cfg.period:
-        if spec.cross_attn:
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention is not yet ported")
-    if cfg.has_encoder:
-        raise NotImplementedError(f"{cfg.name}: encoders are not yet ported")
-    if cfg.pos_embedding == "learned":
-        raise NotImplementedError(
-            f"{cfg.name}: learned position embeddings are not yet ported")
 
 
 def _slot_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
@@ -71,6 +68,8 @@ def _slot_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
         out["time_mix"] = rwkv_mod.rwkv_time_mix_specs(cfg)
     else:
         raise ValueError(spec.mixer)
+    if spec.cross_attn:
+        out["cross"] = attention_specs(cfg, cross=True)
     if spec.ffn == "mlp":
         out["mlp"] = mlp_specs(cfg)
     elif spec.ffn == "moe":
@@ -88,7 +87,6 @@ def _stack(specs: Dict[str, ParamSpec], n: int) -> Dict[str, ParamSpec]:
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_supported(cfg)
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.padded_vocab, d)),
@@ -101,6 +99,16 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, cfg.padded_vocab))
+    if cfg.pos_embedding == "learned":
+        specs["pos_embed"] = ParamSpec((cfg.max_position_embeddings, d),
+                                       scale=0.02)
+    if cfg.has_encoder:
+        specs["encoder"] = {
+            "layers": {"attn": _stack(attention_specs(cfg),
+                                      cfg.n_encoder_layers),
+                       "mlp": _stack(mlp_specs(cfg), cfg.n_encoder_layers)},
+            "final_norm": ParamSpec((d,), "ones"),
+        }
     return specs
 
 
@@ -144,10 +152,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     zeros, ones or halves (0.5). Drawn from a ``torch.Generator`` seeded
     with ``seed`` on the target device, so the values differ from JAX's
     for the same seed (tests carry JAX's tree over with
-    ``convert.params_from_jax``). A stacked leaf (``blocks/...``) is drawn
-    in f32 one period at a time and cast before the next draw, so no
-    leaf's whole f32 draw is ever held (qwen3-moe-30b-a3b's ``w_up``:
-    38.7 GB at 48 layers)."""
+    ``convert.params_from_jax``). A stacked leaf (``blocks/...``,
+    ``encoder/layers/...``) is drawn in f32 one period (encoder layer) at
+    a time and cast before the next draw, so no leaf's whole f32 draw is
+    ever held (qwen3-moe-30b-a3b's ``w_up``: 38.7 GB at 48 layers)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     flat = {}
@@ -162,7 +170,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
             std = s.scale / max(fan_in, 1) ** 0.5
             w = torch.empty(s.shape, dtype=dtype, device=dev)
-            for part in (w if key.startswith("blocks/") else w[None]):
+            stacked = key.startswith(("blocks/", "encoder/layers/"))
+            for part in (w if stacked else w[None]):
                 part.copy_(torch.randn(part.shape, generator=gen,
                                        device=dev).mul_(std))
             flat[key] = w
@@ -203,7 +212,6 @@ def _slot_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype, device) -> Cache:
-    _check_supported(cfg)
     dev = torch.device(device)
     return Cache(
         slots={str(i): _slot_cache(cfg, s, batch, max_len, dtype, dev)
@@ -244,12 +252,26 @@ def _ffn_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
     return x, None, state
 
 
+def _cross(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
+           positions: torch.Tensor, ctx: Optional[torch.Tensor]
+           ) -> torch.Tensor:
+    """A slot's cross-attention sub-block over the encoded context
+    ``ctx`` (after the mixer, before the feed-forward); skipped without
+    one, as in JAX."""
+    if spec.cross_attn and ctx is not None:
+        x, _ = attention_apply(sp["cross"], cfg, x, positions=positions,
+                               kv_source=ctx)
+    return x
+
+
 def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
-               positions: torch.Tensor, cache=None):
+               positions: torch.Tensor, cache=None,
+               ctx: Optional[torch.Tensor] = None):
     """One layer slot over a full sequence. ``cache``: an attention
     slot's ``KVCache`` to fill from position 0 (prefill), or an rwkv
-    slot's initial state (zeros when None). Returns (x, MoE aux or None,
-    the recurrent slot's final state or None)."""
+    slot's initial state (zeros when None); ``ctx``: the encoded context
+    of a cross-attention slot. Returns (x, MoE aux or None, the recurrent
+    slot's final state or None)."""
     state = None
     if spec.mixer in ATTN:
         if cache is None:
@@ -267,17 +289,20 @@ def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
             cache = rwkv_mod.init_rwkv_state(cfg, x.shape[0], x.dtype,
                                              x.device)
         x, state = rwkv_mod.rwkv_time_mix(sp["time_mix"], cfg, x, cache)
+    x = _cross(cfg, spec, sp, x, positions, ctx)
     return _ffn_full(cfg, spec, sp, x, state)
 
 
 def _slot_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
-               state):
-    """A recurrent slot (mamba / rwkv mixer, then its feed-forward) for
-    one token. Returns (x, the slot's new state)."""
+               state, positions: torch.Tensor, ctx: Optional[torch.Tensor]):
+    """A recurrent slot (mamba / rwkv mixer, its cross-attention, then
+    its feed-forward) for one token. Returns (x, the slot's new
+    state)."""
     if spec.mixer == "mamba":
         x, state = mamba_mod.mamba_decode_step(sp["mamba"], cfg, x, state)
     else:
         x, state = rwkv_mod.rwkv_time_mix_step(sp["time_mix"], cfg, x, state)
+    x = _cross(cfg, spec, sp, x, positions, ctx)
     return _ffn_step(cfg, spec, sp, x, state)
 
 
@@ -315,37 +340,99 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return softcap(x @ head, cfg.logit_softcap)
 
 
+def _check_context(params: Params, context: Optional[torch.Tensor]) -> None:
+    """A context must come in the weights' dtype: JAX promotes an f32
+    context against bf16 weights, a torch matmul raises, and the port
+    never casts silently."""
+    want = params["embed"].dtype
+    if context is not None and context.dtype != want:
+        raise ValueError(f"context dtype {context.dtype} != the weights' "
+                         f"{want}: pass the context in the weights' dtype")
+
+
+def stub_context(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                 device) -> Optional[torch.Tensor]:
+    """The launchers' context for the audio / vlm families, whose
+    frontends are stubs (as in the JAX package): (batch, encoder_seq or
+    n_image_tokens, d_model) filled with 0.01. None for a text model."""
+    if cfg.family not in ("audio", "vlm"):
+        return None
+    n = cfg.encoder_seq if cfg.family == "audio" else cfg.n_image_tokens
+    return torch.full((batch, n, cfg.d_model), 0.01, dtype=dtype,
+                      device=device)
+
+
+def encode_context(params: Params, cfg: ModelConfig,
+                   context: Optional[torch.Tensor]
+                   ) -> Optional[torch.Tensor]:
+    """Public: encode a context once for serving (see ``decode_step``)."""
+    return _encode_context(params, cfg, context)
+
+
+def _encode_context(params: Params, cfg: ModelConfig,
+                    context: Optional[torch.Tensor]
+                    ) -> Optional[torch.Tensor]:
+    """Whisper: the encoder stack (non-causal attention without
+    positions, then the MLP, each layer; then ``encoder/final_norm``)
+    over the stub frame embeddings (b, s, d). VLM: the stub patch
+    embeddings pass straight through."""
+    _check_context(params, context)
+    if context is None or not cfg.has_encoder:
+        return context
+    enc = params["encoder"]
+    b, s, _ = context.shape
+    positions = torch.arange(s, device=context.device).expand(b, s)
+    x = context
+    for i in range(cfg.n_encoder_layers):
+        layer = {name: {k: v[i] for k, v in sub.items()}
+                 for name, sub in enc["layers"].items()}
+        x, _ = attention_apply(layer["attn"], cfg, x, positions=positions,
+                               causal=False, use_rope=False)
+        x = mlp_apply(layer["mlp"], cfg, x)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _embed_prompt(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Token embeddings of a (b, s) prompt plus, with learned positions,
+    ``pos_embed[:s]``; and the positions (b, s)."""
+    b, s = tokens.shape
+    x = _embed_tokens(params, cfg, tokens)
+    if cfg.pos_embedding == "learned":
+        x = x + params["pos_embed"][:s][None]
+    return x, torch.arange(s, device=x.device).expand(b, s)
+
+
 def _period(params: Params, cfg: ModelConfig, i: int, x: torch.Tensor,
-            positions: torch.Tensor):
+            positions: torch.Tensor, ctx: Optional[torch.Tensor] = None):
     """Period ``i`` of the layer stack over a full sequence (no cache).
     Returns (x, the period's summed MoE aux or None without MoE)."""
     aux = None
     for si, spec in enumerate(cfg.period):
         sp = period_params(params, str(si), i)
-        x, a, _ = _slot_full(cfg, spec, sp, x, positions)
+        x, a, _ = _slot_full(cfg, spec, sp, x, positions, ctx=ctx)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            context: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward. tokens (b, s) -> (logits (b, s, V), aux loss):
     the MoE slots' load-balance losses summed over slots and periods (0
-    without MoE)."""
-    _check_supported(cfg)
-    b, s = tokens.shape
-    x = _embed_tokens(params, cfg, tokens)
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    without MoE). ``context``: the raw (b, s_ctx, d) context, encoded
+    here."""
+    x, positions = _embed_prompt(params, cfg, tokens)
+    ctx = _encode_context(params, cfg, context)
     auxs = []
     for i in range(cfg.n_periods):
         if cfg.remat and torch.is_grad_enabled():
             from torch.utils.checkpoint import checkpoint
 
-            x, aux = checkpoint(_period, params, cfg, i, x, positions,
+            x, aux = checkpoint(_period, params, cfg, i, x, positions, ctx,
                                 use_reentrant=False)
         else:
-            x, aux = _period(params, cfg, i, x, positions)
+            x, aux = _period(params, cfg, i, x, positions, ctx)
         if aux is not None:
             auxs.append(aux)
     total = (torch.sum(torch.stack(auxs)) if auxs
@@ -367,28 +454,30 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: Cache, *, last_index: Optional[torch.Tensor] = None
+            cache: Cache, *, context: Optional[torch.Tensor] = None,
+            last_index: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Process a prompt. Attention slots fill ``cache`` in place; the
     recurrent slots' final states come back in the returned cache.
     Returns (last-token logits (b, V), cache).
 
     ``cache`` must come from init_cache with max_len >= prompt + new.
+    ``context``: the raw context, encoded here (as ``forward``).
     ``last_index`` (b,) selects each row's OWN last real token for the
     returned logits (right-padded unequal-length prompts; causal masking
     keeps their hidden states exact -- recurrent models need equal
     lengths, their state would consume the padding).
     """
     b, s = tokens.shape
-    x = _embed_tokens(params, cfg, tokens)
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    x, positions = _embed_prompt(params, cfg, tokens)
+    ctx = _encode_context(params, cfg, context)
     states: Dict[str, List[Any]] = {}
     for i in range(cfg.n_periods):
         for si, spec in enumerate(cfg.period):
             key = str(si)
             sp = period_params(params, key, i)
             x, _, st = _slot_full(cfg, spec, sp, x, positions,
-                                  cache=_at(cache.slots[key], i))
+                                  cache=_at(cache.slots[key], i), ctx=ctx)
             if st is not None:
                 states.setdefault(key, []).append(st)
     if last_index is None:
@@ -400,15 +489,28 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                cache: Cache, *, offsets: torch.Tensor
+                cache: Cache, *, context: Optional[torch.Tensor] = None,
+                offsets: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One greedy-decode step over a dense cache. token: (b,) -> (logits
     (b, V), cache). Ragged: with ``offsets`` (b,) each row writes at its
-    own position, takes its own RoPE phase and attends only its own
-    valid prefix. Attention is the plain ``_sdpa`` (no kernel); the
-    recurrent slots' new states come back in the returned cache."""
+    own position, takes its own RoPE phase (or learned position) and
+    attends only its own valid prefix; without it every row shares the
+    scalar ``cache.offset``. ``context`` must be PRE-ENCODED
+    (``encode_context``). Attention is the plain ``_sdpa`` (no kernel);
+    the recurrent slots' new states come back in the returned cache."""
+    _check_context(params, context)
+    b = token.shape[0]
     x = _embed_tokens(params, cfg, token[:, None])
-    positions = offsets[:, None]
+    if offsets is not None:
+        positions = offsets[:, None]
+    else:
+        positions = torch.full((b, 1), cache.offset, device=x.device)
+    if cfg.pos_embedding == "learned":
+        if offsets is not None:
+            x = x + params["pos_embed"][offsets.long()][:, None]
+        else:
+            x = x + params["pos_embed"][cache.offset:cache.offset + 1][None]
     states: Dict[str, List[Any]] = {}
     for i in range(cfg.n_periods):
         for si, spec in enumerate(cfg.period):
@@ -419,10 +521,14 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                                        positions=positions,
                                        layer_kind=spec.mixer,
                                        cache=_at(cache.slots[key], i),
+                                       cache_offset=cache.offset,
                                        cache_offsets=offsets)
+                x = _cross(cfg, spec, sp, x, positions, context)
                 x, _ = _ffn_step(cfg, spec, sp, x, None)
             else:
-                x, st = _slot_step(cfg, spec, sp, x, _at(cache.slots[key], i))
+                x, st = _slot_step(cfg, spec, sp, x,
+                                   _at(cache.slots[key], i), positions,
+                                   context)
                 states.setdefault(key, []).append(st)
     logits = _logits(params, cfg, x)
     return logits[:, 0, :], _with_states(cache, states, cache.offset + 1)
@@ -432,7 +538,8 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
                       pages: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
                       block_tables: torch.Tensor, offsets: torch.Tensor,
                       write_enabled: torch.Tensor, *,
-                      rec: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+                      rec: Optional[Dict[str, Any]] = None,
+                      context: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step over a PAGED KV cache (continuous-batching engine).
 
     ``pages``: {period-slot -> (k_pages, v_pages)}, each (n_periods,
@@ -443,10 +550,17 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
     advanced IN PLACE for every row, emitting or not, as in the JAX
     engine. ``block_tables`` (b, n_blocks) and ``offsets`` (b,) int32 are
     per request slot; ``write_enabled`` (b,) bool sends finished / empty
-    rows' KV writes to the trash page. Returns logits (b, V). Every
-    attention layer calls ``paged_attention`` once: the kernel on CUDA.
+    rows' KV writes to the trash page. ``context``: PRE-ENCODED, one row
+    per slot (cross-attention keys / values are recomputed from it every
+    step; nothing is cached). Returns logits (b, V). Every attention
+    layer calls ``paged_attention`` once: the kernel on CUDA.
     """
+    _check_context(params, context)
     x = _embed_tokens(params, cfg, token[:, None])
+    # the cross sub-blocks' query positions (a decoder-only step makes none)
+    positions = None if context is None else offsets[:, None]
+    if cfg.pos_embedding == "learned":
+        x = x + params["pos_embed"][offsets.long()][:, None]
     for i in range(cfg.n_periods):
         for si, spec in enumerate(cfg.period):
             key = str(si)
@@ -457,9 +571,11 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
                     sp["attn"], cfg, x, pages=(kp[i], vp[i]),
                     block_table=block_tables, offsets=offsets,
                     write_enabled=write_enabled, layer_kind=spec.mixer)
+                x = _cross(cfg, spec, sp, x, positions, context)
                 x, _ = _ffn_step(cfg, spec, sp, x, None)
             else:
-                x, st = _slot_step(cfg, spec, sp, x, _at(rec[key], i))
+                x, st = _slot_step(cfg, spec, sp, x, _at(rec[key], i),
+                                   positions, context)
                 for dst, src in zip(rec[key], st):
                     dst[i].copy_(src)
     return _logits(params, cfg, x)[:, 0, :]

@@ -1,7 +1,8 @@
 """Serving engines: continuous batching (default) + static batch baseline.
 
-Port of ``repro.serving.engine`` for decoder LMs: attention-only models
-and those with recurrent (mamba / rwkv) mixers.
+Port of ``repro.serving.engine``: attention-only models, those with
+recurrent (mamba / rwkv) mixers, and those that cross-attend to a
+context (whisper's audio frames, the VLM's image patches).
 
 ``ServingEngine`` is a slot-based continuous-batching scheduler over the
 paged KV cache (``kv_cache.py``): finished requests free their slot and
@@ -24,6 +25,15 @@ prefills them at the exact prompt length (not a power-of-two bucket) and
 the static engine groups them into equal-prompt-length batches. Their
 states sit beside the page pools, one row per slot, and advance every
 step for every row, as in the JAX engine.
+
+``serve(requests, context)`` keeps the JAX engines' context rows: the
+continuous engine encodes ``context[:1]`` once a serve and gives that one
+row to every slot; the static engine encodes ``context[:b]`` for each
+batch of b, rows 0..b-1 whatever the batch. Both hand the ENCODED
+context to ``prefill``, which encodes it again (the JAX engines do the
+same: whisper's first token comes from a doubly encoded context, its
+decode steps from a singly encoded one; the VLM's encode is the
+identity). The context's dtype must be the weights'.
 """
 from __future__ import annotations
 
@@ -114,7 +124,6 @@ class ServingEngine:
                  device="cuda"):
         self.device = resolve_device(device)
         _check_params(params, self.device)
-        transformer.model_specs(cfg)   # raises on layers not yet ported
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
@@ -134,11 +143,11 @@ class ServingEngine:
 
     @torch.no_grad()
     def _step(self, st: _DecodeState, kv: PagedKVCache,
-              tables: torch.Tensor) -> None:
+              tables: torch.Tensor, ctx: Optional[torch.Tensor]) -> None:
         emit = st.active & ~st.done
         logits = transformer.decode_step_paged(
             self.params, self.cfg, st.last_tok, kv.pages, tables,
-            st.offsets, emit, rec=st.rec)
+            st.offsets, emit, rec=st.rec, context=ctx)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         rows = torch.arange(st.out_buf.shape[0], device=self.device)
         idx = torch.clamp(st.n_out, 0, st.out_buf.shape[1] - 1)
@@ -151,15 +160,24 @@ class ServingEngine:
 
     # ---------------- serve ----------------
 
-    def serve(self, requests: List[Request]) -> List[Request]:
+    def serve(self, requests: List[Request],
+              context: Optional[torch.Tensor] = None) -> List[Request]:
         """Serve all requests with continuous batching; returns them with
-        ``output`` (and timing fields) filled, in the original order."""
+        ``output`` (and timing fields) filled, in the original order.
+        ``context`` (n, s, d): row 0 is every request's, as in JAX."""
         if not requests:
             return requests
         t0 = time.monotonic()
         stats = ServeStats()
         B = self.max_batch
         max_out = max(r.max_new_tokens for r in requests)
+
+        ctx1 = ctx_b = None
+        if context is not None:
+            with torch.no_grad():
+                ctx1 = transformer.encode_context(
+                    self.params, self.cfg, context[:1].to(self.device))
+            ctx_b = ctx1.expand((B,) + tuple(ctx1.shape[1:]))
 
         kv = PagedKVCache(self.cfg, max_batch=B, max_seq=self.max_seq,
                           page_size=self.page_size, n_pages=self.n_pages,
@@ -192,7 +210,7 @@ class ServingEngine:
                 req = queue.popleft()
                 slot = free.pop()
                 kv.alloc(slot, len(req.prompt) + req.max_new_tokens)
-                self._prefill_into(st, kv, slot, req)
+                self._prefill_into(st, kv, slot, req, ctx1)
                 live[slot] = req
                 req.ttft_s = time.monotonic() - submit[id(req)]
                 stats.ttft_s.append(req.ttft_s)
@@ -208,7 +226,7 @@ class ServingEngine:
             if not done_np.any():
                 emit_n = int((st.active & ~st.done).sum())
                 ts = time.monotonic()
-                self._step(st, kv, kv.tables())
+                self._step(st, kv, kv.tables(), ctx_b)
                 stats.decode_steps += 1
                 # the one host poll per step; it waits for the step
                 done_np = (st.done & st.active).cpu().numpy()
@@ -235,7 +253,7 @@ class ServingEngine:
 
     @torch.no_grad()
     def _prefill_into(self, st: _DecodeState, kv: PagedKVCache, slot: int,
-                      req: Request) -> None:
+                      req: Request, ctx1: Optional[torch.Tensor]) -> None:
         L = len(req.prompt)
         if L < 1:
             raise ValueError("empty prompt")
@@ -249,9 +267,12 @@ class ServingEngine:
         toks[0, :L] = req.prompt
         cache = transformer.init_cache(self.cfg, 1, Lp, self.dtype,
                                        self.device)
+        # ctx1 is already encoded and prefill encodes it again, as the
+        # JAX engine does
         logits, cache = transformer.prefill(
             self.params, self.cfg, torch.as_tensor(toks, device=self.device),
-            cache, last_index=torch.tensor([L - 1], device=self.device))
+            cache, context=ctx1,
+            last_index=torch.tensor([L - 1], device=self.device))
         first = int(torch.argmax(logits, dim=-1)[0])
         kv.write_prompt(slot, {si: (cache.slots[si].k, cache.slots[si].v)
                                for si in self._attn_slots}, L)
@@ -286,7 +307,6 @@ class StaticServingEngine:
                  device="cuda"):
         self.device = resolve_device(device)
         _check_params(params, self.device)
-        transformer.model_specs(cfg)   # raises on layers not yet ported
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
@@ -295,9 +315,12 @@ class StaticServingEngine:
         self.recurrent = _is_recurrent(cfg)
         self.last_stats: Optional[ServeStats] = None
 
-    def serve(self, requests: List[Request]) -> List[Request]:
+    def serve(self, requests: List[Request],
+              context: Optional[torch.Tensor] = None) -> List[Request]:
         """Serve requests in static batches of max_batch (recurrent-mixer
-        models additionally split into equal-prompt-length groups)."""
+        models additionally split into equal-prompt-length groups).
+        ``context`` (n, s, d): a batch of b takes rows 0..b-1, as in
+        JAX."""
         t0 = time.monotonic()
         stats = ServeStats()
         if self.recurrent:
@@ -309,14 +332,16 @@ class StaticServingEngine:
             groups = [requests]
         for group in groups:
             for i in range(0, len(group), self.max_batch):
-                self._serve_batch(group[i:i + self.max_batch], t0, stats)
+                self._serve_batch(group[i:i + self.max_batch], context,
+                                  t0, stats)
         stats.tokens = sum(len(r.output) for r in requests)
         stats.wall_s = time.monotonic() - t0
         self.last_stats = stats
         return requests
 
     @torch.no_grad()
-    def _serve_batch(self, batch: List[Request], t0: float,
+    def _serve_batch(self, batch: List[Request],
+                     context: Optional[torch.Tensor], t0: float,
                      stats: ServeStats) -> None:
         b = len(batch)
         # right-pad prompts to the longest; each row's first token reads
@@ -333,11 +358,18 @@ class StaticServingEngine:
                              f"max_seq {self.max_seq}")
 
         dev = self.device
+        ctx = None
+        if context is not None:
+            ctx = transformer.encode_context(self.params, self.cfg,
+                                             context[:b].to(dev))
         cache = transformer.init_cache(self.cfg, b, self.max_seq, self.dtype,
                                        dev)
+        # ctx is already encoded and prefill encodes it again, as the JAX
+        # engine does
         logits, cache = transformer.prefill(
             self.params, self.cfg, torch.as_tensor(prompts, device=dev),
-            cache, last_index=torch.as_tensor(lens - 1, device=dev))
+            cache, context=ctx,
+            last_index=torch.as_tensor(lens - 1, device=dev))
         next_tok = torch.argmax(logits, dim=-1).cpu()
         ttft = time.monotonic() - t0
         stats.prefills += 1
@@ -361,7 +393,7 @@ class StaticServingEngine:
                 break
             ts = time.monotonic()
             logits, cache = transformer.decode_step(
-                self.params, self.cfg, next_tok.to(dev), cache,
+                self.params, self.cfg, next_tok.to(dev), cache, context=ctx,
                 offsets=offsets)
             offsets = offsets + 1
             next_tok = torch.argmax(logits, dim=-1).cpu()

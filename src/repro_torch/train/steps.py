@@ -104,10 +104,11 @@ def node_batch(x: torch.Tensor, transport) -> torch.Tensor:
 
 
 def node_grads(cfg: ModelConfig, x_block: PyTree, tokens: torch.Tensor,
-               labels: torch.Tensor):
+               labels: torch.Tensor, context: Optional[torch.Tensor] = None):
     """Each node's LM gradient at its own params, one node at a time
     (only one node's activations are alive at once). ``x_block`` leaves
-    are (L, ...), ``tokens`` / ``labels`` (L, b, s). Returns (grads
+    are (L, ...), ``tokens`` / ``labels`` (L, b, s), ``context`` (the
+    audio / vlm families' raw context) (L, b, s_ctx, d). Returns (grads
     block, (L,) f32 losses)."""
     leaves, struct = tree_mod.flatten(x_block)
     grads = [torch.empty_like(v) for v in leaves]
@@ -116,7 +117,8 @@ def node_grads(cfg: ModelConfig, x_block: PyTree, tokens: torch.Tensor,
     for i in range(len(tokens)):
         mine = [v[i].detach().requires_grad_(True) for v in leaves]
         logits, aux = transformer.forward(
-            tree_mod.unflatten(struct, mine), cfg, tokens[i])
+            tree_mod.unflatten(struct, mine), cfg, tokens[i],
+            context=None if context is None else context[i])
         loss = transformer.lm_loss(logits, labels[i], cfg.vocab_size, aux)
         del logits
         for g_out, g in zip(grads, torch.autograd.grad(loss, mine)):
@@ -128,11 +130,14 @@ def node_grads(cfg: ModelConfig, x_block: PyTree, tokens: torch.Tensor,
 def make_distributed_train(tc: DistributedTrainConfig, transport,
                            base_key: Optional[torch.Tensor] = None
                            ) -> Callable:
-    """Returns ``train_step(state, tokens, labels) -> (state, loss)``.
+    """Returns ``train_step(state, tokens, labels, context=None) ->
+    (state, loss)``.
 
     ``tokens`` / ``labels`` are the global (b, s) batch on the block's
-    device; ``loss`` is the mean of the nodes' losses over all n nodes
-    (a 0-d tensor, the JAX package's ``pmean``).
+    device, ``context`` the audio / vlm families' global (b, s_ctx, d)
+    context, split over the nodes as the batch is; ``loss`` is the mean
+    of the nodes' losses over all n nodes (a 0-d tensor, the JAX
+    package's ``pmean``).
     """
     cfg = tc.model
     meth, mcfg = tc.resolved()
@@ -141,19 +146,18 @@ def make_distributed_train(tc: DistributedTrainConfig, transport,
         raise ValueError(
             f"overlap=True needs a static topology; {tc.topology!r} "
             f"compiles to a replica (time-varying) schedule")
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} encoders are not yet ported")
     executor = meth.make_distributed(seq, mcfg, transport)
     if base_key is None:
         base_key = prng.PRNGKey(0)
     base_key = prng.key_data(base_key).to(transport.device)
 
-    def train_step(state, tokens, labels):
+    def train_step(state, tokens, labels, context=None):
         tok = node_batch(tokens, transport)
         lab = node_batch(labels, transport)
+        ctx = None if context is None else node_batch(context, transport)
         state, losses = executor.step(
-            state, lambda x: node_grads(cfg, x, tok, lab), base_key=base_key)
+            state, lambda x: node_grads(cfg, x, tok, lab, ctx),
+            base_key=base_key)
         return state, transport.pmean(losses)[0]
 
     return train_step

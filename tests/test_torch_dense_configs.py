@@ -35,7 +35,8 @@ ARCHS = ["phi3-medium-14b", "chatglm3-6b", "qwen1.5-32b"]
 # the MoE and recurrent arches (tests/test_torch_moe_recurrent.py)
 MOE_RECURRENT = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b",
                  "jamba-v0.1-52b", "rwkv6-3b"]
-UNPORTED = ["whisper-large-v3", "llama-3.2-vision-11b"]
+# the encoder families (tests/test_torch_encoder_families.py)
+ENCODER = ["whisper-large-v3", "llama-3.2-vision-11b"]
 LOGIT_ATOL = 1e-4     # tests/test_torch_serving.py's JAX-derived bounds
 ACT_ATOL = 2e-5
 
@@ -122,18 +123,25 @@ def test_full_configs_match_assignment():
 
 def test_all_configs_covers_exactly_the_ported_arches():
     got = configs.all_configs()
-    assert sorted(got) == sorted(ARCHS + MOE_RECURRENT + ["gemma2-2b"]) \
-        == sorted(configs.ALIASES)
+    assert sorted(got) == sorted(ARCHS + MOE_RECURRENT + ENCODER
+                                 + ["gemma2-2b"]) \
+        == sorted(configs.ALIASES) == sorted(jax_configs.ALIASES)
     for arch, cfg in got.items():
         assert _fields(cfg) == _fields(jax_configs.get_config(arch))
-    assert not set(got) & set(configs.NOT_YET_PORTED)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
+@pytest.mark.parametrize("arch", ENCODER)
 def test_other_arches_still_raise_not_yet_ported(arch):
-    for get in (configs.get_config, configs.get_smoke_config):
-        with pytest.raises(KeyError, match="not yet ported"):
-            get(arch)
+    """Nothing raises any more: every architecture the JAX package
+    registers resolves in the port, by public id and by module name, to
+    the JAX config field for field."""
+    assert sorted(configs.ALIASES) == sorted(jax_configs.ALIASES)
+    assert sorted(configs.ARCH_IDS) == sorted(jax_configs.ARCH_IDS)
+    for get, jget in [(configs.get_config, jax_configs.get_config),
+                      (configs.get_smoke_config,
+                       jax_configs.get_smoke_config)]:
+        for name in (arch, configs.ALIASES[arch]):
+            assert _fields(get(name)) == _fields(jget(name))
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,14 @@ PAGED_CASES = {
     # jamba-v0.1-52b: 32 query heads over 8 KV heads, dh 128, no RoPE
     "jamba": dict(b=2, kvh=8, group=4, dh=128, page=16, n_blocks=3,
                   seq_lens=[40, 17]),
+    # whisper-large-v3's decoder: MHA, 20 KV heads (not a power of two),
+    # one query head each, dh 64
+    "whisper": dict(b=3, kvh=20, group=1, dh=64, page=16, n_blocks=3,
+                    seq_lens=[0, 17, 48]),
+    # llama-3.2-vision-11b's self-attention: jamba's layout (32 query
+    # heads over 8 KV heads, dh 128) with RoPE
+    "llama_vision": dict(b=3, kvh=8, group=4, dh=128, page=16, n_blocks=3,
+                         seq_lens=[33, 1, 0]),
 }
 
 # f32: the JAX package's flash-vs-oracle tolerance. bf16: both sides
@@ -131,6 +139,18 @@ def split_cases():
          [0, 64, 65, 16 * n // 3, 8 * n, 16 * n - 8, 16 * n - 1, 16 * n],
          None)
         for case in ("granite_moe", "qwen3_moe", "jamba") for n in (17, 66)
+    ] + [
+        # the encoder families at the tables they are served with: whisper
+        # (8 rows x kvh 20 = 160 blocks, so it splits) at 18 blocks
+        # (prompts <= 224 + 64 new: P 16 / S 2) and at 66 (P 64 / S 2);
+        # llama-3.2-vision at phase 3's 66 (P 16 / S 5)
+        (f"{case}_{n}_blocks", dict(b=8, n_blocks=n, **{
+            k: PAGED_CASES[case][k] for k in ("kvh", "group", "dh", "page")}),
+         lens, None)
+        for case, n, lens in (
+            ("whisper", 18, [0, 1, 16, 17, 100, 224, 287, 288]),
+            ("whisper", 66, [0, 64, 65, 700, 1023, 1024, 1025, 1056]),
+            ("llama_vision", 66, [1056, 0, 1, 255, 256, 257, 800, 1040]))
     ]
 
 

@@ -81,11 +81,27 @@ def test_configs_match_jax_and_registry_refuses_unported():
         assert [(s.mixer, s.ffn, s.cross_attn) for s in a.period] == \
             [(s.mixer, s.ffn, s.cross_attn) for s in b.period]
         assert a.param_count() == b.param_count()
-    for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            configs.get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("no-such-model")
+
+
+def _tiny_pair(period=None, **kw):
+    """(port cfg, JAX cfg, JAX params, port params) of a 2-layer model
+    (d_model 32) built alike in both packages."""
+    from repro.models.config import LayerSpec as JaxLayerSpec
+    from repro.models.config import ModelConfig as JaxModelConfig
+
+    base = dict(name="x", family="dense", n_layers=2, d_model=32, n_heads=2,
+                n_kv_heads=1, d_ff=64, vocab_size=64, n_experts=4, top_k=2,
+                d_ff_expert=16, **kw)
+    period = period or (LayerSpec(),)
+    jperiod = tuple(JaxLayerSpec(mixer=p.mixer, ffn=p.ffn,
+                                 cross_attn=p.cross_attn) for p in period)
+    cfg = ModelConfig(period=period, **base)
+    jcfg = JaxModelConfig(period=jperiod, **base)
+    jparams = jax_tf.init_params(jax.random.PRNGKey(0), jcfg)
+    return cfg, jcfg, jparams, params_from_jax(_flat(jparams), cfg,
+                                               device="cpu")
 
 
 @pytest.mark.parametrize("period", [
@@ -93,22 +109,43 @@ def test_configs_match_jax_and_registry_refuses_unported():
     (LayerSpec(ffn="moe", cross_attn=True),),
     (LayerSpec(cross_attn=True),)])
 def test_unported_layers_raise(period):
-    """Cross-attention is refused beside any mixer or feed-forward."""
-    cfg = ModelConfig(name="x", family="dense", n_layers=2, d_model=32,
-                      n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64,
-                      period=period)
-    with pytest.raises(NotImplementedError):
-        transformer.init_params(cfg, device="cpu")
+    """Cross-attention beside any mixer or feed-forward (refused before
+    it was ported) now matches JAX: forward logits over a seeded random
+    context, and the context really enters them."""
+    cfg, jcfg, jparams, params = _tiny_pair(period)
+    assert "cross" in params["blocks"]["0"]
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, 64, (2, 7)).astype(np.int32)
+    ctx = rng.normal(size=(2, 6, 32)).astype(np.float32)
+    logits, _ = transformer.forward(params, cfg, _t(tokens), context=_t(ctx))
+    jlogits, _ = jax_tf.forward(jparams, jcfg, jnp.asarray(tokens),
+                                context=jnp.asarray(ctx))
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               atol=LOGIT_ATOL)
+    alone, _ = transformer.forward(params, cfg, _t(tokens))
+    assert (alone - logits).abs().max() > 1e-3
 
 
 @pytest.mark.parametrize("kw", [dict(pos_embedding="learned"),
                                 dict(n_encoder_layers=2)],
                          ids=["learned_positions", "encoder"])
 def test_unported_model_features_raise(kw):
-    cfg = ModelConfig(name="x", family="dense", n_layers=2, d_model=32,
-                      n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64, **kw)
-    with pytest.raises(NotImplementedError):
-        transformer.init_params(cfg, device="cpu")
+    """Learned positions and an encoder stack (refused before they were
+    ported) now match JAX: forward logits, and the encoder's output over
+    a seeded random context."""
+    cfg, jcfg, jparams, params = _tiny_pair(**kw)
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, 64, (2, 9)).astype(np.int32)
+    logits, _ = transformer.forward(params, cfg, _t(tokens))
+    jlogits, _ = jax_tf.forward(jparams, jcfg, jnp.asarray(tokens))
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               atol=LOGIT_ATOL)
+    ctx = rng.normal(size=(2, 5, 32)).astype(np.float32)
+    enc = transformer.encode_context(params, cfg, _t(ctx))
+    jenc = jax_tf.encode_context(jparams, jcfg, jnp.asarray(ctx))
+    np.testing.assert_allclose(enc.numpy(), np.asarray(jenc), atol=ACT_ATOL)
+    assert ("pos_embed" in params) == (cfg.pos_embedding == "learned")
+    assert ("encoder" in params) == cfg.has_encoder
 
 
 @pytest.mark.parametrize("period", [
