@@ -109,6 +109,21 @@ Phases (any failure exits non-zero):
      its f32 paged step against plain; for both in f32 on equal context
      rows, continuous == static == one-at-a-time; whisper at 4 + 4
      layers trains 3 steps on 2 nodes (fixedk:128, seq 448).
+  22. the executor's and the library's leftovers: phase 10's LM cell
+     with ``--overlap`` through ``launch.train.train``, the exchange on
+     the transport's side stream in flight from each step to the next,
+     against the same run with the exchange waited on inside each step
+     (losses and parameters ``torch.equal``; one exchange pending after
+     each step, none at the end; step ms on the compute stream; a
+     profile of two more steps: busy share, the side stream's ms and
+     the part of it under compute-stream work; the exchange alone); that
+     state through ``save_checkpoint`` / ``restore_checkpoint`` (every
+     leaf ``torch.equal``, bf16 kept); the ring helpers
+     (``ring_exchange_packed_rows``, ``ring_exchange_packed``) over the
+     LM's plane on 4 nodes, one gather-pack launch each, each output
+     ``torch.equal`` to the helper with the gather routed to its plain
+     version, timed against the byte bound; ``adamw`` and ``momentum``
+     over the LM's f32 parameter tree for 3 steps against a CPU run.
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -2465,6 +2480,444 @@ def encoder_families_phase(torch, np, card, kernels):
     return {"paged_decode": paged, "fixedk_gather_pack": gather}, timings
 
 
+# ---- slice 10: the exchange left in flight, the ring helpers, the
+# optimizers and checkpoint restore (phase 22) --------------------------------
+
+# the ring helpers over the LM slice's plane, this many nodes and p
+RING_NODES, RING_P, RING_W = 4, 0.2, 1.0 / 3.0
+OPT_STEPS = 3
+# the optimizers' card run against their plain CPU run (relative)
+OPT_RTOL = 1e-6
+# both optimizers are elementwise, so the CPU run takes this many leading
+# elements of each leaf and is held to the same slice of the card's run
+OPT_CPU_ELEMS = 1 << 20
+
+
+@contextlib.contextmanager
+def plain_gather_pack():
+    """The gossip helpers' gather-pack routed to its plain version, on
+    any device: what the kernel is held against."""
+    from repro_torch.kernels import wire_compress
+
+    kernel = wire_compress.fixedk_gather_pack
+    wire_compress.fixedk_gather_pack = wire_compress.fixedk_gather_pack_ref
+    try:
+        yield
+    finally:
+        wire_compress.fixedk_gather_pack = kernel
+
+
+def memo_token_batches():
+    """Memoize ``TokenStream.batch_at`` for this process: a pure function
+    of the stream's fields and the step that costs ~7 s of host time a
+    batch at vocab 256000 (512 sequential Gumbel draws over the vocab).
+    Phases 10, 17 and 22 train on the same (vocab, 4, 512, seed 0)
+    stream; each batch is made once."""
+    from repro_torch.data.synthetic import TokenStream
+
+    made = {}
+    batch_at = TokenStream.batch_at
+
+    def cached(self, step):
+        key = (self.vocab_size, self.batch, self.seq_len, self.seed, step)
+        if key not in made:
+            made[key] = batch_at(self, step)
+        return tuple(a.copy() for a in made[key])
+
+    TokenStream.batch_at = cached
+
+
+@contextlib.contextmanager
+def exchange_waited_each_step():
+    """``make_distributed_train``'s step with the exchange it leaves in
+    flight waited on before the step returns (``transport.settle``): the
+    in-order run that the in-flight one is held to."""
+    from repro_torch.core.transport import settle
+    from repro_torch.train import steps as steps_mod
+
+    make = steps_mod.make_distributed_train
+
+    def make_waited(tc, transport):
+        fn = make(tc, transport)
+
+        def step(state, *args):
+            state, loss = fn(state, *args)
+            return settle(state), loss
+        return step
+
+    steps_mod.make_distributed_train = make_waited
+    try:
+        yield
+    finally:
+        steps_mod.make_distributed_train = make
+
+
+def _merged(spans):
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(spans) -> int:
+    return sum(b - a for a, b in spans)
+
+
+def _overlap(xs, ys) -> int:
+    """The length both merged span lists cover."""
+    i = j = total = 0
+    while i < len(xs) and j < len(ys):
+        total += max(0, min(xs[i][1], ys[j][1]) - max(xs[i][0], ys[j][0]))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def profile_streams(torch, fn):
+    """One ``fn()`` call under ``torch.profiler``, the card synchronised
+    after it: {wall, busy (any stream), compute (the stream busiest on
+    the device), side (every other stream), hidden (side work that ran
+    while the compute stream was busy too)}, all in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    streams = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0:
+            streams.setdefault(e.device_resource_id(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    if not streams:
+        raise AssertionError("the profiler saw no device work")
+    main = max(streams, key=lambda k: _covered(_merged(streams[k])))
+    compute = _merged(streams[main])
+    side = _merged([sp for k, v in streams.items() if k != main
+                    for sp in v])
+    every = _merged([sp for v in streams.values() for sp in v])
+    return dict(wall=wall, busy=_covered(every) / 1e6,
+                compute=_covered(compute) / 1e6, side=_covered(side) / 1e6,
+                hidden=_overlap(side, compute) / 1e6,
+                streams=len(streams))
+
+
+def overlap_run(torch, np, card, tc, waited: bool, dev="cuda"):
+    """Phase 22a, one run: the LM cell through ``launch.train.train`` with
+    ``--overlap``, each step's exchange left in flight on the transport's
+    side stream until the next step folds it in, or waited on inside its
+    own step (``waited``). Returns the run, its transport, its gather-
+    pack launches, the exchanges pending after each step and whether the
+    side stream still had work queued then."""
+    from repro_torch.core.transport import StackTransport
+    from repro_torch.kernels.wire_compress import fixedk_gather_pack
+    from repro_torch.launch.train import train
+    from repro_torch.train import steps as steps_mod
+
+    label = "waited inside each step" if waited else "in flight"
+    transport = StackTransport(LM_NODES, dev)
+    flights, side_busy = [], []
+
+    def on_step(t, loss, sec):
+        flights.append(transport.outstanding)
+        side_busy.append(not transport.side_stream.query())
+
+    n0 = fixedk_gather_pack.launches
+    with phase_clock(torch, f"phase 22a {tc.model.name} --overlap, exchange "
+                     f"{label} (state made, {LM_STEPS} steps)", card), \
+            (exchange_waited_each_step() if waited
+             else contextlib.nullcontext()):
+        state = steps_mod.init_distributed_state(tc, transport, seed=0)
+        run = train(tc, transport, steps=LM_STEPS,
+                    global_batch=LM_NODES * LM_BATCH, seq_len=LM_SEQ, seed=0,
+                    state=state, on_step=on_step)
+    return (run, transport, fixedk_gather_pack.launches - n0, flights,
+            side_busy)
+
+
+def overlap_library_phase(torch, np, card, dev="cuda"):
+    """Phase 22. (a) The LM cell (gemma2-2b at full width, 4 layers, 2
+    nodes, ring, fixedk:128, seq 512) with ``--overlap`` through the
+    launcher: the exchange left in flight from each step to the next, then
+    waited on inside each step; losses and final parameters
+    ``torch.equal``; step ms, busy share, the exchange alone. (b) The ring
+    helpers over the LM's plane on a ring of RING_NODES nodes: the gather-
+    pack kernel launches, each output ``torch.equal`` to the plain version
+    on the card, the helper's ms against its byte bound. (c) adamw and
+    momentum over the LM's parameter tree for OPT_STEPS steps against the
+    plain CPU run. (d) (a)'s state through ``save_checkpoint`` and
+    ``restore_checkpoint``. Returns (gather-pack launches on the phase's
+    paths, timing extras for the kernels line)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import configs, prng, tree as tree_mod
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core import SDMConfig, gossip, sparsifier
+    from repro_torch.core.transport import StackTransport, settle
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.wire_compress import fixedk_gather_pack
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw, cosine_schedule, momentum
+    from repro_torch.train import steps as steps_mod
+
+    dev = torch.device(dev)
+    failures, launches, extra = [], 0, {}
+    cfg = dataclasses.replace(configs.get_config("gemma2-2b"),
+                              n_layers=LM_LAYERS)
+    tc = steps_mod.DistributedTrainConfig(
+        model=cfg, sdm=SDMConfig(p=0.2, theta=0.5, gamma=1e-3, sigma=1.0,
+                                 clip_c=1e-4, compressor="fixedk:128",
+                                 overlap=True),
+        topology="ring", method="sdm-dsgd", param_dtype=torch.bfloat16)
+    tokens, labels = (torch.as_tensor(a, device=dev) for a in TokenStream(
+        vocab_size=cfg.vocab_size, batch=LM_NODES * LM_BATCH,
+        seq_len=LM_SEQ, seed=0).batch_at(0))
+
+    def two_steps(run, transport, waited):
+        fn = steps_mod.make_distributed_train(tc, transport)
+
+        def go():
+            for _ in range(2):
+                run.state = fn(run.state, tokens, labels)[0]
+                if waited:
+                    run.state = settle(run.state)
+        return go
+
+    # ---- 22a. the exchange in flight against waited inside each step -------
+    res = {}
+    for waited in (True, False):
+        run, transport, n, flights, side_busy = overlap_run(
+            torch, np, card, tc, waited, dev)
+        launches += n
+        r = res[waited] = dict(
+            losses=run.losses, ms=np.asarray(run.step_s) * 1e3,
+            flights=flights, side_busy=side_busy, launches=n,
+            transport=transport,
+            x=tree_mod.tree_map(torch.clone, run.state.x))
+        with phase_clock(torch, "phase 22a profile of two more steps", card):
+            r["prof"] = profile_streams(
+                torch, two_steps(run, transport, waited))
+            run.state = settle(run.state)
+        if transport.outstanding != 0:
+            failures.append(f"{transport.outstanding} side-stream copies "
+                            f"never waited on")
+        if n != LM_STEPS:
+            failures.append(f"fixedk_gather_pack launched {n} times in "
+                            f"{LM_STEPS} overlapped steps")
+        if waited:
+            del run                 # only its losses and parameters stay
+            gc.collect()
+            torch.cuda.empty_cache()
+    fly, order = res[False], res[True]
+    same_loss = fly["losses"] == order["losses"]
+    same_x = all(torch.equal(a, b) for a, b in zip(
+        tree_mod.leaves(fly.pop("x")), tree_mod.leaves(order.pop("x"))))
+    # the exchange alone: the copy each step starts, one ring round of the
+    # packed values, made on the compute stream
+    rows = run.state.s[0].shape[1]
+    kb = sparsifier.num_kept(rows, 0.2)
+    vals = torch.randn(LM_NODES, kb, 128, device=dev)
+    (rnd,) = steps_mod.gossip_schedule(tc, LM_NODES).schedules[0].rounds
+    exch_ms, _ = cuda_ms(torch, lambda i: fly["transport"].ppermute(
+        vals, rnd.perm), iters=10)
+    del vals
+    f_mean, o_mean = fly["ms"][1:].mean(), order["ms"][1:].mean()
+    saved = o_mean - f_mean
+    spread = max(fly["ms"][1:].std(), order["ms"][1:].std())
+
+    def said(r):
+        p = r["prof"]
+        return (f"step ms {[round(float(v), 3) for v in r['ms']]} (steps 2.. "
+                f"mean {r['ms'][1:].mean():.3f}); exchanges pending after "
+                f"each step {r['flights']}, side stream still busy then "
+                f"{r['side_busy']}; two more steps profiled: "
+                f"{p['wall']:.3f} ms wall, device busy {p['busy']:.3f} ms "
+                f"(busy share {p['busy'] / p['wall']:.3f}) on {p['streams']} "
+                f"streams, the side stream {p['side']:.3f} ms of which "
+                f"{p['hidden']:.3f} ms under compute-stream work")
+    log(f"phase 22a on {card}: gemma2-2b x {LM_LAYERS} layers, {LM_NODES} "
+        f"nodes, ring, fixedk:128, --overlap, {LM_STEPS} steps, each step "
+        f"timed on the compute stream: losses torch.equal {same_loss}, "
+        f"final parameters torch.equal {same_x}; IN FLIGHT: {said(fly)}; "
+        f"WAITED INSIDE EACH STEP: {said(order)}; the exchange alone (a "
+        f"ring round of ({LM_NODES}, {kb}, 128) f32 on the compute stream) "
+        f"{exch_ms:.3f} ms; waited less in flight {saved:.3f} ms a step "
+        f"(step spread {spread:.3f} ms: "
+        + ("within the noise" if abs(saved) <= spread else "above the noise")
+        + f"); losses {fly['losses']}")
+    if not (same_loss and same_x):
+        failures.append("--overlap in flight differs from waited")
+    if set(fly["flights"]) != {1} or set(order["flights"]) != {0}:
+        failures.append(f"exchanges pending {fly['flights']} / "
+                        f"{order['flights']}")
+    extra["overlap_lm"] = dict(
+        step_ms_in_flight=float(f_mean), step_ms_waited=float(o_mean),
+        busy_share_in_flight=fly["prof"]["busy"] / fly["prof"]["wall"],
+        busy_share_waited=order["prof"]["busy"] / order["prof"]["wall"],
+        side_ms_in_flight=fly["prof"]["side"] / 2,
+        hidden_ms_in_flight=fly["prof"]["hidden"] / 2,
+        side_ms_waited=order["prof"]["side"] / 2,
+        hidden_ms_waited=order["prof"]["hidden"] / 2,
+        exchange_ms=exch_ms, launches=fly["launches"] + order["launches"])
+    del fly, order, res
+
+    # ---- 22d. (a)'s state through a checkpoint -----------------------------
+    state = run.state
+    del run
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        with phase_clock(torch, "phase 22d save + restore (a)'s state", card):
+            t0 = time.monotonic()
+            path = save_checkpoint(ckdir, state.step, state)
+            save_s = time.monotonic() - t0
+            size = os.path.getsize(path)
+            t0 = time.monotonic()
+            back = restore_checkpoint(ckdir, state)
+            torch.cuda.synchronize()
+            restore_s = time.monotonic() - t0
+        pairs = list(zip(tree_mod.leaves(back), tree_mod.leaves(state)))
+        same = all(torch.equal(a, b) if isinstance(b, torch.Tensor)
+                   else a == b for a, b in pairs)
+        dtypes = all(a.dtype == b.dtype and a.device == b.device
+                     for a, b in pairs if isinstance(b, torch.Tensor))
+        n_bf16 = sum(isinstance(b, torch.Tensor) and b.dtype == torch.bfloat16
+                     for _, b in pairs)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"phase 22d on {card}: state of (a) at step {state.step}, "
+        f"{len(pairs)} leaves ({n_bf16} bf16), file {size / 1e9:.3f} GB: "
+        f"save_checkpoint {save_s:.3f} s, restore_checkpoint onto the card "
+        f"{restore_s:.3f} s; every leaf torch.equal {same}, dtypes and "
+        f"device kept {dtypes}")
+    if not (same and dtypes and n_bf16 > 0):
+        failures.append("checkpoint restore differs from the state")
+    extra["checkpoint"] = dict(save_s=save_s, restore_s=restore_s,
+                               bytes=size)
+    del back, state, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 22b. the ring helpers at full width -------------------------------
+    gen = torch.Generator(device=dev).manual_seed(22)
+    d = torch.randn(RING_NODES, rows, 128, device=dev, generator=gen)
+    key = prng.PRNGKey(3, device=dev)
+    kb = sparsifier.num_kept(rows, RING_P)
+    packed = RING_NODES * kb * 128 * 4
+    dense = RING_NODES * rows * 128 * 4
+    # gather (read + write the kept rows), two ring copies (read + write),
+    # the three packed arrays read by the scatters, two dense outputs
+    nbytes = 2 * packed + 4 * packed + 3 * packed + 2 * dense
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    helpers = {
+        "ring_exchange_packed_rows": lambda t: gossip.ring_exchange_packed_rows(
+            d, transport=t, base_key=key, step=5, p=RING_P,
+            neighbor_weight=RING_W),
+        "ring_exchange_packed": lambda t: gossip.ring_exchange_packed(
+            d.reshape(RING_NODES, -1), transport=t, base_key=key, step=5,
+            p=RING_P, neighbor_weight=RING_W, block=128),
+    }
+    extra["ring_helpers"] = {}
+    # the neighbour sum waits in pinned host memory while the plain
+    # version runs (both runs' dense outputs would not fit the card)
+    with phase_clock(torch, "phase 22b pinned host staging buffer", card):
+        staged = torch.empty(d.shape, dtype=d.dtype,
+                             pin_memory=dev.type == "cuda")
+    for name, helper in helpers.items():
+        t = StackTransport(RING_NODES, dev)
+        with phase_clock(torch, f"phase 22b {name}", card):
+            n0 = fixedk_gather_pack.launches
+            own, nb = helper(t)
+            torch.cuda.synchronize()
+            n = fixedk_gather_pack.launches - n0
+            launches += n
+            peak = torch.cuda.max_memory_allocated()
+            staged.copy_(nb.reshape(staged.shape))
+            del nb
+            with plain_gather_pack():
+                own_p, nb_p = helper(StackTransport(RING_NODES, dev))
+            nb_p = nb_p.reshape(staged.shape)
+            same = torch.equal(own, own_p) and all(
+                torch.equal(staged[i].to(dev), nb_p[i])
+                for i in range(RING_NODES))
+            del own, own_p, nb_p
+            ms, host = cuda_ms(torch, lambda i: helper(StackTransport(
+                RING_NODES, dev)), iters=2, warmup=1)
+        log(f"phase 22b {name} on {card}: ({RING_NODES}, {rows}, 128) f32 "
+            f"({dense / 1e9:.2f} GB a block), p {RING_P}, kb {kb}: "
+            f"fixedk_gather_pack launches {n}; own and neighbour sum "
+            f"torch.equal to the plain version on the card {same}; "
+            f"{ms:.3f} ms on the device ({host:.3f} ms on the host), byte "
+            f"bound {bound_ms:.3f} ms ({nbytes} bytes at 3.35 TB/s: packed "
+            f"rows gathered, copied twice, scattered; two dense outputs; "
+            f"the index draws are not counted): bound / time "
+            f"{bound_ms / ms:.3f}; "
+            f"the helper's own peak {peak / 1e9:.3f} GB; sends {t.permutes}")
+        if not (same and n == 1 and t.permutes == 2):
+            failures.append(f"{name} disagrees with its plain version or "
+                            f"launched {n} kernels")
+        extra["ring_helpers"][name] = dict(ms=ms, bound_ms=bound_ms,
+                                           peak_gb=peak / 1e9)
+    del d, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 22c. the optimizers over the LM's parameter tree -------------------
+    torch.cuda.synchronize()
+    t22c = time.monotonic()
+    params = transformer.init_params(cfg, seed=0, dtype=torch.float32,
+                                     device=dev)
+    grads = [tree_mod.tree_map(lambda v: torch.randn(
+        v.shape, device=dev, generator=gen), params)
+        for _ in range(OPT_STEPS)]
+    n_params = sum(v.numel() for v in tree_mod.leaves(params))
+    extra["optimizers"] = {}
+    for name, opt in (("adamw", adamw(cosine_schedule(1e-3, 1, 10),
+                                      weight_decay=0.01)),
+                      ("momentum", momentum(1e-3))):
+        def head(t):
+            return tree_mod.tree_map(
+                lambda v: v.reshape(-1)[:OPT_CPU_ELEMS].cpu().clone(), t)
+
+        cpu_p, cpu_g = head(params), [head(g) for g in grads]
+        cpu_s = opt.init(cpu_p)
+        p, s = params, opt.init(params)
+        step_ms = []
+        for t_ in range(OPT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s = opt.update(grads[t_], s, p)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            cpu_p, cpu_s = opt.update(cpu_g[t_], cpu_s, cpu_p)
+        err = max(float((a.reshape(-1)[:OPT_CPU_ELEMS].cpu() - b).abs().max()
+                        / b.abs().max())
+                  for a, b in zip(tree_mod.leaves(p), tree_mod.leaves(cpu_p)))
+        log(f"phase 22c {name} on {card}: {n_params} f32 parameters "
+            f"(gemma2-2b x {LM_LAYERS} layers), {OPT_STEPS} steps: ms a step "
+            f"{[round(v, 3) for v in step_ms]}; against the plain CPU run "
+            f"(first {OPT_CPU_ELEMS} elements of each leaf): max relative "
+            f"error {err:.3e} (bound {OPT_RTOL})")
+        if not err <= OPT_RTOL:
+            failures.append(f"{name} on the card differs from the CPU run")
+        extra["optimizers"][name] = dict(step_ms=step_ms, max_rel_err=err)
+        del p, s, cpu_p, cpu_s, cpu_g
+    del params, grads
+    log(f"phase 22c in all: {time.monotonic() - t22c:.3f} s wall on {card}")
+    if failures:
+        raise AssertionError(f"phase 22 failed: {failures}")
+    return launches, extra
+
+
 def ptxas_entries(text: str):
     """{mangled kernel name: (registers, spill store bytes)} from an
     ``nvcc -Xptxas -v`` log."""
@@ -2533,27 +2986,27 @@ def path_kernels():
         "paged_decode": (dict(
             name="paged_decode", route="cuda",
             source="src/repro_torch/kernels/csrc/paged_decode.cu",
-            replaces="src/repro/kernels/flash_attn/decode.py:83"),
+            replaces="src/repro/kernels/flash_attn/decode.py:123"),
             paged_attention),
         "qsgd_pack": (dict(
             name="qsgd_pack", route="cuda",
             source="src/repro_torch/kernels/csrc/wire_compress.cu",
-            replaces="src/repro/kernels/wire_compress/wire_compress.py:80"),
+            replaces="src/repro/kernels/wire_compress/wire_compress.py:95"),
             qsgd_pack),
         "fixedk_gather_pack": (dict(
             name="fixedk_gather_pack", route="cuda",
             source="src/repro_torch/kernels/csrc/wire_compress.cu",
-            replaces="src/repro/kernels/wire_compress/wire_compress.py:112"),
+            replaces="src/repro/kernels/wire_compress/wire_compress.py:125"),
             fixedk_gather_pack),
         "sdm_update": (dict(
             name="sdm_update", route="cuda",
             source="src/repro_torch/kernels/csrc/sdm_update.cu",
-            replaces="src/repro/kernels/sdm_update/sdm_update.py:77"),
+            replaces="src/repro/kernels/sdm_update/sdm_update.py:96"),
             sdm_update_planes),
         "flash_attn": (dict(
             name="flash_attn", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attn.cu",
-            replaces="src/repro/kernels/flash_attn/flash_attn.py:78"),
+            replaces="src/repro/kernels/flash_attn/flash_attn.py:100"),
             flash_attention),
     }
 
@@ -2577,6 +3030,7 @@ def main() -> int:
     from repro_torch.models import transformer
 
     kernels = path_kernels()
+    memo_token_batches()
 
     # ---- 1. card and build ----------------------------------------------
     card = smi()
@@ -2820,6 +3274,14 @@ def main() -> int:
         encoder_families_phase(torch, np, card, kernels)
     for key, n in enc_launches.items():
         launches[key] += n
+
+    # ---- 22. the exchange in flight, ring helpers, optimizers, checkpoint
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock(torch, "phase 22 in all", card):
+        n, timing["fixedk_gather_pack"]["phase22"] = overlap_library_phase(
+            torch, np, card)
+    launches["fixedk_gather_pack"] += n
 
     # ---- results -----------------------------------------------------------
     for key, rows in resources.items():

@@ -9,13 +9,14 @@ analyzer and carries no tags.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
 from repro_torch import tree as tree_mod
 
-__all__ = ["clip_coordinates", "clip_tree"]
+__all__ = ["clip_coordinates", "clip_tree", "sensitivity_G"]
 
 
 def clip_coordinates(g: torch.Tensor, c: float) -> torch.Tensor:
@@ -26,3 +27,9 @@ def clip_coordinates(g: torch.Tensor, c: float) -> torch.Tensor:
 def clip_tree(grads: Any, c: float) -> Any:
     """Clamp every leaf to [-c, c]."""
     return tree_mod.tree_map(lambda g: clip_coordinates(g, c), grads)
+
+
+def sensitivity_G(c: float, d: int) -> float:
+    """The l2-sensitivity bound of coordinate clip c over d coordinates:
+    |g_i| <= c gives ||g||_2 <= c sqrt(d) (= G for c = G / sqrt(d))."""
+    return c * math.sqrt(d)

@@ -45,7 +45,8 @@ from repro_torch.core import sparsifier
 __all__ = ["Payload", "Compressor", "BernoulliCompressor", "FixedKCompressor",
            "RowsCompressor", "QSGDCompressor", "FusedQSGDCompressor", "make",
            "names", "register", "index_bits", "node_mean_exact",
-           "tree_wire_elements_exact", "tree_wire_bits_exact"]
+           "tree_wire_elements_exact", "tree_wire_elements",
+           "tree_wire_bits_exact", "tree_wire_bits"]
 
 
 def index_bits(d: int) -> int:
@@ -525,6 +526,14 @@ def tree_wire_elements_exact(comp: Compressor, params,
                for x in tree_mod.leaves(params))
 
 
+def tree_wire_elements(comp: Compressor, params, node: int | None = None
+                       ) -> int:
+    """Informative elements one node transmits per step over a pytree:
+    the exact sum rounded once (round(p d_total), the paper's Fig-3
+    convention; packed and quantized counts are integers already)."""
+    return int(round(tree_wire_elements_exact(comp, params, node=node)))
+
+
 def tree_wire_bits_exact(comp: Compressor, params, *, value_bits: int = 32,
                          index_sync: bool = False,
                          node: int | None = None) -> "Fraction | float":
@@ -532,3 +541,11 @@ def tree_wire_bits_exact(comp: Compressor, params, *, value_bits: int = 32,
         comp.wire_bits_exact(tuple(x.shape), value_bits=value_bits,
                              index_sync=index_sync, node=node)
         for x in tree_mod.leaves(params))
+
+
+def tree_wire_bits(comp: Compressor, params, *, value_bits: int = 32,
+                   index_sync: bool = False, node: int | None = None) -> int:
+    """Exact wire bits one node transmits per step over a pytree."""
+    return int(round(tree_wire_bits_exact(comp, params,
+                                          value_bits=value_bits,
+                                          index_sync=index_sync, node=node)))

@@ -13,7 +13,21 @@ Port of ``repro.core.gossip``:
   (dense payload), ``exchange_payload`` (any compressor payload),
   ``exchange_packed`` / ``exchange_packed_rows`` (seed-synchronized
   fixed-k: only the kept values cross, receivers regenerate the index
-  sets) and their replica (union-graph) siblings ``union_exchange*``.
+  sets) and their replica (union-graph) siblings ``union_exchange*``;
+* the ring helpers ``ring_exchange``, ``ring_weighted_neighbor_sum``,
+  ``ring_exchange_packed`` and ``ring_exchange_packed_rows`` (the
+  symmetric ring over all n nodes; a ``transport`` argument in place of
+  the JAX package's ``axis_name``).
+
+Each static-schedule exchange has a split form, ``*_start``, that
+starts the rounds' sends (``transport.ppermute_start``) and returns a
+``transport.Pending`` neighbour sum: the sender-side pack (the fixed-k
+gather-pack kernel, or the compressor) runs on the stream that starts
+the exchange, the receive side (unpack, weigh, scatter into the sum)
+when ``wait()`` is called. With ``defer`` (the default) the sends may
+stay in flight (on the card, on the transport's side stream); the
+plain functions are the split form with ``defer=False`` waited on at
+once, every op on the current stream.
 
 The exchanges work on a NODE BLOCK (``core/transport.py``): every tensor
 has a leading dim L of the nodes the caller holds and ``transport.me``
@@ -25,9 +39,10 @@ time-varying sequence picks its round's schedule in Python
 
 The schedules are plain Python/numpy, identical to the JAX package's, so
 both packages mix with the same dense matrices and charge the same wire
-cost. The legacy ``ring_exchange*`` helpers have no caller in the
-executor and are not ported. The JAX package's ``wire_payload`` tag (an
-identity its analyzer reads) has no counterpart here.
+cost. The JAX package's ``wire_payload`` tag (an identity its analyzer
+reads) has no counterpart here, nor has its ``REPRO_FUSED_PACK=0``
+switch: on a CUDA tensor it would route the packed exchange to the
+plain gather, and on the CPU the plain gather is the route already.
 """
 from __future__ import annotations
 
@@ -42,6 +57,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import sparsifier
+from repro_torch.core.transport import Pending
 
 __all__ = ["mix_dense", "apply_weights_dense", "PermuteSchedule",
            "ScheduleRound", "ScheduleSequence", "UnionRound", "UnionSchedule",
@@ -50,10 +66,14 @@ __all__ = ["mix_dense", "apply_weights_dense", "PermuteSchedule",
            "sequence_from_topologies", "sequence_from_active_sets",
            "sequence_by_name", "ensure_sequence",
            "sequence_of", "ring_schedule", "resolve_schedule",
-           "resolve_sequence", "exchange", "exchange_payload",
-           "exchange_packed", "exchange_packed_rows", "union_exchange",
+           "resolve_sequence", "exchange", "exchange_start",
+           "exchange_payload", "exchange_payload_start", "exchange_packed",
+           "exchange_packed_start", "exchange_packed_rows",
+           "exchange_packed_rows_start", "union_exchange",
            "union_exchange_payload", "union_exchange_packed",
-           "union_exchange_packed_rows", "node_round_key"]
+           "union_exchange_packed_rows", "ring_exchange",
+           "ring_weighted_neighbor_sum", "ring_exchange_packed",
+           "ring_exchange_packed_rows", "node_round_key"]
 
 
 # --------------------------------------------------------------------------
@@ -412,48 +432,100 @@ def _round_weight(rnd: ScheduleRound, me: torch.Tensor) -> torch.Tensor:
     return _table(rnd.recv_weights, me)
 
 
-def _ppermute_payload(transport, payload, perm):
+def _ppermute_payload_start(transport, payload, perm, defer=True
+                            ) -> Pending:
     """Every tensor field of a compressor payload across one round (one
-    ppermute per field, as the JAX package permutes each pytree leaf).
-    Explicit indices cross as int32, the width ``lax.top_k`` gives them
-    in the JAX package, and come back to their own dtype on receipt."""
-    def pp(v):
-        return None if v is None else transport.ppermute(v, perm)
+    ppermute per field, as the JAX package permutes each pytree leaf),
+    in flight; ``wait()`` gives the received payload. Explicit indices
+    cross as int32, the width ``lax.top_k`` gives them in the JAX
+    package, and come back to their own dtype on receipt."""
+    def start(v):
+        return None if v is None else transport.ppermute_start(
+            v, perm, defer=defer)
+
+    def got(p):
+        return None if p is None else p.wait()
 
     idx = payload.indices
-    if idx is not None:
-        idx = pp(idx.to(torch.int32)).to(idx.dtype)
-    return dataclasses.replace(payload, values=pp(payload.values),
-                               indices=idx, scale=pp(payload.scale))
+    sent = (start(payload.values),
+            None if idx is None else start(idx.to(torch.int32)),
+            start(payload.scale))
+
+    def finish():
+        values, indices, scale = (got(p) for p in sent)
+        if indices is not None:
+            indices = indices.to(idx.dtype)
+        return dataclasses.replace(payload, values=values, indices=indices,
+                                   scale=scale)
+
+    return Pending(finish)
+
+
+def _ppermute_payload(transport, payload, perm):
+    """``_ppermute_payload_start(..., defer=False).wait()``."""
+    return _ppermute_payload_start(transport, payload, perm,
+                                   defer=False).wait()
+
+
+def exchange_start(schedule, x: torch.Tensor, transport, step=None, *,
+                   defer: bool = True) -> Pending:
+    """sum_{j in N_i(t)} W_ij(t) x_j per held node i, dense payload: one
+    ppermute per round of the step's schedule, in flight."""
+    me = transport.me
+    rounds = _active(ensure_sequence(schedule), step).rounds
+    if not rounds:
+        return Pending.done(torch.zeros_like(x))
+    sent = [transport.ppermute_start(x, rnd.perm, defer=defer)
+            for rnd in rounds]
+
+    def finish():
+        total = None
+        for rnd, pend in zip(rounds, sent):
+            recv = pend.wait()
+            if total is None:
+                total = torch.zeros_like(recv)
+            total = total + per_node(_round_weight(rnd, me), recv) * recv
+        return total
+
+    return Pending(finish)
 
 
 def exchange(schedule, x: torch.Tensor, transport, step=None
              ) -> torch.Tensor:
-    """sum_{j in N_i(t)} W_ij(t) x_j per held node i, dense payload: one
-    ppermute per round of the step's schedule."""
+    """``exchange_start(..., defer=False).wait()``."""
+    return exchange_start(schedule, x, transport, step, defer=False).wait()
+
+
+def exchange_payload_start(schedule, payload, decompress, transport, *,
+                           step=None, defer: bool = True) -> Pending:
+    """Weighted neighbour sum of decompressed compressor payloads, in
+    flight: every tensor of the payload crosses as it is, the receiver
+    decompresses and weighs locally at ``wait()`` (non-destinations get
+    zero payloads and weight)."""
     me = transport.me
-    total = torch.zeros_like(x)
-    for rnd in _active(ensure_sequence(schedule), step).rounds:
-        recv = transport.ppermute(x, rnd.perm)
-        total = total + per_node(_round_weight(rnd, me), x) * recv
-    return total
+    rounds = _active(ensure_sequence(schedule), step).rounds
+    if not rounds:
+        return Pending.done(torch.zeros_like(decompress(payload)))
+    sent = [_ppermute_payload_start(transport, payload, rnd.perm, defer)
+            for rnd in rounds]
+
+    def finish():
+        total = None
+        for rnd, pend in zip(rounds, sent):
+            dec = decompress(pend.wait())
+            if total is None:
+                total = torch.zeros_like(dec)
+            total = total + per_node(_round_weight(rnd, me), dec) * dec
+        return total
+
+    return Pending(finish)
 
 
 def exchange_payload(schedule, payload, decompress, transport, *,
                      step=None) -> torch.Tensor:
-    """Weighted neighbour sum of decompressed compressor payloads: every
-    tensor of the payload crosses as it is, the receiver decompresses
-    and weighs locally (non-destinations get zero payloads and weight)."""
-    me = transport.me
-    total = None
-    for rnd in _active(ensure_sequence(schedule), step).rounds:
-        dec = decompress(_ppermute_payload(transport, payload, rnd.perm))
-        if total is None:
-            total = torch.zeros_like(dec)
-        total = total + per_node(_round_weight(rnd, me), dec) * dec
-    if total is None:
-        total = torch.zeros_like(decompress(payload))
-    return total
+    """``exchange_payload_start(..., defer=False).wait()``."""
+    return exchange_payload_start(schedule, payload, decompress, transport,
+                                  step=step, defer=False).wait()
 
 
 def _batched_sender_indices(schedule: PermuteSchedule, me: torch.Tensor, *,
@@ -527,26 +599,35 @@ def _scatter_weighted(acc: torch.Tensor, w: torch.Tensor, vals: torch.Tensor,
                      per_node(w, vals) * vals)
 
 
-def _packed_exchange(seq: ScheduleSequence, db: torch.Tensor, transport, *,
-                     base_key, step, p) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Packed gossip on a (L, nb, block) view: (own S(d), weighted
-    neighbour sum), both shaped like ``db``. Only the packed (kb, block)
-    values cross the wire."""
+def _packed_exchange_start(seq: ScheduleSequence, db: torch.Tensor,
+                           transport, *, base_key, step, p, reshape, defer
+                           ) -> Tuple[torch.Tensor, Pending]:
+    """Packed gossip on a (L, nb, block) view: (own S(d), the weighted
+    neighbour sum in flight), both shaped like ``db`` and passed through
+    ``reshape``. Only the packed (kb, block) values cross the wire; the
+    receivers' index draw and scatter run at ``wait()``."""
     me = transport.me
     nb = db.shape[-2]
     kb, my_idx, my_vals = _packed_selection(db, p, me, base_key=base_key,
                                             step=step)
     own = _unpack(db, my_vals, my_idx)
-    nb_sum = torch.zeros_like(own)
     sched = _active(seq, step)
-    if sched.rounds:
-        sender_idx = _batched_sender_indices(
-            sched, me, base_key=base_key, step=step, nb=nb, kb=kb)
-        for i, rnd in enumerate(sched.rounds):
-            vals = transport.ppermute(my_vals, rnd.perm)
-            _scatter_weighted(nb_sum, _round_weight(rnd, me), vals,
-                              sender_idx[:, i])
-    return own, nb_sum
+    sent = [transport.ppermute_start(my_vals, rnd.perm, defer=defer)
+            for rnd in sched.rounds]
+    del my_vals
+    shape, dtype = own.shape, own.dtype
+
+    def finish():
+        nb_sum = torch.zeros(shape, dtype=dtype, device=me.device)
+        if sched.rounds:
+            sender_idx = _batched_sender_indices(
+                sched, me, base_key=base_key, step=step, nb=nb, kb=kb)
+            for i, (rnd, pend) in enumerate(zip(sched.rounds, sent)):
+                _scatter_weighted(nb_sum, _round_weight(rnd, me),
+                                  pend.wait(), sender_idx[:, i])
+        return reshape(nb_sum)
+
+    return reshape(own), Pending(finish)
 
 
 def _flat_block_view(d: torch.Tensor, block: int) -> torch.Tensor:
@@ -561,15 +642,29 @@ def _from_block_view(v: torch.Tensor, shape) -> torch.Tensor:
                                                       + per_node)
 
 
+def exchange_packed_start(schedule, d: torch.Tensor, transport, *,
+                          base_key, step, p, block: int = 1,
+                          defer: bool = True
+                          ) -> Tuple[torch.Tensor, Pending]:
+    """One packed gossip round over flat ``block``-coordinate blocks of
+    each node's row of ``d`` (L, ...): (own S(d), sum_j W_ij S(d_j) in
+    flight)."""
+    shape = d.shape
+    return _packed_exchange_start(
+        ensure_sequence(schedule), _flat_block_view(d, block), transport,
+        base_key=base_key, step=step, p=p, defer=defer,
+        reshape=lambda v: _from_block_view(v, shape))
+
+
 def exchange_packed(schedule, d: torch.Tensor, transport, *, base_key,
                     step, p, block: int = 1
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One packed gossip round over flat ``block``-coordinate blocks of
-    each node's row of ``d`` (L, ...): (own S(d), sum_j W_ij S(d_j))."""
-    own, nb_sum = _packed_exchange(
-        ensure_sequence(schedule), _flat_block_view(d, block), transport,
-        base_key=base_key, step=step, p=p)
-    return _from_block_view(own, d.shape), _from_block_view(nb_sum, d.shape)
+    """(own S(d), sum_j W_ij S(d_j)): ``exchange_packed_start`` not
+    deferred, waited."""
+    own, pend = exchange_packed_start(schedule, d, transport,
+                                      base_key=base_key, step=step, p=p,
+                                      block=block, defer=False)
+    return own, pend.wait()
 
 
 def _rows_view(d: torch.Tensor) -> torch.Tensor:
@@ -577,13 +672,105 @@ def _rows_view(d: torch.Tensor) -> torch.Tensor:
     return d.reshape(d.shape[0], -1, cols)
 
 
+def exchange_packed_rows_start(schedule, d: torch.Tensor, transport, *,
+                               base_key, step, p, defer: bool = True
+                               ) -> Tuple[torch.Tensor, Pending]:
+    """Packed gossip with blocks = trailing-dim rows of each node's
+    tensor (the sharding-aligned selection), the sum in flight."""
+    shape = d.shape
+    return _packed_exchange_start(
+        ensure_sequence(schedule), _rows_view(d), transport,
+        base_key=base_key, step=step, p=p, defer=defer,
+        reshape=lambda v: v.reshape(shape))
+
+
 def exchange_packed_rows(schedule, d: torch.Tensor, transport, *, base_key,
                          step, p) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Packed gossip with blocks = trailing-dim rows of each node's
-    tensor (the sharding-aligned selection)."""
-    own, nb_sum = _packed_exchange(
-        ensure_sequence(schedule), _rows_view(d), transport,
-        base_key=base_key, step=step, p=p)
+    """``exchange_packed_rows_start`` not deferred, waited."""
+    own, pend = exchange_packed_rows_start(schedule, d, transport,
+                                           base_key=base_key, step=step, p=p,
+                                           defer=False)
+    return own, pend.wait()
+
+
+# --------------------------------------------------------------------------
+# The ring helpers (the symmetric ring over all n nodes).
+# --------------------------------------------------------------------------
+
+def _perm(n: int, shift: int) -> Tuple[Tuple[int, int], ...]:
+    return tuple((i, (i + shift) % n) for i in range(n))
+
+
+def ring_exchange(x: torch.Tensor, transport
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Send ``x`` to both ring neighbours: (from_left, from_right) with
+    ``from_left[i] = x[i-1]`` and ``from_right[i] = x[i+1]``."""
+    n = transport.n
+    return (transport.ppermute(x, _perm(n, +1)),
+            transport.ppermute(x, _perm(n, -1)))
+
+
+def ring_weighted_neighbor_sum(x: torch.Tensor, transport,
+                               neighbor_weight: float) -> torch.Tensor:
+    """sum_{j in N_i} W_ij x_j on the symmetric ring (both neighbours
+    weigh ``neighbor_weight``)."""
+    from_left, from_right = ring_exchange(x, transport)
+    return neighbor_weight * (from_left + from_right)
+
+
+def _ring_packed(db: torch.Tensor, transport, *, base_key, step, p,
+                 neighbor_weight) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed ring round on a (L, nb, block) view: (own S(d),
+    w (S(d_{i-1}) + S(d_{i+1}))), shaped like ``db``. The sender packs
+    ``take(db, idx) * nb / kb`` (the fixed-k gather-pack kernel on an f32
+    view); receivers regenerate both neighbours' index sets from
+    ``node_round_key`` (no index crosses the wire)."""
+    me, n = transport.me, transport.n
+    nb = db.shape[-2]
+    kb, my_idx, my_vals = _packed_selection(db, p, me, base_key=base_key,
+                                            step=step)
+    from_left = transport.ppermute(my_vals, _perm(n, +1))
+    from_right = transport.ppermute(my_vals, _perm(n, -1))
+    own = _unpack(db, my_vals, my_idx)
+    del my_vals
+    senders = torch.stack([torch.remainder(me - 1, n),
+                           torch.remainder(me + 1, n)], dim=1)   # (L, 2)
+    idx = sparsifier.fixedk_indices(node_round_key(base_key, senders, step),
+                                    nb, kb)                      # (L, 2, kb)
+    # unpack(left) + unpack(right), in place: the left values set into
+    # zeros, the right values added where they land
+    nb_sum = torch.zeros_like(db).scatter_(
+        1, idx[:, 0].unsqueeze(-1).expand(from_left.shape), from_left)
+    del from_left
+    nb_sum.scatter_add_(1, idx[:, 1].unsqueeze(-1).expand(from_right.shape),
+                        from_right)
+    return own, nb_sum.mul_(neighbor_weight)
+
+
+def ring_exchange_packed(d_flat: torch.Tensor, *, transport, base_key, step,
+                         p: float, neighbor_weight: float, block: int = 1
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One SDM-DSGD ring round with packed payloads over each node's row
+    of ``d_flat`` (L, dim), in ``block``-coordinate blocks: (own S(d),
+    w (S(d_{i-1}) + S(d_{i+1}))), both (L, dim). The wire carries the
+    packed (kb, block) values only, twice a round."""
+    own, nb_sum = _ring_packed(
+        sparsifier.block_view(d_flat, block), transport, base_key=base_key,
+        step=step, p=p, neighbor_weight=neighbor_weight)
+    dim = d_flat.shape[-1]
+    return (own.reshape(own.shape[0], -1)[:, :dim],
+            nb_sum.reshape(nb_sum.shape[0], -1)[:, :dim])
+
+
+def ring_exchange_packed_rows(d: torch.Tensor, *, transport, base_key, step,
+                              p: float, neighbor_weight: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed ring round with blocks = trailing-dim rows of each
+    node's tensor of ``d`` (L, ...): (own S(d), w (S(d_{i-1}) +
+    S(d_{i+1}))), both shaped like ``d``."""
+    own, nb_sum = _ring_packed(
+        _rows_view(d), transport, base_key=base_key, step=step, p=p,
+        neighbor_weight=neighbor_weight)
     return own.reshape(d.shape), nb_sum.reshape(d.shape)
 
 

@@ -38,8 +38,11 @@ and s_i is recomputed with the current round's weights.
 (``core/transport.py``), riding the same payload transport as SDM's
 qsgd path (``sdm_dsgd._plane_payload_exchange``, key
 ``node_round_key(fold_in(base, bucket), node, step)``). The step
-counter is a host int. The JAX package's ``tagging.pending_buffer``
-marks are identities its analyzer reads; the port does not carry them.
+counter is a host int. With ``overlap`` the state's ``nb`` holds the
+exchange started at step t still in flight (``transport.Pending``), waited
+on at step t+1 just before it is folded into s. The JAX package's
+``tagging.pending_buffer`` marks are identities its analyzer reads; the
+port does not carry them.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ import torch
 from repro_torch import tree as tree_mod
 from repro_torch.core import compressor as compressor_mod, gossip
 from repro_torch.core import plane as plane_mod
+from repro_torch.core.transport import settle
 from repro_torch.core.sdm_dsgd import (_key_on, _node_noise_key,
                                        _plane_payload_exchange,
                                        _replica_planes, masked_grad,
@@ -359,12 +363,13 @@ def gradient_push_distributed_step(state: GradientPushState, grads: PyTree,
     else:
         delta_hat, nb_sum = _plane_payload_exchange(
             delta, comp, transport, base_key=base_key, step=step,
-            schedule=seq, transform=contract)
+            schedule=seq, transform=contract, defer=cfg.overlap)
         xhat = tuple(xh + dh for xh, dh in zip(state.xhat, delta_hat))
         xhat_nb = state.xhat_nb
         if cfg.overlap:
-            # consume last step's pending deliveries; this step's wait
-            s = tuple(s_ + p_ for s_, p_ in zip(state.s, state.nb))
+            # consume last step's pending deliveries (waited on here);
+            # this step's stay in flight until the next step
+            s = tuple(s_ + settle(p_) for s_, p_ in zip(state.s, state.nb))
             nb_store = nb_sum
         else:
             s = tuple(s_ + nb for s_, nb in zip(state.s, nb_sum))

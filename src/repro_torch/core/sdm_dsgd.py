@@ -21,8 +21,14 @@ the JAX package's shard_map code. It works on a NODE BLOCK
 (``core/transport.py``): every state tensor has a leading dim L of the
 nodes the caller holds, ``transport.me`` their indices, and the gossip
 rides ``transport.ppermute``. The state keeps the JAX layout: ``x`` the
-parameter tree, ``s`` / ``d`` (and the replica stack ``xhat``, the
-overlap buffer ``nb``) f32 wire planes. The step counter is a host int
+parameter tree, ``s`` / ``d`` (and the replica stack ``xhat``) f32 wire
+planes. With ``overlap`` the buffer ``nb`` holds the neighbour sums of
+the exchange started at step t still in flight (``transport.Pending``,
+one a bucket): step t+1 waits on them just before it folds them into
+``s``, so the exchange rides under step t+1's gradient; at step 0 it
+holds zero planes. ``transport.settle`` waits on what a run leaves
+pending. Without ``overlap`` every exchange completes on the current
+stream inside its step. The step counter is a host int
 shared by the block. Where the JAX functions return a new state, the
 port updates the state's buffers in place (x, s, the replicas, and d's
 storage for the next differential): the same numbers, without a second
@@ -43,6 +49,7 @@ from repro_torch import prng, tree as tree_mod
 from repro_torch.core import clipping, compressor as compressor_mod, gossip
 from repro_torch.core import plane as plane_mod
 from repro_torch.core.topology import Topology
+from repro_torch.core.transport import Pending
 
 __all__ = ["SDMConfig", "SDMState", "SDMFusedState", "ReferenceSimulator",
            "masked_grad", "compressor_of", "wire_shape_tree",
@@ -147,7 +154,7 @@ class SDMState(NamedTuple):
     step: int         # iteration counter
     e: PyTree = None  # error-feedback residual (reference only)
     xhat: PyTree = None   # executor replica planes (L, n_replicas, rows, lane)
-    nb: PyTree = None     # overlap double buffer
+    nb: PyTree = None     # overlap: the pending exchange (or zero planes)
 
 
 def _zeros_like(t: PyTree) -> PyTree:
@@ -475,7 +482,7 @@ def init_fused_state(params: PyTree, self_weight,
 
 def _plane_payload_exchange(planes, comp: compressor_mod.Compressor,
                             transport, *, base_key, step, schedule=None,
-                            useq=None, transform=None):
+                            useq=None, transform=None, defer=False):
     """Compressor-payload transport over wire planes: one compress per
     bucket plane (key ``node_round_key(fold_in(base, bucket), me,
     step)``); the payload crosses the static schedule's rounds (weighted
@@ -483,7 +490,8 @@ def _plane_payload_exchange(planes, comp: compressor_mod.Compressor,
     ``transform`` rewrites each payload before the wire (compressed
     push-sum's contraction). Shared by SDM's qsgd / payload modes and
     compressed gradient-push. Returns (own decompressed planes, received
-    planes)."""
+    planes); ``defer`` leaves each static-schedule sum in flight (a
+    ``Pending`` a plane)."""
     me = transport.me
     own, recv = [], []
     for b, dp in enumerate(planes):
@@ -496,38 +504,43 @@ def _plane_payload_exchange(planes, comp: compressor_mod.Compressor,
             recv.append(gossip.union_exchange_payload(
                 useq, pl, comp.decompress, transport))
         else:
-            recv.append(gossip.exchange_payload(
-                schedule, pl, comp.decompress, transport, step=step))
+            pend = gossip.exchange_payload_start(
+                schedule, pl, comp.decompress, transport, step=step,
+                defer=defer)
+            recv.append(pend if defer else pend.wait())
     return tuple(own), tuple(recv)
 
 
 def _plane_exchange(d_planes, *, schedule, transport, base_key, step,
-                    cfg: SDMConfig):
+                    cfg: SDMConfig, defer: bool = False):
     """Static-schedule plane exchange: (own S(d) planes, weighted
     neighbour-sum planes); each bucket's plane compressed / drawn /
-    top-k'd once with key ``fold_in(base, bucket)``."""
+    top-k'd once with key ``fold_in(base, bucket)``. ``defer`` leaves
+    each neighbour sum in flight (a ``Pending`` a bucket)."""
     comp = compressor_of(cfg)
     if cfg.mode in ("qsgd", "payload"):
         return _plane_payload_exchange(d_planes, comp, transport,
                                        base_key=base_key, step=step,
-                                       schedule=schedule)
+                                       schedule=schedule, defer=defer)
     me = transport.me
     own, nb = [], []
     for b, dp in enumerate(d_planes):
         bkey = prng.fold_in(base_key, b)
         if cfg.mode == "fixedk_rows":
-            o, s = gossip.exchange_packed_rows(
-                schedule, dp, transport, base_key=bkey, step=step, p=cfg.p)
-        elif cfg.mode == "fixedk_packed":
-            o, s = gossip.exchange_packed(
+            o, pend = gossip.exchange_packed_rows_start(
                 schedule, dp, transport, base_key=bkey, step=step, p=cfg.p,
-                block=cfg.pack_block)
+                defer=defer)
+        elif cfg.mode == "fixedk_packed":
+            o, pend = gossip.exchange_packed_start(
+                schedule, dp, transport, base_key=bkey, step=step, p=cfg.p,
+                block=cfg.pack_block, defer=defer)
         else:   # bernoulli: dense masked plane payload
             key = gossip.node_round_key(bkey, me, step)
             o = comp.decompress(comp.compress(key, dp, node=me))
-            s = gossip.exchange(schedule, o, transport, step=step)
+            pend = gossip.exchange_start(schedule, o, transport, step=step,
+                                         defer=defer)
         own.append(o)
-        nb.append(s)
+        nb.append(pend if defer else pend.wait())
     return tuple(own), tuple(nb)
 
 
@@ -597,8 +610,9 @@ def _add_planes_to_tree(x: PyTree, spec, planes) -> None:
 
 
 def _add_planes(acc, planes) -> None:
+    """acc += planes, in place; a pending plane is waited on first."""
     for a, p in zip(acc, planes):
-        a.add_(p)
+        a.add_(p.wait() if isinstance(p, Pending) else p)
 
 
 def distributed_advance(state: SDMState, *, base_key, transport,
@@ -624,12 +638,13 @@ def distributed_advance(state: SDMState, *, base_key, transport,
         _add_planes_to_tree(state.x, spec, own)
         return state._replace(s=s, xhat=xhat)
     own, nb = _plane_exchange(state.d, schedule=seq, transport=transport,
-                              base_key=base_key, step=state.step, cfg=cfg)
+                              base_key=base_key, step=state.step, cfg=cfg,
+                              defer=cfg.overlap)
     _add_planes_to_tree(state.x, spec, own)
     del own
     if cfg.overlap:
-        # this step mixes the PENDING buffer (last step's exchange); the
-        # fresh exchange waits in the double buffer for the next step
+        # this step mixes the PENDING buffer (last step's exchange, waited
+        # on here); the fresh exchange stays in flight until the next step
         _add_planes(state.s, state.nb)
         return state._replace(nb=nb)
     _add_planes(state.s, nb)
@@ -690,7 +705,8 @@ def distributed_step_fused(state: SDMFusedState, grads: PyTree, *, base_key,
         _add_planes_to_tree(state.x, spec, own)
         return SDMFusedState(x=state.x, s=s, step=sp_step, xhat=xhat)
     own, nb = _plane_exchange(d, schedule=seq, transport=transport,
-                              base_key=base_key, step=sp_step, cfg=cfg)
+                              base_key=base_key, step=sp_step, cfg=cfg,
+                              defer=cfg.overlap)
     del d
     _add_planes_to_tree(state.x, spec, own)
     del own

@@ -28,13 +28,21 @@ import torch
 
 from repro_torch import prng
 
-__all__ = ["bernoulli_sparsify", "fixedk_indices", "num_kept", "block_view",
+__all__ = ["bernoulli_mask", "bernoulli_sparsify", "sparsifier_variance",
+           "fixedk_indices", "fixedk_pack", "fixedk_unpack",
+           "fixedk_sparsify", "num_kept", "block_view", "block_sparsify",
            "f32_reciprocal"]
 
 
 def f32_reciprocal(p: float) -> float:
     """1/p as XLA folds it into a constant: f32(1) / f32(p), in f32."""
     return float(np.float32(1.0) / np.float32(p))
+
+
+def bernoulli_mask(key, shape, p) -> torch.Tensor:
+    """Boolean keep-mask with i.i.d. keep-probability p (``key`` (2,) or
+    a batch (*batch, 2): the mask is (*batch, *shape))."""
+    return prng.bernoulli(prng.key_data(key), p, tuple(shape))
 
 
 def bernoulli_sparsify(key, x: torch.Tensor, p) -> torch.Tensor:
@@ -59,6 +67,11 @@ def bernoulli_sparsify(key, x: torch.Tensor, p) -> torch.Tensor:
     return torch.where(mask, kept, torch.zeros_like(x))
 
 
+def sparsifier_variance(x: torch.Tensor, p: float) -> torch.Tensor:
+    """Lemma 1: Var(S(x)) = (1/p - 1) ||x||_2^2 (summed over coords)."""
+    return (1.0 / p - 1.0) * torch.sum(torch.square(x))
+
+
 def fixedk_indices(key, d: int, k: int) -> torch.Tensor:
     """k distinct uniform indices into [0, d), regenerable from ``key``:
     the arg-top-k of d uniforms, in ``lax.top_k``'s tie order."""
@@ -73,6 +86,30 @@ def num_kept(d: int, p: float) -> int:
     return min(d, max(1, math.ceil(p_exact * d)))
 
 
+def fixedk_pack(x_flat: torch.Tensor, idx: torch.Tensor, d: int
+                ) -> torch.Tensor:
+    """The selected coordinates pre-scaled by d/k (the exact inclusion
+    probability is k/d): shape (k,)."""
+    k = idx.shape[0]
+    return torch.index_select(x_flat, 0, idx) * (d / k)
+
+
+def fixedk_unpack(values: torch.Tensor, idx: torch.Tensor, d: int
+                  ) -> torch.Tensor:
+    """The packed values scattered back into a dense (d,) S(x)."""
+    out = torch.zeros((d,), dtype=values.dtype, device=values.device)
+    out[idx] = values
+    return out
+
+
+def fixedk_sparsify(key, x_flat: torch.Tensor, p: float) -> torch.Tensor:
+    """Dense-output fixed-k sparsifier of a flat vector."""
+    d = x_flat.shape[0]
+    k = num_kept(d, p)
+    idx = fixedk_indices(key, d, k)
+    return fixedk_unpack(fixedk_pack(x_flat, idx, d), idx, d)
+
+
 def block_view(x_flat: torch.Tensor, block: int) -> torch.Tensor:
     """Pad the last axis to a block multiple and view it as
     (..., n_blocks, block)."""
@@ -81,3 +118,18 @@ def block_view(x_flat: torch.Tensor, block: int) -> torch.Tensor:
     if pad:
         x_flat = torch.nn.functional.pad(x_flat, (0, pad))
     return x_flat.reshape(tuple(x_flat.shape[:-1]) + (-1, block))
+
+
+def block_sparsify(key, x_flat: torch.Tensor, p: float, block: int
+                   ) -> torch.Tensor:
+    """Dense-output block-granular fixed-k sparsifier: whole blocks of
+    ``block`` consecutive coordinates kept or dropped together, kept
+    blocks scaled by n_blocks / k_blocks."""
+    d = x_flat.shape[0]
+    xb = block_view(x_flat, block)
+    nb = xb.shape[0]
+    kb = num_kept(nb, p)
+    idx = fixedk_indices(key, nb, kb)
+    out = torch.zeros_like(xb)
+    out[idx] = torch.index_select(xb, 0, idx) * (nb / kb)
+    return out.reshape(-1)[:d]

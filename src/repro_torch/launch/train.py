@@ -37,7 +37,9 @@ SIM_TEXT_ONLY = "--sim supports text models only"
 @dataclasses.dataclass
 class TrainRun:
     """What ``train`` returns: the final state, one loss per step and
-    each step's wall time (device-synchronised on CUDA)."""
+    each step's wall time (on CUDA, synchronised with the compute
+    stream: an exchange left in flight on the transport's side stream
+    may run on across the step boundary)."""
 
     state: object
     losses: List[float]
@@ -53,9 +55,12 @@ def train(tc, transport, *, steps: int, global_batch: int, seq_len: int,
     JAX launcher's stub context (``transformer.stub_context``) for the
     audio / vlm families, in the parameter dtype. ``state`` defaults to
     ``init_distributed_state`` from ``seed``; ``on_step(t, loss,
-    seconds)`` is called after each step."""
+    seconds)`` is called after each step. Under ``overlap`` each step
+    leaves its exchange in flight for the next; the last one is waited
+    on before the state is returned."""
     import torch
 
+    from repro_torch.core.transport import settle
     from repro_torch.data import TokenStream
     from repro_torch.models import transformer
     from repro_torch.train import steps as steps_mod
@@ -74,16 +79,16 @@ def train(tc, transport, *, steps: int, global_batch: int, seq_len: int,
         tokens, labels = (torch.as_tensor(a, device=dev)
                           for a in stream.batch_at(t))
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
         t0 = time.perf_counter()
         state, loss = step_fn(state, tokens, labels, context)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss))
         if on_step is not None:
             on_step(t, losses[-1], step_s[-1])
-    return TrainRun(state=state, losses=losses, step_s=step_s,
+    return TrainRun(state=settle(state), losses=losses, step_s=step_s,
                     tokens_per_step=global_batch * seq_len)
 
 
@@ -162,24 +167,11 @@ def _save(directory: str, step: int, state, transport) -> str:
     file per rank under ``node<rank>/`` on a process group."""
     import os
 
-    import numpy as np
-    import torch
-
-    from repro_torch import tree as tree_mod
     from repro_torch.checkpoint import save_checkpoint
 
-    def arr(v):
-        if not isinstance(v, torch.Tensor):
-            return np.asarray(v)
-        v = v.detach().cpu()
-        if v.dtype == torch.bfloat16:
-            return v.view(torch.int16).numpy().view("V2")
-        return v.numpy()
-
-    flat = {k: arr(v) for k, v in tree_mod.flatten_with_paths(state).items()}
     if transport.me.shape[0] != transport.n:
         directory = os.path.join(directory, f"node{int(transport.me[0])}")
-    return save_checkpoint(directory, step, flat)
+    return save_checkpoint(directory, step, state)
 
 
 def main(argv=None) -> None:
@@ -213,7 +205,9 @@ def main(argv=None) -> None:
                          "block:<B> | rows | qsgd[:bits] | qsgdf[:bits]; "
                          "overrides --gossip-mode")
     ap.add_argument("--overlap", action="store_true",
-                    help="one-step-stale neighbour mixing (static "
+                    help="one-step-stale neighbour mixing: the exchange "
+                         "started at step t is waited on at step t+1, free "
+                         "to run on under that step's gradient (static "
                          "topologies only)")
     ap.add_argument("--topology", default="ring",
                     help="ring | torus | torusRxC | er | er:<p_c> | star | "

@@ -131,9 +131,7 @@ def run_decentralized(
             accs.append(float(eval_fn(sim.eval_params(state))))
         if checkpoint_dir and checkpoint_every and \
                 (t + 1) % checkpoint_every == 0:
-            flat = tree_mod.flatten_with_paths(state)
-            save_checkpoint(checkpoint_dir, t + 1,
-                            {k: tree_mod.to_numpy(v) for k, v in flat.items()})
+            save_checkpoint(checkpoint_dir, t + 1, state)
         if log_every and (t + 1) % log_every == 0:
             msg = f"step {t + 1:5d} loss {losses[-1]:.4f}"
             if epss:

@@ -22,9 +22,11 @@ de-biased z = x / w (what the JAX sweep compares); the port's
 clipped trajectories, and compressed push-sum to its mass-conservation
 invariant (the JAX sweep's ``push_conservation_probe``).
 
-Not run here (it stays with the JAX package's own sweep): the "plane"
-group (multi-leaf trees: covered by the LM executor in
-test_torch_lm_train.py).
+The "plane" group runs the sweep's multi-leaf tree (``PLANE_SHAPES``,
+5 leaves of mixed ranks in one padded (8, 128) plane; gradient = x less
+each node's targets), built here from the same numpy draws the sweep
+makes; the 32 single-leaf cases run its least-squares problem. 39 cases
+in all.
 """
 import os
 import pathlib
@@ -83,9 +85,20 @@ CASES = [
     ("time_varying", "gradient-push", "matchings8x2", "fixedk"),
     ("time_varying", "gradient-push", "matchings8x2", "qsgd"),
     ("overlap", "gradient-push:ov", "dring8", "fixedk"),
+    ("plane", "sdm-dsgd", "ring8", "fixedk_packed"),
+    ("plane", "sdm-dsgd", "star4", "bernoulli"),
+    ("plane", "sdm-dsgd-fused", "ring8", "fixedk_rows"),
+    ("plane", "sdm-dsgd", "ring8", "qsgd:4"),
+    ("plane", "sdm-dsgd", "ring8", "qsgdf:4"),
+    ("plane", "dsgd", "ring8", "-"),
+    ("plane", "gradient-push", "dring8", "fixedk"),
 ]
 
 DIM, STEPS, SEED = 5 * 128, 12, 42   # method_parity_check's DIM/STEPS/key
+# method_parity_check.PLANE_SHAPES: mixed ranks and sizes, 994 elements
+# in one (8, 128) plane with 30 pad zeros
+PLANE_SHAPES = {"emb": (9, 33), "w1": (64, 7), "b1": (71,),
+                "w2": (3, 5, 11), "b2": (13,)}
 
 
 def case_id(key, topo, mode):
@@ -99,6 +112,18 @@ def inputs(n):
     b = rng.normal(size=(n, 16)).astype(np.float32)
     p0 = (rng.normal(size=(DIM,)) * 0.1).astype(np.float32)
     return a, b, p0
+
+
+def plane_inputs(n):
+    """method_parity_check.run_case's multi-leaf inputs: per-node targets
+    (one normal draw a leaf, in the tree's sorted-key order) and x_0 =
+    0.1 node 0's targets + 0.05 (grad = x - targets)."""
+    rng = np.random.default_rng(0)
+    targets = {k: rng.normal(size=(n,) + PLANE_SHAPES[k]).astype(np.float32)
+               for k in sorted(PLANE_SHAPES)}
+    p0 = {k: (np.float32(0.1) * t[0] + np.float32(0.05)).astype(np.float32)
+          for k, t in targets.items()}
+    return targets, p0
 
 
 # --------------------------------------------------------------------------
@@ -119,6 +144,7 @@ def _jax_main(out_path: str) -> None:
     from repro.core import method as method_mod
 
     assert (mpc.DIM, mpc.STEPS) == (DIM, STEPS)
+    assert mpc.PLANE_SHAPES == PLANE_SHAPES
     key = jax.random.PRNGKey(SEED)
     out = {}
     for group, mkey, topo, mode in CASES:
@@ -128,23 +154,38 @@ def _jax_main(out_path: str) -> None:
         seq = mpc.parse_seq(topo)
         n = seq.n_nodes
         cfg = mpc.make_cfg(mkey, meth, mode, n)
-        a, b, p0 = (jnp.asarray(v) for v in inputs(n))
-        stack = {"w": jnp.broadcast_to(p0, (n, DIM))}
+        cid = case_id(mkey, topo, mode)
+        if group == "plane":
+            targets, p0 = plane_inputs(n)
+            a = {k: jnp.asarray(v) for k, v in targets.items()}
+            b = jnp.zeros((n, 1), jnp.float32)
+            stack = {k: jnp.broadcast_to(jnp.asarray(v), (n,) + v.shape)
+                     for k, v in p0.items()}
 
-        def node_grad(w, a_, b_):
-            r = a_ @ w - b_
-            return a_.T @ r / a_.shape[0]
+            def grads_of(pp, a_, b_):
+                return jax.tree.map(jnp.subtract, pp, a_)
+        else:
+            a, b, p0 = (jnp.asarray(v) for v in inputs(n))
+            stack = {"w": jnp.broadcast_to(p0, (n, DIM))}
+
+            def node_grad(w, a_, b_):
+                r = a_ @ w - b_
+                return a_.T @ r / a_.shape[0]
+
+            def grads_of(pp, a_, b_, node_grad=node_grad):
+                return {"w": node_grad(pp["w"], a_, b_)}
 
         ex = meth.make_distributed(seq, cfg, "data")
 
-        def inner(p, a_, b_, ex=ex, node_grad=node_grad):
+        def inner(p, a_, b_, ex=ex, grads_of=grads_of):
             p = jax.tree.map(lambda v: jnp.squeeze(v, 0), p)
-            a_, b_ = jnp.squeeze(a_, 0), jnp.squeeze(b_, 0)
+            a_ = jax.tree.map(lambda v: jnp.squeeze(v, 0), a_)
+            b_ = jnp.squeeze(b_, 0)
             state = ex.init(p, jax.lax.axis_index("data"))
 
             def body(state, _):
                 state, _ = ex.step(
-                    state, lambda pp: ({"w": node_grad(pp["w"], a_, b_)},
+                    state, lambda pp: (grads_of(pp, a_, b_),
                                        jnp.float32(0.0)), base_key=key)
                 return state, None
 
@@ -157,8 +198,8 @@ def _jax_main(out_path: str) -> None:
                               in_specs=(P("data"), P("data"), P("data")),
                               out_specs=P("data"), axis_names={"data"},
                               check_vma=False)
-        cid = case_id(mkey, topo, mode)
-        out[cid] = np.asarray(jax.jit(fn)(stack, a, b)["w"])
+        for leaf, v in jax.jit(fn)(stack, a, b).items():
+            out[f"{cid}/{leaf}"] = np.asarray(v)
         if mkey == "sdm-dsgd:ov":
             grad_stack = jax.vmap(node_grad)
             out[cid + "|oracle"] = sdm_dense_overlap_oracle(
@@ -214,9 +255,10 @@ def make_cfg(mkey, meth, mode, n):
     return meth.coerce_config(sdm_dsgd.SDMConfig(mode=mode, **kw))
 
 
-def run_port(mkey, topo, mode):
-    """(port executor x, port reference x, transport, meth, cfg, seq)."""
-    from repro_torch import prng
+def run_port(mkey, topo, mode, group=""):
+    """(port executor x, port reference x, transport, meth, cfg, seq,
+    per-node params); x as {leaf: (n, ...) numpy}."""
+    from repro_torch import prng, tree as tree_mod
     from repro_torch.core import method as method_mod, transport as tr
 
     name = mkey.split(":")[0]
@@ -224,22 +266,35 @@ def run_port(mkey, topo, mode):
     seq = parse_seq(topo)
     n = seq.n_nodes
     cfg = make_cfg(mkey, meth, mode, n)
-    a, b, p0 = (torch.from_numpy(v) for v in inputs(n))
+    if group == "plane":
+        targets, p0 = plane_inputs(n)
+        tgt = {k: torch.from_numpy(v) for k, v in targets.items()}
+        p0 = {k: torch.from_numpy(v) for k, v in p0.items()}
 
-    def grads(tree):   # per node, one matrix-vector product at a time
-        w = tree["w"]
-        return {"w": torch.stack([a[i].T @ (a[i] @ w[i] - b[i]) / 16
-                                  for i in range(n)])}
+        def grads(tree):
+            return tree_mod.tree_map(torch.sub, tree, tgt)
+    else:
+        a, b, w0 = (torch.from_numpy(v) for v in inputs(n))
+        p0 = {"w": w0}
+
+        def grads(tree):   # per node, one matrix-vector product at a time
+            w = tree["w"]
+            return {"w": torch.stack([a[i].T @ (a[i] @ w[i] - b[i]) / 16
+                                      for i in range(n)])}
+
+    def stack():
+        return {k: v.expand((n,) + tuple(v.shape)).clone()
+                for k, v in p0.items()}
 
     key = prng.PRNGKey(SEED)
     transport = tr.StackTransport(n, "cpu")
     ex = meth.make_distributed(seq, cfg, transport)
-    state = ex.init({"w": p0.expand(n, DIM).clone()})
+    state = ex.init(stack())
     for _ in range(STEPS):
         state, _ = ex.step(state, lambda x: (grads(x), 0.0), base_key=key)
 
     sim = meth.make_reference(seq, cfg)
-    ref = sim.init({"w": p0.expand(n, DIM).clone()})
+    ref = sim.init(stack())
     for _ in range(STEPS):
         if hasattr(sim, "advance"):
             ref, _ = sim.advance(ref, key)
@@ -248,13 +303,13 @@ def run_port(mkey, topo, mode):
             ref, _ = sim.step(ref, lambda x, _b: (grads(x), 0.0), None, key)
     if name == "sdm-dsgd-fused":
         ref, _ = sim.advance(ref, key)
+    got, want = state.x, ref.x
     if name == "gradient-push":       # compare the de-biased z = x / w
         from repro_torch.core.gradient_push import _debias
 
-        return (_debias(state.x, state.w)["w"].numpy(),
-                sim.eval_params(ref)["w"].numpy(), transport, meth, cfg, seq,
-                p0)
-    return (state.x["w"].numpy(), ref.x["w"].numpy(), transport, meth, cfg,
+        got, want = _debias(state.x, state.w), sim.eval_params(ref)
+    return ({k: v.numpy() for k, v in got.items()},
+            {k: v.numpy() for k, v in want.items()}, transport, meth, cfg,
             seq, p0)
 
 
@@ -278,20 +333,24 @@ def test_executor_matches_jax_executor(jax_results, group, mkey, topo,
                                        mode):
     from repro_torch.core import wire_count
 
-    got, ref, transport, meth, cfg, seq, p0 = run_port(mkey, topo, mode)
+    got, ref, transport, meth, cfg, seq, p0 = run_port(mkey, topo, mode,
+                                                       group)
     cid = case_id(mkey, topo, mode)
-    want = jax_results[cid]
-    scale = float(np.max(np.abs(want)))
+    want = {k: jax_results[f"{cid}/{k}"] for k in got}
+    assert len(want) == (len(PLANE_SHAPES) if group == "plane" else 1)
+    scale = max(float(np.max(np.abs(v))) for v in want.values())
     assert scale > 0.01                                 # the run moved
     tol = 1e-3 if "qsgd" in mode else 1e-4
-    err = float(np.max(np.abs(got - want)))
+    err = max(float(np.max(np.abs(got[k] - want[k]))) for k in got)
     assert err < tol * max(scale, 1.0), (cid, err)
     # the port's executor against the port's reference (same package:
     # only the mixing's f32 summation order differs)
-    assert float(np.max(np.abs(got - ref))) <= 1e-5 * max(scale, 1.0)
+    assert max(float(np.max(np.abs(got[k] - ref[k]))) for k in got) \
+        <= 1e-5 * max(scale, 1.0)
     if cid + "|oracle" in jax_results:                  # one-step-stale
         oracle = jax_results[cid + "|oracle"]
-        assert float(np.max(np.abs(got - oracle))) < 1e-4 * max(scale, 1.0)
+        assert float(np.max(np.abs(got["w"] - oracle))) \
+            < 1e-4 * max(scale, 1.0)
 
     # parity contract 3: the sends and the bytes
     name = meth.name
@@ -308,7 +367,7 @@ def test_executor_matches_jax_executor(jax_results, group, mkey, topo,
         # gradient-push's fixed-k indices ship as int32, wider than the
         # accounting's ceil(log2 d) bits (wire_count.INDEX_WIRE_BITS)
         assert transport.bytes_sent == wire_count.expected_bytes_sent(
-            meth, {"w": p0}, cfg, seq, STEPS)
+            meth, p0, cfg, seq, STEPS)
     assert (transport.permutes > 0) == (name != "allreduce")
 
 
@@ -316,7 +375,7 @@ def test_overlap_diverges_from_the_plain_transport():
     """The one-step-stale transport is a real change, not a no-op flag."""
     on, _, *_ = run_port("sdm-dsgd:ov", "ring8", "fixedk_packed")
     off, _, *_ = run_port("sdm-dsgd", "ring8", "fixedk_packed")
-    assert float(np.max(np.abs(on - off))) > 1e-4
+    assert float(np.max(np.abs(on["w"] - off["w"]))) > 1e-4
 
 
 # (topology, compressor or None, overlap): static, directed, time-varying

@@ -3,7 +3,14 @@
 The paged decode and prefill flash kernels are held at f32/bf16
 tolerances; the qsgd_pack and fixedk_gather_pack kernels must equal their
 plain versions bit for bit (``torch.equal``), the fused SDM update too or,
-where a transcendental differs in its last bit, within 1e-6.
+where a transcendental differs in its last bit, within 1e-6. The ring
+gossip helpers launch fixedk_gather_pack and equal themselves with the
+gather routed to its plain version; the overlapped executors, with each
+exchange in flight on the transport's side stream, equal the run that
+waits on each exchange inside its step, also when memory is freed and
+reused between the steps; exchanges that are not deferred never touch
+the side stream. ``restore_checkpoint`` onto the card equals the host
+restore.
 
 Imports no jax (the card's machine has none). Every test here is marked
 ``cuda`` and skips without a GPU; run them on the card with
@@ -12,6 +19,8 @@ Imports no jax (the card's machine has none). Every test here is marked
 
 ``paged_case`` / ``PAGED_CASES`` are shared with ``test_torch_decode.py``.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -558,3 +567,213 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take():
         flash_attention(q, q.to(torch.bfloat16), q, block_q=64)
     with pytest.raises(ValueError):            # f16
         flash_attention(*(q.half() for _ in range(3)), block_q=64)
+
+
+# --------------------------------------------------------------------------
+# The ring helpers and the exchange left in flight (core/gossip.py,
+# core/transport.py)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_gather_pack():
+    """The gossip helpers' gather-pack routed to its plain version (what
+    the kernel is held against), on any device."""
+    from repro_torch.kernels import wire_compress
+
+    kernel = wire_compress.fixedk_gather_pack
+    wire_compress.fixedk_gather_pack = wire_compress.fixedk_gather_pack_ref
+    try:
+        yield
+    finally:
+        wire_compress.fixedk_gather_pack = kernel
+
+
+def _ring(helper, d, **kw):
+    from repro_torch import prng
+    from repro_torch.core import gossip
+    from repro_torch.core.transport import StackTransport
+
+    t = StackTransport(d.shape[0], d.device)
+    out = getattr(gossip, helper)(d, transport=t,
+                                  base_key=prng.PRNGKey(42, device=d.device),
+                                  step=3, p=0.3, neighbor_weight=0.25, **kw)
+    assert t.permutes == 2
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("helper,shape,kw", [
+    ("ring_exchange_packed", (4, 1001), dict(block=1)),
+    ("ring_exchange_packed", (4, 1001), dict(block=4)),
+    ("ring_exchange_packed", (8, 130 * 128), dict(block=128)),
+    ("ring_exchange_packed_rows", (4, 37, 16), {}),
+    ("ring_exchange_packed_rows", (8, 999, 128), {})])
+def test_ring_helpers_launch_gather_pack_and_equal_plain(helper, shape, kw):
+    from repro_torch.kernels.wire_compress import fixedk_gather_pack
+
+    dev = _cuda()
+    rng = np.random.default_rng(sum(shape))
+    d = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    n0 = fixedk_gather_pack.launches
+    own, nb = _ring(helper, d, **kw)
+    torch.cuda.synchronize()
+    assert fixedk_gather_pack.launches == n0 + 1
+    with plain_gather_pack():
+        own_p, nb_p = _ring(helper, d, **kw)
+    assert fixedk_gather_pack.launches == n0 + 1
+    assert torch.equal(own, own_p) and torch.equal(nb, nb_p)
+    assert own.shape == nb.shape == d.shape and bool(nb.abs().sum() > 0)
+
+
+PLANE_TREE = {"emb": (9, 33), "w1": (64, 7), "b1": (71,), "w2": (3, 5, 11),
+              "b2": (13,)}
+
+
+def _overlap_run(meth_name, topo, transport, steps, churn=False,
+                 waited=False):
+    """``steps`` overlapped executor steps on 8 nodes; returns the settled
+    final state's tensors and the transport's in-flight count after each
+    step. ``churn`` frees and reallocates memory between steps;
+    ``waited`` waits on each step's exchange before the next step (the
+    in-order run)."""
+    import gc
+
+    from repro_torch import prng, tree as tree_mod
+    from repro_torch.core import gossip, method, sdm_dsgd
+    from repro_torch.core.transport import settle
+
+    n, dev = transport.n, transport.device
+    rng = np.random.default_rng(6)
+    tgt = {k: torch.from_numpy(rng.normal(size=(n,) + s).astype(
+        np.float32)).to(dev) for k, s in PLANE_TREE.items()}
+    block = {k: (0.1 * v[:1] + 0.05).expand_as(v).clone()
+             for k, v in tgt.items()}
+    meth = method.get(meth_name)
+    cfg = meth.coerce_config(sdm_dsgd.SDMConfig(
+        p=0.3, theta=0.4, gamma=0.1, sigma=0.05, clip_c=1.0,
+        compressor="fixedk", overlap=True))
+    ex = meth.make_distributed(gossip.sequence_by_name(topo, n), cfg,
+                               transport)
+    state = ex.init(block)
+    in_flight = []
+    for _ in range(steps):
+        state, _ = ex.step(
+            state, lambda x: (tree_mod.tree_map(torch.sub, x, tgt), None),
+            base_key=prng.PRNGKey(7, device=dev))
+        if waited:
+            state = settle(state)
+        in_flight.append(transport.outstanding)
+        if churn:
+            gc.collect()
+            torch.cuda.empty_cache()
+            junk = [torch.full((n, 4096), float(i), device=dev)
+                    for i in range(64)]
+            del junk
+    state = settle(state)
+    assert transport.outstanding == 0
+    leaves = [v for v in tree_mod.leaves(state) if isinstance(v, torch.Tensor)]
+    return leaves, in_flight
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("meth_name,topo", [("sdm-dsgd", "ring"),
+                                            ("gradient-push", "dring")])
+def test_side_stream_overlap_equals_in_order(meth_name, topo):
+    """5 overlapped steps with each exchange in flight on the side stream
+    until the next step equal the in-order run (each exchange waited on
+    inside its step), bit for bit; then again with memory freed and
+    reused between the steps (the pending buffers are record_stream'd)."""
+    from repro_torch.core.transport import StackTransport
+
+    dev = _cuda()
+    side, flights = _overlap_run(meth_name, topo, StackTransport(8, dev), 5)
+    order, none = _overlap_run(meth_name, topo, StackTransport(8, dev), 5,
+                               waited=True)
+    churned, _ = _overlap_run(meth_name, topo, StackTransport(8, dev), 5,
+                              churn=True)
+    assert all(f > 0 for f in flights) and set(none) == {0}
+    assert len(side) == len(order) == len(churned)
+    for a, b, c in zip(side, order, churned):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_freed_send_buffer_is_not_reused_under_the_side_stream():
+    """The side stream held busy, the send buffer freed and its memory
+    asked for again on the current stream: the exchange still reads the
+    values it was given (``record_stream``)."""
+    from repro_torch.core.transport import StackTransport
+
+    dev = _cuda()
+    t = StackTransport(4, dev)
+    ring = tuple((i, (i + 1) % 4) for i in range(4))
+    x = torch.randn(4, 1 << 20, device=dev)
+    want = torch.roll(x, 1, dims=0)
+    with torch.cuda.stream(t.side_stream):
+        torch.cuda._sleep(200_000_000)           # ~0.1 s at <= 2 GHz
+    pend = t.ppermute_start(x, ring)
+    del x
+    junk = [torch.full((4, 1 << 20), 7.0, device=dev) for _ in range(8)]
+    got = pend.wait()
+    del junk
+    torch.cuda.synchronize()
+    assert t.outstanding == 0 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_exchanges_not_deferred_stay_on_the_current_stream():
+    """A plain ``ppermute`` and an executor run without ``overlap`` make
+    every copy on the current stream: the transport's side stream is
+    never made."""
+    from repro_torch import prng, tree as tree_mod
+    from repro_torch.core import gossip, method, sdm_dsgd
+    from repro_torch.core.transport import StackTransport
+
+    dev = _cuda()
+    t = StackTransport(8, dev)
+    x = torch.randn(8, 1000, device=dev)
+    ring = tuple((i, (i + 1) % 8) for i in range(8))
+    assert torch.equal(t.ppermute(x, ring), torch.roll(x, 1, dims=0))
+    rng = np.random.default_rng(6)
+    tgt = {k: torch.from_numpy(rng.normal(size=(8,) + s).astype(
+        np.float32)).to(dev) for k, s in PLANE_TREE.items()}
+    meth = method.get("sdm-dsgd")
+    cfg = meth.coerce_config(sdm_dsgd.SDMConfig(
+        p=0.3, theta=0.4, gamma=0.1, sigma=0.05, clip_c=1.0,
+        compressor="fixedk", overlap=False))
+    ex = meth.make_distributed(gossip.sequence_by_name("ring", 8), cfg, t)
+    state = ex.init({k: torch.zeros_like(v) for k, v in tgt.items()})
+    for _ in range(2):
+        state, _ = ex.step(
+            state, lambda x: (tree_mod.tree_map(torch.sub, x, tgt), None),
+            base_key=prng.PRNGKey(7, device=dev))
+    torch.cuda.synchronize()
+    assert t._side is None and t.outstanding == 0 and t.permutes == 1 + 2 * 2
+
+
+@pytest.mark.cuda
+def test_restore_onto_the_card_through_the_staging_chunks(tmp_path,
+                                                          monkeypatch):
+    """``restore_checkpoint`` onto the card, its leaves read through
+    staging chunks smaller than a leaf (and not dividing it), equals the
+    restore on the host, bf16 leaves included."""
+    from repro_torch.checkpoint import npz
+
+    rng = np.random.default_rng(9)
+    state = {"w": torch.from_numpy(rng.normal(size=(37, 129)).astype(
+        np.float32)),
+        "b": torch.from_numpy(rng.normal(size=(1001,)).astype(
+            np.float32)).to(torch.bfloat16),
+        "i": torch.arange(5, dtype=torch.int64), "e": torch.zeros(0),
+        "step": 4}
+    npz.save_checkpoint(str(tmp_path), 4, state)
+    monkeypatch.setattr(npz, "_CHUNK", 1000)
+    dev = _cuda()
+    host = npz.restore_checkpoint(str(tmp_path), state)
+    card = npz.restore_checkpoint(str(tmp_path), state, device=dev)
+    assert card["step"] == 4
+    for k in ("w", "b", "i", "e"):
+        assert card[k].device.type == "cuda"
+        assert card[k].dtype == state[k].dtype
+        assert torch.equal(card[k].cpu(), host[k])
+        assert torch.equal(host[k], state[k])

@@ -5,9 +5,19 @@
   is no destination gets zeros); its counters count every call and the
   bytes each node sends; ``pmean`` averages over the nodes.
 - ``ProcessGroupTransport`` on gloo, 4 spawned CPU processes (one node
-  each): the same ppermute semantics and counters, and an SDM-DSGD run
-  (fixedk_packed, qsgdf:4 and a time-varying replica case, sigma > 0)
-  bit-equal to the same run with all 4 nodes on one ``StackTransport``.
+  each): the same ppermute semantics and counters; three exchanges in
+  flight at once (two between the same pairs), waited on in reverse
+  order; SDM-DSGD runs (fixedk_packed, qsgdf:4 and a time-varying
+  replica case, sigma > 0) and two ``overlap`` runs with the exchange
+  left in flight from one step to the next (``sdm-dsgd:ov`` fixedk_packed
+  on the ring, ``gradient-push:ov`` fixedk on the directed ring), each
+  bit-equal to the same run with all 4 nodes on one in-order
+  ``StackTransport``.
+- The ``overlap`` executors with the exchange left in flight
+  (``transport.Pending`` in the state's ``nb``) against the same run
+  with ``nb`` waited on inside each step, on 8 nodes
+  (``sdm-dsgd:ov`` fixedk_packed on ring8, ``gradient-push:ov`` fixedk
+  on dring8).
 - The same on NCCL, one process per GPU, against a ``StackTransport`` on
   the first GPU: marked ``cuda``, it runs on a machine with 4 GPUs
   (``pytest -m cuda tests/test_torch_transport.py``) and skips elsewhere.
@@ -29,19 +39,27 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD, STEPS = 4, 4
 # (method, topology spec, compressor)
-RUNS = [("sdm-dsgd", "ring", "fixedk"), ("sdm-dsgd", "ring", "qsgdf:4"),
-        ("sdm-dsgd-fused", "matchings:2", "fixedk")]
+# (method, topology spec, compressor, overlap)
+RUNS = [("sdm-dsgd", "ring", "fixedk", False),
+        ("sdm-dsgd", "ring", "qsgdf:4", False),
+        ("sdm-dsgd-fused", "matchings:2", "fixedk", False),
+        ("sdm-dsgd", "ring", "fixedk", True),
+        ("gradient-push", "dring", "fixedk", True)]
 SHAPES = {"w1": (9, 33), "b1": (71,), "w2": (3, 5, 11)}
 
 
-def _run(meth_name, topo, comp, transport):
-    """STEPS executor steps on the transport's node block; returns the
-    final state as {name: (L, ...) numpy}."""
+def _run(meth_name, topo, comp, overlap, transport, n=WORLD,
+         wait_each_step=False):
+    """STEPS executor steps on the transport's node block of an n-node
+    run; returns the final state as {name: (L, ...) numpy} and whether
+    an exchange was in flight between steps. ``wait_each_step`` waits on
+    the state's pending exchange inside each step (the in-order run)."""
     from repro_torch import prng, tree as tree_mod
     from repro_torch.core import gossip, method, sdm_dsgd
+    from repro_torch.core.transport import Pending, settle
 
     rng = np.random.default_rng(3)
-    targets = {k: rng.normal(size=(WORLD,) + s).astype(np.float32)
+    targets = {k: rng.normal(size=(n,) + s).astype(np.float32)
                for k, s in SHAPES.items()}
     p0 = {k: (0.1 * v[0] + 0.05) for k, v in targets.items()}
     nodes = transport.me.tolist()
@@ -49,25 +67,31 @@ def _run(meth_name, topo, comp, transport):
     tgt = {k: torch.from_numpy(v[nodes]).to(dev) for k, v in targets.items()}
     block = {k: torch.from_numpy(np.broadcast_to(v, (len(nodes),) + v.shape)
                                  .copy()).to(dev) for k, v in p0.items()}
-    seq = gossip.sequence_by_name(topo, WORLD)
+    seq = gossip.sequence_by_name(topo, n)
     meth = method.get(meth_name)
     cfg = meth.coerce_config(sdm_dsgd.SDMConfig(
         p=0.3, theta=0.4, gamma=0.1, sigma=0.05, clip_c=1.0,
-        compressor=comp))
+        compressor=comp, overlap=overlap))
     ex = meth.make_distributed(seq, cfg, transport)
     state = ex.init(block)
+    in_flight = False
     for _ in range(STEPS):
         state, _ = ex.step(
             state, lambda x: (tree_mod.tree_map(torch.sub, x, tgt), None),
             base_key=prng.PRNGKey(7))
+        in_flight |= any(isinstance(v, Pending) and v.in_flight
+                         for v in state.nb or ())
+        if wait_each_step:
+            state = settle(state)
+    state = settle(state)
     out = {f"x/{k}": v for k, v in tree_mod.flatten_with_paths(state.x)
            .items()}
-    out.update({f"s/{i}": v for i, v in enumerate(state.s)})
-    for i, v in enumerate(getattr(state, "d", None) or ()):
-        out[f"d/{i}"] = v
-    for i, v in enumerate(state.xhat or ()):
-        out[f"xhat/{i}"] = v
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    for name in ("s", "d", "xhat", "nb"):
+        for i, v in enumerate(getattr(state, name, None) or ()):
+            out[f"{name}/{i}"] = v
+    if hasattr(state, "w"):
+        out["w"] = state.w
+    return {k: v.cpu().numpy() for k, v in out.items()}, in_flight
 
 
 def _probe(transport):
@@ -77,6 +101,20 @@ def _probe(transport):
         3.0, device=me.device)[None]
     got = transport.ppermute(rows, ((0, 2), (2, 1), (3, 0)))
     return got.cpu().numpy(), transport.pmean(rows).cpu().numpy()
+
+
+def _in_flight_probe(transport):
+    """Three exchanges in flight at once, two of them between the same
+    (src, dst) pairs, waited on in reverse order: (L, 3, 3) received."""
+    me = transport.me
+    rows = me.to(torch.float32)[:, None] * 10 + torch.arange(
+        3.0, device=me.device)[None]
+    ring = tuple((i, (i + 1) % WORLD) for i in range(WORLD))
+    sent = [transport.ppermute_start(rows, ring),
+            transport.ppermute_start(rows * 2 + 1, ring),
+            transport.ppermute_start(rows - 5, ((1, 3), (3, 2)))]
+    got = [p.wait() for p in reversed(sent)][::-1]
+    return torch.stack(got, dim=1).cpu().numpy()
 
 
 def _worker(backend: str, rank: int, port: int, out: str) -> None:
@@ -98,14 +136,17 @@ def _worker(backend: str, rank: int, port: int, out: str) -> None:
         res = {}
         res["probe"], res["pmean"] = _probe(t)
         res["probe_permutes"] = np.asarray(t.permutes)
+        res["in_flight"] = _in_flight_probe(t)
         wrong = "cuda" if backend == "gloo" else "cpu"
         if wrong == "cpu" or torch.cuda.is_available():
             with pytest.raises(ValueError):   # the backend's device only
                 t.ppermute(torch.zeros(1, 3, device=wrong), ((0, 1),))
         for i, run in enumerate(RUNS):
             t.reset_counters()
-            for k, v in _run(*run, t).items():
+            got, pending = _run(*run, t)
+            for k, v in got.items():
                 res[f"{i}/{k}"] = v
+            res[f"{i}/pending"] = np.asarray(pending)
             res[f"{i}/permutes"] = np.asarray(t.permutes)
             res[f"{i}/bytes"] = np.asarray(t.bytes_sent[rank])
         np.savez(out, **res)
@@ -137,6 +178,25 @@ def test_stack_transport_ppermute_semantics_and_counters():
     assert t.permutes == 0 and set(t.bytes_sent.values()) == {0}
     with pytest.raises(ValueError):                  # not a block of 4
         t.ppermute(torch.zeros(3, 2), ((0, 1),))
+
+
+@pytest.mark.parametrize("defer", [True, False])
+def test_stack_transport_split_send_completes_at_once_on_the_cpu(defer):
+    """On the CPU ``ppermute_start`` copies before it returns, deferred or
+    not: a pending exchange that is already done, counted once when it
+    starts, equal to ``ppermute``."""
+    from repro_torch.core.transport import StackTransport
+
+    t = StackTransport(WORLD, "cpu")
+    x = torch.arange(WORLD * 3.0).reshape(WORLD, 3)
+    ring = tuple((i, (i + 1) % WORLD) for i in range(WORLD))
+    pend = t.ppermute_start(x, ring, defer=defer)
+    assert not pend.in_flight and t.outstanding == 0 and t._side is None
+    assert t.permutes == 1 and t.bytes_sent == {i: 12 for i in range(WORLD)}
+    got = pend.wait()
+    assert pend.wait() is got and t.permutes == 1
+    assert torch.equal(got, t.ppermute(x, ring))
+    assert torch.equal(got, torch.roll(x, 1, dims=0))
 
 
 def test_stack_transport_defaults_to_the_card():
@@ -209,14 +269,19 @@ def _spawn_and_compare(backend: str, tmp_path, stack) -> None:
             ranks.append({k: data[k] for k in data.files})
 
     probe, mean = _probe(stack)
+    in_flight = _in_flight_probe(stack)
     for r, res in enumerate(ranks):
         assert np.array_equal(res["probe"][0], probe[r])
         assert np.allclose(res["pmean"][0], mean[r])
         assert int(res["probe_permutes"]) == 1
+        assert np.array_equal(res["in_flight"][0], in_flight[r])
     for i, run in enumerate(RUNS):
         stack.reset_counters()
-        want = _run(*run, stack)
+        want, pending = _run(*run, stack)
+        assert pending == run[3]
         for r, res in enumerate(ranks):
+            # an overlapped run leaves each step's exchange in flight
+            assert bool(res[f"{i}/pending"]) == run[3], run
             for k, v in want.items():
                 got = res[f"{i}/{k}"]
                 assert got.shape == (1,) + v.shape[1:], (run, k)
@@ -240,6 +305,25 @@ def test_process_group_transport_nccl_is_bit_equal_to_stack(tmp_path):
         pytest.skip(f"needs {WORLD} CUDA devices (NCCL refuses two ranks "
                     "on one device)")
     _spawn_and_compare("nccl", tmp_path, StackTransport(WORLD, "cuda:0"))
+
+
+@pytest.mark.parametrize("meth_name,topo", [("sdm-dsgd", "ring"),
+                                            ("gradient-push", "dring")])
+def test_overlap_in_flight_equals_in_order(meth_name, topo):
+    """The exchange left in flight from step t to step t+1 gives the same
+    state, bit for bit, as the same run waiting on it inside each step
+    (8 nodes on one block)."""
+    from repro_torch.core.transport import StackTransport
+
+    n = 8
+    run = (meth_name, topo, "fixedk", True)
+    left, pending = _run(*run, StackTransport(n, "cpu"), n=n)
+    waited, _ = _run(*run, StackTransport(n, "cpu"), n=n,
+                     wait_each_step=True)
+    assert pending
+    assert left.keys() == waited.keys() and "nb/0" in left
+    for k, v in left.items():
+        assert np.array_equal(v.view(np.uint32), waited[k].view(np.uint32)), k
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
