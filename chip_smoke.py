@@ -124,6 +124,16 @@ Phases (any failure exits non-zero):
      ``torch.equal`` to the helper with the gather routed to its plain
      version, timed against the byte bound; ``adamw`` and ``momentum``
      over the LM's f32 parameter tree for 3 steps against a CPU run.
+  23. the dry-run against the card: ``launch.dryrun.build_case`` traces
+     the three LM training cells of phases 10, 20g and 21f on the meta
+     device with their own configs (not run again); for each, the
+     dry-run's flops, bytes and peak, its roofline terms at the H100's
+     datasheet peaks (``bench/roofline``), the model flops (6 N_active
+     D), the phase's measured step and peak memory, measured over
+     roofline, the model-flop share of the step and predicted over
+     measured peak; then as many (arch x shape) cases of the full
+     dry-run on mesh ``16`` as its 120 s budget allows, one line each,
+     and the cases left out. Any failed case fails the phase.
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -134,6 +144,8 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
+import os
 import re
 import subprocess
 import sys
@@ -141,10 +153,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
-F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+# the kernels' byte and flop counts and the H100 SXM's datasheet peaks
+from repro_torch.kernels import cost  # noqa: E402
+
+HBM_BYTES_PER_S = cost.HBM_BYTES_PER_S
 
 # f32: the JAX package's own flash-vs-oracle tolerance
 # (tests/test_serving_engine.py:218). bf16: kernel and plain version both
@@ -232,25 +246,14 @@ def paged_inputs(torch, gen, *, seq_lens, n_blocks, kvh, group, dh, page,
 
 def decode_bound(seq_lens, *, window, kvh, group, dh, page, n_blocks,
                  elt_bytes):
-    """Least time of one paged decode call: the bytes it must move (the
-    visible pages of K and V, q, out, table, lengths) over HBM bandwidth,
-    against its flops over the peak for the input type."""
-    h = kvh * group
-    nbytes = 0
-    flops = 0
-    for n in seq_lens:
-        n = min(n, n_blocks * page)
-        vis = min(n, window) if window else n
-        first = (n - vis) // page
-        pages = -(-n // page) - first if vis else 0
-        nbytes += pages * page * kvh * dh * 2 * elt_bytes
-        flops += 4 * vis * h * dh
-    b = len(seq_lens)
-    nbytes += 2 * b * h * dh * elt_bytes + b * n_blocks * 4 + b * 4
-    peak = BF16_FLOPS if elt_bytes == 2 else F32_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+    """Least time of one paged decode call (``cost.paged_decode``: the
+    visible pages of K and V, q, out, table, lengths over HBM bandwidth,
+    against its flops over the peak for the input type): (ms, bound_by,
+    bytes)."""
+    c = cost.paged_decode(seq_lens, window=window, kvh=kvh, group=group,
+                          dh=dh, page=page, n_blocks=n_blocks,
+                          elt_bytes=elt_bytes)
+    return cost.bound(c, elt_bytes) + (c.nbytes,)
 
 
 def qsgd_pack_phase(torch):
@@ -336,7 +339,7 @@ def qsgd_pack_phase(torch):
     wrap_ms, wrap_host_ms = cuda_ms(torch, wrapper, iters=200)
     plain_ms, _ = cuda_ms(torch, plain, iters=20)
     x = sets[0][0]
-    nbytes = x.numel() * 8 + 50 * 4 + x.numel() // 2
+    nbytes = cost.qsgd_pack(50, x.numel() // 50, 4).nbytes
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"qsgd_pack bits=4 (50, 2128, 128) f32: kernel {ker_ms * 1e3:.2f} us "
         f"on the device ({ker_host_ms * 1e3:.2f} us per call on the host), "
@@ -584,6 +587,8 @@ def step_breakdown(torch, np, state, ins, seq, cfg, n, reps=3):
 # the full-width slice: gemma2-2b at its published widths, depth cut to
 # LM_LAYERS so that LM_NODES nodes' state and one node's activations fit
 LM_NODES, LM_LAYERS, LM_STEPS, LM_SEQ, LM_BATCH = 2, 4, 6, 512, 2
+# each LM cell's config and measurements (lm_phase), for phase 23
+LM_CELLS = {}
 # executor vs reference on the card, small width: the parity sweep's
 # tolerance (tests/test_distributed.py)
 EXEC_RTOL = 1e-4
@@ -812,6 +817,10 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
     launches = fixedk_gather_pack.launches
     peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
     ms = np.asarray(run.step_s) * 1e3
+    LM_CELLS[arch] = dict(layers=layers, enc_layers=enc_layers,
+                          seq_len=seq_len, nodes=n, batch=LM_BATCH,
+                          sdm=sdm, step_ms=float(ms[1:].mean()),
+                          peak_bytes=peak)
     bits = sdm_dsgd.transmitted_bits_per_step(template, mcfg, seq=seq)
     mode = wire_count.mode_of(meth.name, mcfg)
     calls = steps * wire_count.expected_permutes(meth.name, mode, seq)
@@ -914,7 +923,7 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
         db, idx, scale=scale), iters=10)
     lib_ms, _ = cuda_ms(torch, lambda i: torch.index_select(flat, 0, gidx),
                         iters=20)
-    nbytes = n * (kb * 128 * 4 * 2 + kb * 4)
+    nbytes = cost.fixedk_gather_pack(n, kb, 128).nbytes
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"fixedk_gather_pack on the run's final d, (L={n}, nb={nb}, kb={kb}, "
         f"block 128), step {st.step}: kernel == plain (torch.equal) {same}; "
@@ -1039,7 +1048,7 @@ def sdm_update_phase(torch, card):
     plane = ParamPlane.for_tree(template, lane=LANE, row_multiple=1)
     rows = plane.buckets[0].rows
     n = rows * LANE
-    nbytes = 40 * n                      # 7 streams read, 3 written
+    nbytes = cost.sdm_update(n).nbytes   # 7 streams read, 3 written
     predicted = 10 * n * 4 + 12 * SDM_CHUNK_ROWS * LANE * 4
     log(f"sdm_update plane: gemma2-2b x {LM_LAYERS} layers, "
         f"{plane.total_size} params -> ({rows}, {LANE}) f32; predicted peak "
@@ -1128,24 +1137,13 @@ def sdm_update_phase(torch, card):
                 host_ms_per_call=ker_host, peak_gb=peak / 1e9)
 
 
-def flash_pairs(s: int, window) -> int:
-    """Visible (query, key) pairs of one causal head of length s."""
-    if window is None or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def flash_bound(s, window, elt_bytes):
-    """(ms, bound_by, flops, bytes) of one prefill call at gemma2-2b's
-    widths: 4 dh flops per visible pair against q, k, v and out moved
-    once."""
-    flops = 4 * FLASH_DH * FLASH_H * FLASH_B * flash_pairs(s, window)
-    nbytes = FLASH_B * s * FLASH_DH * elt_bytes * (2 * FLASH_H
-                                                   + 2 * FLASH_KVH)
-    peak = BF16_FLOPS if elt_bytes == 2 else F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    """(ms, bound_by, flops, bytes) of one causal prefill call at
+    gemma2-2b's widths (``cost.flash_attn``: 4 dh flops per visible pair
+    against q, k, v and out moved once)."""
+    c = cost.flash_attn(FLASH_B, s, s, FLASH_H, FLASH_KVH, FLASH_DH,
+                        causal=True, window=window, elt_bytes=elt_bytes)
+    return cost.bound(c, elt_bytes) + (c.flops, c.nbytes)
 
 
 def flash_phase(torch, card):
@@ -2812,11 +2810,10 @@ def overlap_library_phase(torch, np, card, dev="cuda"):
     d = torch.randn(RING_NODES, rows, 128, device=dev, generator=gen)
     key = prng.PRNGKey(3, device=dev)
     kb = sparsifier.num_kept(rows, RING_P)
-    packed = RING_NODES * kb * 128 * 4
-    dense = RING_NODES * rows * 128 * 4
     # gather (read + write the kept rows), two ring copies (read + write),
     # the three packed arrays read by the scatters, two dense outputs
-    nbytes = 2 * packed + 4 * packed + 3 * packed + 2 * dense
+    nbytes = cost.ring_exchange_packed(RING_NODES, kb, rows, 128).nbytes
+    dense = RING_NODES * rows * 128 * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     helpers = {
         "ring_exchange_packed_rows": lambda t: gossip.ring_exchange_packed_rows(
@@ -2916,6 +2913,130 @@ def overlap_library_phase(torch, np, card, dev="cuda"):
     if failures:
         raise AssertionError(f"phase 22 failed: {failures}")
     return launches, extra
+
+
+# ---- slice 11: the dry-run against the card (phase 23) ---------------------
+
+DRYRUN_BUDGET_S = 110.0   # the phase stays within 120 s
+# the full dry-run's cases on mesh 16, cheapest first (decode steps, then
+# prefills, then train steps by model size)
+DRYRUN_GROUPS = (("decode_32k,long_500k", "all"), ("prefill_32k", "all"),
+                 ("train_4k", "granite-moe-1b-a400m,gemma2-2b,rwkv6-3b,"
+                  "chatglm3-6b,whisper-large-v3,llama-3.2-vision-11b,"
+                  "phi3-medium-14b,qwen3-moe-30b-a3b,qwen1.5-32b,"
+                  "jamba-v0.1-52b"))
+
+
+def dryrun_phase(torch, card):
+    """Phase 23: ``launch.dryrun.build_case`` on the meta device for the
+    LM cells phases 10, 20g and 21f ran (``LM_CELLS``: their own configs,
+    depth cut, 2 nodes, seq, batch and SDM settings), each beside what
+    that phase measured; then the full dry-run on mesh 16, one child
+    process a group of cases, as far as the phase's budget allows. A
+    case that fails fails the phase; a case the budget cuts is listed."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.bench import roofline
+    from repro_torch.launch import dryrun, shapes
+
+    t0 = time.monotonic()
+    log(f"phase 23 on {card}; roofline peaks (H100 SXM datasheet, not "
+        f"measured): {roofline.PEAK_FLOPS:.3e} FLOP/s bf16, "
+        f"{roofline.HBM_BW:.3e} B/s HBM, {roofline.LINK_BW:.3e} B/s NVLink")
+    failures = []
+    with tempfile.TemporaryDirectory() as out:
+        for arch, cell in LM_CELLS.items():
+            over = {"n_layers": cell["layers"], "remat": False}
+            if cell["enc_layers"] is not None:
+                over["n_encoder_layers"] = cell["enc_layers"]
+            n = cell["nodes"]
+            rec = dryrun.build_case(
+                arch, "train_4k", str(n), "sdm-dsgd", "fixedk_packed", out,
+                verbose=False, cfg_overrides=over,
+                sdm_overrides=dataclasses.asdict(cell["sdm"]),
+                shape_overrides=dict(seq_len=cell["seq_len"],
+                                     global_batch=n * cell["batch"]))
+            row = roofline.analyze_record(rec)
+            flops, nbytes = rec["flops"] * n, rec["bytes_accessed"] * n
+            # one card holds the whole block: its terms are n devices' work
+            t_flops = flops / roofline.PEAK_FLOPS
+            t_bytes = nbytes / roofline.HBM_BW
+            block_ms = max(t_flops, t_bytes) * 1e3
+            model = 6 * rec["model_params_active"] * rec["tokens_per_step"]
+            step_s = cell["step_ms"] / 1e3
+            pred = rec["memory"]["block_peak_memory_in_bytes"]
+            log(f"dryrun cell {arch} x{cell['layers']}"
+                + (f"+{cell['enc_layers']}" if cell["enc_layers"] else "")
+                + f" layers, {n} nodes, seq {cell['seq_len']}, batch "
+                f"{cell['batch']}/node, fixedk:128 (traced {rec['trace_s']} "
+                f"s on meta): block flops {flops:.4e}, bytes {nbytes:.4e}, "
+                f"wire {rec['collective_bytes']['total'] * n:.4e} B "
+                f"({rec['collective_ops']}); per device terms (ms) compute "
+                f"{row['compute_s'] * 1e3:.3f} memory "
+                f"{row['memory_s'] * 1e3:.3f} collective "
+                f"{row['collective_s'] * 1e3:.6f}, roofline_step_ms "
+                f"{row['roofline_step_s'] * 1e3:.3f} ({row['dominant']}); "
+                f"one card, the block: compute {t_flops * 1e3:.3f} ms, "
+                f"memory {t_bytes * 1e3:.3f} ms, roofline {block_ms:.3f} ms; "
+                f"model flops 6 N_active D = 6 x {rec['model_params_active']}"
+                f" x {rec['tokens_per_step']} = {model:.4e}; measured step "
+                f"{cell['step_ms']:.3f} ms (phase steps 2..), measured / "
+                f"roofline {cell['step_ms'] / block_ms:.2f}; model-flop "
+                f"share of the step {model / (step_s * roofline.PEAK_FLOPS):.5f}"
+                f"; peak predicted {pred / 1e9:.3f} GB vs measured "
+                f"max_memory_allocated {cell['peak_bytes'] / 1e9:.3f} GB "
+                f"(ratio {pred / max(cell['peak_bytes'], 1):.3f}) on {card}")
+            if not (math.isfinite(flops) and flops > 0 and nbytes > 0):
+                failures.append(f"{arch}: empty dry-run counts")
+        if len(LM_CELLS) != 3:
+            failures.append(f"LM cells {sorted(LM_CELLS)}: expected 3")
+        log(f"phase 23 LM cells: {time.monotonic() - t0:.1f} s")
+
+        done, left = [], []
+        for shapes_arg, arches_arg in DRYRUN_GROUPS:
+            remaining = DRYRUN_BUDGET_S - (time.monotonic() - t0)
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--mesh", "16", "--shape", shapes_arg, "--arch",
+                   arches_arg, "--keep-going", "--out", out]
+            text = ""
+            if remaining > 5:
+                try:
+                    proc = subprocess.run(
+                        cmd, capture_output=True, text=True,
+                        timeout=remaining, cwd=ROOT,
+                        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+                    text = proc.stdout
+                    if proc.returncode:
+                        failures.append(f"dry-run {shapes_arg}: rc "
+                                        f"{proc.returncode}: "
+                                        f"{proc.stderr[-2000:]}")
+                except subprocess.TimeoutExpired as exc:
+                    text = exc.stdout or ""
+                    if isinstance(text, bytes):
+                        text = text.decode()
+            got = re.findall(r"^\[(\S+) \| (\S+) \| 16\]", text, re.MULTILINE)
+            done += got
+            for line in text.splitlines():
+                if line.startswith("["):
+                    log(f"dryrun mesh 16 {line}")
+            arches = (sorted(configs.ALIASES) if arches_arg == "all"
+                      else arches_arg.split(","))
+            left += [(a, sh) for sh in shapes_arg.split(",") for a in arches
+                     if (a, sh) not in got]
+        recs = {(r["arch"], r["shape"]) for r in roofline.load_records(out)
+                if r.get("mesh") == "16"}
+        skipped = [(a, sh) for a, sh in left if shapes.skip_reason(
+            configs.get_config(a), shapes.SHAPES[sh])]
+        cut = [c for c in left if c not in skipped]
+        log(f"phase 23 full dry-run on mesh 16: {len(done)} cases traced "
+            f"({len(recs)} records), {len(skipped)} skipped as in JAX "
+            f"(long_500k on full-attention archs), left out for the "
+            f"{DRYRUN_BUDGET_S:.0f} s budget: {cut}")
+    log(f"phase 23 in all: {time.monotonic() - t0:.1f} s on {card}")
+    if failures:
+        raise AssertionError(f"phase 23 failed: {failures}")
 
 
 def ptxas_entries(text: str):
@@ -3282,6 +3403,11 @@ def main() -> int:
         n, timing["fixedk_gather_pack"]["phase22"] = overlap_library_phase(
             torch, np, card)
     launches["fixedk_gather_pack"] += n
+
+    # ---- 23. the dry-run and roofline against the LM cells -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase(torch, card)
 
     # ---- results -----------------------------------------------------------
     for key, rows in resources.items():

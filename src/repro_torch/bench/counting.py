@@ -29,16 +29,29 @@ The two nest, with the op counter inside::
     with KernelLaunches(device) as kl, OpCount() as ops:
         step()
     ops.total, ops.launches, ops.by_name, kl.n, kl.by_name, kl.records
+
+* ``ByteCount``: the dry-run's byte and memory counter (``launch/dryrun``,
+  on the ``meta`` device, where shapes exist and data does not).
+  ``nbytes`` is the bytes of every tensor input and output of every ATen
+  op that is not a view and not an allocation (``empty``): what the
+  eager port moves op by op, each op reading its inputs and writing its
+  outputs in full (a broadcast input counts at its broadcast size).
+  ``peak`` is the most bytes of storage made inside the block that were
+  alive at once: each new output storage is added when an op makes it
+  and taken off when its last reference dies (a ``weakref.finalize`` on
+  the storage), so saved activations count until backward frees them.
 """
 from __future__ import annotations
 
+import weakref
 from collections import Counter
 from typing import Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
-__all__ = ["OpCount", "KernelLaunches"]
+__all__ = ["OpCount", "KernelLaunches", "ByteCount"]
 
 _ALIASING = {"aten._unsafe_view", "aten._reshape_alias"}
 
@@ -115,3 +128,51 @@ class KernelLaunches:
         self.records = sum(e.device_type == cuda
                            and not e.name.startswith(("Memcpy", "Memset"))
                            for e in events)
+
+
+_ALLOCATIONS = {"aten.empty", "aten.empty_strided", "aten.empty_like",
+                "aten.new_empty", "aten.new_empty_strided"}
+
+
+def _tensor_bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class ByteCount(TorchDispatchMode):
+    """Bytes moved (``nbytes``) and the peak of live storage bytes made
+    inside the block (``peak``; ``live`` now), over the ATen ops
+    dispatched there. See the module docstring."""
+
+    def __init__(self):
+        super().__init__()
+        self.nbytes = 0
+        self.live = 0
+        self.peak = 0
+        self._seen = set()
+
+    def _free(self, key: int, size: int) -> None:
+        self._seen.discard(key)
+        self.live -= size
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = str(func.overloadpacket)
+        if func.is_view or name in _ALIASING:
+            return out
+        ins = [t for t in tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor)]
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        if name not in _ALLOCATIONS:
+            self.nbytes += sum(_tensor_bytes(t) for t in ins + outs)
+        held = {id(t.untyped_storage()) for t in ins}
+        for t in outs:
+            st = t.untyped_storage()
+            key = id(st)
+            if key in held or key in self._seen:
+                continue
+            self._seen.add(key)
+            size = st.nbytes()
+            self.live += size
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, key, size)
+        return out

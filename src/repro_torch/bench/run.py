@@ -11,8 +11,9 @@ A failing entry is reported and the aggregator exits 1.
 ``perf`` and ``serve`` write their snapshots (``BENCH_perf_torch.json``,
 ``BENCH_serve_torch.json``, in the working directory); their gates run
 apart, as in the JAX package (``bench.check_perf``, ``bench.check_serve``).
-``roofline`` is not ported yet: asking for it (or for everything) prints
-why and exits 1.
+``roofline`` reads the dry-run's records (``experiments/dryrun_torch/``,
+written by ``python -m repro_torch.launch.dryrun`` on the CPU) and prints
+nothing but a note when there are none, as in JAX.
 """
 from __future__ import annotations
 
@@ -34,6 +35,9 @@ BENCHES = {
                "Table 1: accuracy under (eps, delta)-DP budgets"),
     "kernels": ("repro_torch.bench.kernel_bench",
                 "CUDA kernel micro-benches against their plain versions"),
+    "roofline": ("repro_torch.bench.roofline",
+                 "three-term roofline from the dry-run records (H100 "
+                 "datasheet peaks)"),
     "sim": ("repro_torch.bench.sim_edge",
             "edge-fleet simulation -> BENCH_sim_torch.json (simulated "
             "seconds-to-target, wire bits, epsilon per method x fault "
@@ -46,11 +50,8 @@ BENCHES = {
               "static tok/s, decode steps, KV pages, decode-step launches)"),
 }
 
-# the JAX aggregator's other entries, with what they still need
-NOT_PORTED = {
-    "roofline": "the three-term roofline reads the JAX package's dry-run "
-                "artefacts (launch/dryrun), which have no port",
-}
+# the JAX aggregator's entries that have no port yet, with what they need
+NOT_PORTED: dict = {}
 
 
 def main(argv=None) -> None:

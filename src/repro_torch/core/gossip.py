@@ -229,25 +229,47 @@ def sequence_from_topologies(topos, name: str | None = None
 
 def sequence_by_name(spec: str, n_nodes: int, *,
                      self_weight: float | None = None,
-                     seed: int = 0) -> ScheduleSequence:
+                     seed: int = 0, placement: bool = False
+                     ) -> ScheduleSequence:
     """Parse a CLI spec into a ScheduleSequence: static
     ``topology.by_name`` specs give length 1, ``matchings[:L]`` gives L
-    random per-round matchings. (The JAX package's ``placement`` option
-    serves its mesh launcher and is not ported.)"""
+    random per-round matchings.
+
+    ``placement=True`` renumbers the logical nodes with
+    ``topology.greedy_placement`` before compiling (a time-varying
+    sequence places its union graph: one renumbering for every round).
+    It is applied only when it strictly lowers the ring-hop cost, so a
+    layout that is already optimal compiles unchanged. The renumbering
+    permutes W symmetrically (same spectrum) but changes W's labels and
+    the shift rounds it compiles to, so the LM launcher passes it as the
+    JAX package's launcher does."""
     from repro_torch.core import topology as topology_mod
+
+    def placed(topos):
+        if not placement:
+            return topos
+        union = np.zeros((n_nodes, n_nodes), dtype=np.int64)
+        for t in topos:
+            union |= np.asarray(t.adjacency, dtype=np.int64)
+        order = topology_mod.greedy_placement(union)
+        if topology_mod.placement_cost(union, order) < \
+                topology_mod.placement_cost(union):
+            return [topology_mod.apply_placement(t, order) for t in topos]
+        return topos
 
     spec = spec.strip().lower()
     if spec.startswith("matchings") and n_nodes > 1:
         rounds = int(spec.split(":", 1)[1]) if ":" in spec else 4
-        topos = topology_mod.random_matchings(
+        topos = placed(topology_mod.random_matchings(
             n_nodes, rounds, seed=seed,
-            self_weight=0.5 if self_weight is None else self_weight)
+            self_weight=0.5 if self_weight is None else self_weight))
         return sequence_from_topologies(
             topos, name=f"matchings{n_nodes}x{rounds}_s{seed}")
     if spec.startswith("matchings"):
         spec = "complete"
     topo = topology_mod.by_name(spec, n_nodes, self_weight=self_weight,
                                 seed=seed)
+    [topo] = placed([topo])
     return ensure_sequence(schedule_from_topology(topo))
 
 

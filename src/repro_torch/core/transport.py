@@ -117,11 +117,13 @@ class _Counters:
 
 class StackTransport(_Counters):
     """All ``n`` nodes of the run as one block on one device: the card
-    unless the caller passes ``device="cpu"`` (raises without one)."""
+    unless the caller passes ``device="cpu"`` (raises without one), or
+    ``meta`` for the dry-run (shapes only; the counters count as on a
+    device)."""
 
     def __init__(self, n: int, device="cuda"):
         self.n = int(n)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, allow_meta=True)
         self.me = torch.arange(self.n, device=self.device)
         self.nodes = tuple(range(self.n))
         self.outstanding = 0

@@ -9,7 +9,10 @@ reads the cache THROUGH the table:
 * for CUDA tensors it launches the hand-written Hopper kernel
   ``kernels/csrc/paged_decode.cu`` (which replaces the TPU kernel
   ``paged_flash_decode_pallas``), or raises -- it never falls back;
-* for CPU tensors it runs the plain version ``paged_attention_ref``.
+* for CPU tensors it runs the plain version ``paged_attention_ref``;
+* for ``meta`` tensors (the dry-run) it returns an empty meta output and
+  adds the kernel's ``kernels/cost.py`` count to the open
+  ``cost.KernelTally``; any other device raises.
 
 ``paged_attention.launches`` counts calls that launched the kernel (the
 plain version never adds to it), so a run can show that decode went
@@ -27,6 +30,8 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import cost
 
 __all__ = ["paged_attention", "paged_attention_ref", "split_plan",
            "SplitPlan"]
@@ -123,6 +128,16 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_table,
                                    seq_lens, window=window, softcap=softcap)
+    if q.device.type == "meta":
+        # the lengths have no values on meta: every row counts its whole
+        # table, the most the call could read
+        b, h, dh = q.shape
+        n_blocks, (_, page, kvh, _) = block_table.shape[1], k_pages.shape
+        cost.charge("paged_decode", cost.paged_decode(
+            [n_blocks * page] * b, window=window, kvh=kvh, group=h // kvh,
+            dh=dh, page=page, n_blocks=n_blocks,
+            elt_bytes=q.element_size()))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     return _paged_decode_cuda(q, k_pages, v_pages, block_table, seq_lens,

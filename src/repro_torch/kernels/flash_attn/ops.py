@@ -8,7 +8,10 @@ h // group, nothing repeated in memory):
 * for CUDA tensors it launches the hand-written Hopper kernel
   ``kernels/csrc/flash_attn.cu`` (which replaces the TPU kernel
   ``flash_attention_pallas``), or raises -- it never falls back;
-* for CPU tensors it runs the plain version ``ref.flash_attention_ref``.
+* for CPU tensors it runs the plain version ``ref.flash_attention_ref``;
+* for ``meta`` tensors (the dry-run) it returns an empty meta output and
+  adds the kernel's ``kernels/cost.py`` count to the open
+  ``cost.KernelTally``; any other device raises.
 
 ``flash_attention.launches`` counts kernel launches. The JAX wrapper's
 ``use_kernel`` / ``interpret`` switches, its head_dim padding to the
@@ -29,6 +32,8 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels import cost
 
 from .ref import flash_attention_ref
 
@@ -71,6 +76,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
+    if q.device.type == "meta":
+        b, sq, h, dh = q.shape
+        cost.charge("flash_attn", cost.flash_attn(
+            b, sq, k.shape[1], h, k.shape[2], dh, causal=causal,
+            window=window, elt_bytes=q.element_size()))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _flash_cuda(q, k, v, causal=causal, window=window,

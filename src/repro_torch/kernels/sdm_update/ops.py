@@ -7,7 +7,10 @@ planes with three 32-bit bit streams:
 * for CUDA tensors it launches the hand-written Hopper kernel
   ``kernels/csrc/sdm_update.cu`` (which replaces the TPU kernel
   ``sdm_update_pallas``), or raises -- it never falls back;
-* for CPU tensors it runs the plain version ``ref.sdm_update_ref``.
+* for CPU tensors it runs the plain version ``ref.sdm_update_ref``;
+* for ``meta`` tensors (the dry-run) it returns empty meta outputs and
+  adds the kernel's ``kernels/cost.py`` count to the open
+  ``cost.KernelTally``; any other device raises.
 
 ``sdm_update_planes.launches`` counts kernel launches. On the card the
 bit streams are int32 (u32 words in 4-byte storage, read as unsigned by
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.plane import ParamPlane
+from repro_torch.kernels import cost
 
 from .ref import DEFAULT_BLOCK_ROWS, LANE, inv_p_f32, sdm_update_ref
 
@@ -75,6 +79,9 @@ def sdm_update_planes(x: torch.Tensor, s: torch.Tensor, nb_sum: torch.Tensor,
     if x.device.type == "cpu":
         return sdm_update_ref(x, s, nb_sum, g, mask_bits, n1_bits, n2_bits,
                               **kw)
+    if x.device.type == "meta":
+        cost.charge("sdm_update", cost.sdm_update(x.numel()))
+        return tuple(torch.empty_like(x) for _ in range(3))
     if x.device.type != "cuda":
         raise ValueError(f"sdm_update: unsupported device {x.device}")
     return _sdm_update_cuda(x, s, nb_sum, g, mask_bits, n1_bits, n2_bits,

@@ -10,6 +10,11 @@ in ``kernels/csrc/wire_compress.cu`` (which replaces the TPU kernel
 raises; for CPU tensors it runs ``fixedk_gather_pack_ref``.
 ``fixedk_gather_pack.launches`` counts kernel launches.
 
+On ``meta`` tensors (the dry-run) both wrappers return empty meta
+outputs of the kernel's shape and dtype and add the kernel's
+``kernels/cost.py`` count to the open ``cost.KernelTally``; any other
+device raises.
+
 ``qsgd_pack`` (port of ``repro.kernels.wire_compress.ops.qsgd_pack``)
 is the fused QSGD quantize-and-pack. The caller draws
 the stochastic-rounding uniforms at the canonical plane shape and passes
@@ -33,6 +38,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from repro_torch.kernels import cost
 
 from .ref import (f32_scale, fixedk_gather_pack_ref, levels, pack_factor,
                   qsgd_quantize_pack_ref)
@@ -67,12 +74,18 @@ def qsgd_pack(xf: torch.Tensor, u: torch.Tensor, norm: torch.Tensor, *,
     if tuple(xf.shape[:norm.dim()]) != tuple(norm.shape):
         raise ValueError(f"norm {tuple(norm.shape)} is not the leading "
                          f"(batch) shape of {tuple(xf.shape)}")
+    if xf.device.type not in ("cpu", "meta", "cuda"):
+        raise ValueError(f"qsgd_pack: unsupported device {xf.device}")
     inv = qsgd_inv(norm, bits)
     if xf.device.type == "cpu":
         return qsgd_quantize_pack_ref(xf.to(torch.float32), u, inv,
                                       bits=bits)
-    if xf.device.type != "cuda":
-        raise ValueError(f"qsgd_pack: unsupported device {xf.device}")
+    if xf.device.type == "meta":
+        n = inv.numel()
+        d = xf.numel() // n if n else 0
+        cost.charge("qsgd_pack", cost.qsgd_pack(n, d, bits))
+        return torch.empty(tuple(inv.shape) + (-(-d // pack_factor(bits)),),
+                           dtype=torch.uint8, device=xf.device)
     return _qsgd_pack_cuda(xf, u, inv, bits=bits)
 
 
@@ -135,6 +148,12 @@ def fixedk_gather_pack(db: torch.Tensor, idx: torch.Tensor, *,
                          f"block view {tuple(db.shape)}")
     if db.device.type == "cpu":
         return fixedk_gather_pack_ref(db, idx, scale=scale)
+    if db.device.type == "meta":
+        kb, block = idx.shape[-1], db.shape[-1]
+        cost.charge("fixedk_gather_pack", cost.fixedk_gather_pack(
+            idx.numel() // kb if kb else 0, kb, block))
+        return torch.empty(tuple(idx.shape) + (block,), dtype=torch.float32,
+                           device=db.device)
     if db.device.type != "cuda":
         raise ValueError(f"fixedk_gather_pack: unsupported device "
                          f"{db.device}")

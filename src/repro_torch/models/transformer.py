@@ -155,8 +155,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     ``convert.params_from_jax``). A stacked leaf (``blocks/...``,
     ``encoder/layers/...``) is drawn in f32 one period (encoder layer) at
     a time and cast before the next draw, so no leaf's whole f32 draw is
-    ever held (qwen3-moe-30b-a3b's ``w_up``: 38.7 GB at 48 layers)."""
-    dev = resolve_device(device)
+    ever held (qwen3-moe-30b-a3b's ``w_up``: 38.7 GB at 48 layers).
+    On ``meta`` (the dry-run) it draws nothing: every leaf is an empty
+    meta tensor of its shape and dtype."""
+    dev = resolve_device(device, allow_meta=True)
+    if dev.type == "meta":
+        return unflatten({key: torch.empty(s.shape, dtype=dtype, device=dev)
+                          for key, s in flat_specs(cfg)})
     gen = torch.Generator(device=dev).manual_seed(seed)
     flat = {}
     for key, s in flat_specs(cfg):

@@ -8,8 +8,9 @@ context (whisper's audio frames, the VLM's image patches).
 paged KV cache (``kv_cache.py``): finished requests free their slot and
 their pages, queued requests are admitted mid-flight (a single-request
 prefill lands in the freed slot) and the decode step keeps a device-side
-done-mask and token buffer. Per decode step the host does one small
-done-mask poll; the rest of the bookkeeping (prefill, page alloc/free,
+done-mask and token buffer. Per window of ``sync_every`` decode steps
+(default 1) the host does one small done-mask poll; the rest of the
+bookkeeping (prefill, page alloc/free,
 output read-back) happens only when a request is admitted or retired.
 The device state is updated in place; the JAX engine donates it to its
 jitted step for the same effect.
@@ -115,13 +116,15 @@ class ServingEngine:
     equivalent ``max_batch * ceil(max_seq/page_size)``; ragged traffic
     runs far below that -- admission applies backpressure). On CUDA,
     decode attention runs the paged flash-decode kernel; on the CPU its
-    plain version. The host polls the done-mask after every step.
+    plain version. ``sync_every`` decode steps run between the host's
+    polls of the done-mask; a row that finishes inside a window stops
+    writing (the step's emit mask) and waits for the poll to retire.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  max_seq: int = 256, dtype: torch.dtype = torch.float32,
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", sync_every: int = 1):
         self.device = resolve_device(device)
         _check_params(params, self.device)
         self.cfg = cfg
@@ -131,6 +134,7 @@ class ServingEngine:
         self.dtype = dtype
         self.page_size = page_size
         self.n_pages = n_pages
+        self.sync_every = max(1, sync_every)
         self.recurrent = _is_recurrent(cfg)
         self.last_stats: Optional[ServeStats] = None
         self._attn_slots = [str(i) for i, s in enumerate(cfg.period)
@@ -226,12 +230,16 @@ class ServingEngine:
             if not done_np.any():
                 emit_n = int((st.active & ~st.done).sum())
                 ts = time.monotonic()
-                self._step(st, kv, kv.tables(), ctx_b)
-                stats.decode_steps += 1
-                # the one host poll per step; it waits for the step
+                tables = kv.tables()
+                for _ in range(self.sync_every):
+                    self._step(st, kv, tables, ctx_b)
+                    stats.decode_steps += 1
+                # the one host poll per window; it waits for the steps
                 done_np = (st.done & st.active).cpu().numpy()
                 stats.step_wall_s.append(time.monotonic() - ts)
-                stats.step_tokens.append(emit_n)
+                # exact for sync_every=1; a row finishing mid-window
+                # overcounts by at most sync_every-1 tokens, as in JAX
+                stats.step_tokens.append(emit_n * self.sync_every)
 
             for slot in np.nonzero(done_np)[0].tolist():
                 req = live.pop(slot)

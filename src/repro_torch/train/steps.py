@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -60,16 +60,22 @@ def _compiled_schedule(spec: str, seed: int, self_weight: float,
                        n_nodes: int) -> gossip.ScheduleSequence:
     return gossip.sequence_by_name(
         spec, n_nodes, self_weight=self_weight if spec == "ring" else None,
-        seed=seed)
+        seed=seed, placement=True)
 
 
 def gossip_schedule(tc: DistributedTrainConfig, n_nodes: int
                     ) -> gossip.ScheduleSequence:
     """The configured gossip graph over ``n_nodes``, compiled once per
-    (spec, seed, self-weight, n): the launcher banner, the init and the
-    step share one schedule object. The JAX package's placement
-    renumbering (nodes onto neighbouring ICI devices) has no counterpart
-    on one card."""
+    (spec, seed, self-weight, n): the launcher banner, the init (s_0's
+    self-weights) and the step share one schedule object.
+
+    Placed, as the JAX package's launcher compiles it:
+    ``topology.greedy_placement`` renumbers the nodes whenever that
+    strictly lowers the ring-hop cost. The renumbering is not only a
+    device layout: it relabels W and changes the shift rounds a step
+    sends (a sampled ER graph on 8 nodes compiles to fewer rounds), so
+    the trajectory follows JAX's only with it. The simulator, the
+    trainer and the wire gate compile the graph as drawn, as in JAX."""
     return _compiled_schedule(tc.topology, tc.topology_seed, tc.self_weight,
                               n_nodes)
 
@@ -104,17 +110,20 @@ def node_batch(x: torch.Tensor, transport) -> torch.Tensor:
 
 
 def node_grads(cfg: ModelConfig, x_block: PyTree, tokens: torch.Tensor,
-               labels: torch.Tensor, context: Optional[torch.Tensor] = None):
+               labels: torch.Tensor, context: Optional[torch.Tensor] = None,
+               *, nodes: Optional[Sequence[int]] = None):
     """Each node's LM gradient at its own params, one node at a time
     (only one node's activations are alive at once). ``x_block`` leaves
     are (L, ...), ``tokens`` / ``labels`` (L, b, s), ``context`` (the
     audio / vlm families' raw context) (L, b, s_ctx, d). Returns (grads
-    block, (L,) f32 losses)."""
+    block, (L,) f32 losses). ``nodes`` computes only those rows and
+    leaves the others unwritten (the dry-run traces node 0 alone: every
+    node's work has the same shapes)."""
     leaves, struct = tree_mod.flatten(x_block)
     grads = [torch.empty_like(v) for v in leaves]
     losses = torch.empty(len(tokens), dtype=torch.float32,
                          device=tokens.device)
-    for i in range(len(tokens)):
+    for i in range(len(tokens)) if nodes is None else nodes:
         mine = [v[i].detach().requires_grad_(True) for v in leaves]
         logits, aux = transformer.forward(
             tree_mod.unflatten(struct, mine), cfg, tokens[i],
@@ -128,10 +137,11 @@ def node_grads(cfg: ModelConfig, x_block: PyTree, tokens: torch.Tensor,
 
 
 def make_distributed_train(tc: DistributedTrainConfig, transport,
-                           base_key: Optional[torch.Tensor] = None
-                           ) -> Callable:
+                           base_key: Optional[torch.Tensor] = None, *,
+                           grad_fn: Optional[Callable] = None) -> Callable:
     """Returns ``train_step(state, tokens, labels, context=None) ->
-    (state, loss)``.
+    (state, loss)``. ``grad_fn`` (default ``node_grads``, same
+    signature) takes the block's gradients (the dry-run counts them).
 
     ``tokens`` / ``labels`` are the global (b, s) batch on the block's
     device, ``context`` the audio / vlm families' global (b, s_ctx, d)
@@ -147,6 +157,7 @@ def make_distributed_train(tc: DistributedTrainConfig, transport,
             f"overlap=True needs a static topology; {tc.topology!r} "
             f"compiles to a replica (time-varying) schedule")
     executor = meth.make_distributed(seq, mcfg, transport)
+    grad_fn = node_grads if grad_fn is None else grad_fn
     if base_key is None:
         base_key = prng.PRNGKey(0)
     base_key = prng.key_data(base_key).to(transport.device)
@@ -156,7 +167,7 @@ def make_distributed_train(tc: DistributedTrainConfig, transport,
         lab = node_batch(labels, transport)
         ctx = None if context is None else node_batch(context, transport)
         state, losses = executor.step(
-            state, lambda x: node_grads(cfg, x, tok, lab, ctx),
+            state, lambda x: grad_fn(cfg, x, tok, lab, ctx),
             base_key=base_key)
         return state, transport.pmean(losses)[0]
 

@@ -61,11 +61,21 @@ def test_paged_attention_bf16_plain_computes_in_f32():
     assert torch.equal(got, want)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device the port does not take (``meta``
+    is now the dry-run's: it returns an empty output and charges the
+    kernel's cost, ``tests/test_torch_dryrun.py``)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_paged_attention_rejects_other_devices_and_bad_window():
     q, k, v, tbl, lens = paged_case(2, **PAGED_CASES["smoke"])
     t = [torch.from_numpy(a) for a in (q, k, v, tbl, lens)]
     with pytest.raises(ValueError):
-        paged_attention(*[a.to("meta") for a in t])
+        paged_attention(*[a.as_subclass(_Elsewhere) for a in t])
     with pytest.raises(ValueError):
         paged_attention(*t, window=0)
 

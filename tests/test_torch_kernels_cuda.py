@@ -777,3 +777,68 @@ def test_restore_onto_the_card_through_the_staging_chunks(tmp_path,
         assert card[k].dtype == state[k].dtype
         assert torch.equal(card[k].cpu(), host[k])
         assert torch.equal(host[k], state[k])
+
+
+@pytest.mark.cuda
+def test_cost_counts_keep_the_bounds_chip_smoke_printed():
+    """``kernels/cost.py`` holds the byte and flop formulas that
+    ``chip_smoke.py`` kept inline before; at the shapes it times, each
+    kernel's bound is the one it printed then (H100 SXM datasheet peaks:
+    3.35 TB/s, 989 / 67 TFLOP/s), so the bound column of the kernel table
+    does not move. The old formulas are repeated here as they were."""
+    from repro_torch.kernels import cost
+
+    _cuda()
+    hbm = 3.35e12
+
+    # paged decode at the serving shape (phase 2's lengths)
+    lens = (np.random.default_rng(0).integers(64, 1025, 8) + 16).tolist()
+    old = 0
+    for n in lens:
+        old += -(-n // 16) * 16 * 4 * 256 * 2 * 2
+    old += 2 * 8 * 8 * 256 * 2 + 8 * 66 * 4 + 8 * 4
+    c = cost.paged_decode(lens, window=None, kvh=4, group=2, dh=256,
+                          page=16, n_blocks=66, elt_bytes=2)
+    assert c.nbytes == old
+    ms, by = cost.bound(c, 2)
+    assert (f"{ms * 1e3:.2f}", by) == ("4.07", "bytes")
+
+    # prefill flash at gemma2-2b's widths, s 8192, causal (and window 4096)
+    for elt, window, want, by_want in ((2, None, "0.278", "operations"),
+                                       (4, None, "4.103", "operations"),
+                                       (2, 4096, "0.208", "operations")):
+        pairs = 8192 * 8193 // 2 if window is None else \
+            window * (window + 1) // 2 + (8192 - window) * window
+        c = cost.flash_attn(1, 8192, 8192, 8, 4, 256, causal=True,
+                            window=window, elt_bytes=elt)
+        assert c.flops == 4 * 256 * 8 * pairs
+        assert c.nbytes == 8192 * 256 * elt * (2 * 8 + 2 * 4)
+        ms, by = cost.bound(c, elt)
+        assert (f"{ms:.3f}", by) == (want, by_want)
+
+    # the fused update over the gemma2-2b x 4 layers plane
+    n = 880_167 * 1024
+    assert cost.sdm_update(n).nbytes == 40 * n
+    assert f"{cost.sdm_update(n).nbytes / hbm * 1e3:.3f}" == "10.762"
+
+    # qsgd_pack, bits 4, the ResNet-20 x 50 stack
+    numel = 50 * 2128 * 128
+    assert cost.qsgd_pack(50, 2128 * 128, 4).nbytes == \
+        numel * 8 + 50 * 4 + numel // 2
+    assert f"{cost.qsgd_pack(50, 2128 * 128, 4).nbytes / hbm * 1e6:.2f}" == \
+        "34.56"
+
+    # fixedk_gather_pack on the gemma2-2b and whisper LM planes, p 0.2
+    for nb, want in ((7_041_330, "864.30"), (2_608_860, "320.23")):
+        kb = -(-nb // 5)
+        assert cost.fixedk_gather_pack(2, kb, 128).nbytes == \
+            2 * (kb * 128 * 4 * 2 + kb * 4)
+        assert f"{cost.fixedk_gather_pack(2, kb, 128).nbytes / hbm * 1e6:.2f}" \
+            == want
+
+    # the ring helpers at (4, 7,041,330, 128)
+    kb = -(-7_041_330 // 5)
+    packed, dense = 4 * kb * 128 * 4, 4 * 7_041_330 * 128 * 4
+    got = cost.ring_exchange_packed(4, kb, 7_041_330, 128).nbytes
+    assert got == 9 * packed + 2 * dense
+    assert f"{got / hbm * 1e3:.2f}" == "16.36"

@@ -212,13 +212,13 @@ def test_aggregator_runs_entries_and_refuses_what_is_not_ported(
     assert out.strip().endswith("# all benchmarks passed")
     assert {p.name for p in tmp_path.iterdir()} == {
         "BENCH_perf_torch.json", "BENCH_serve_torch.json"}
-    for name in ("roofline",):
-        with pytest.raises(SystemExit) as exc:
-            bench_run.main(["--only", f"theory,{name}", "--device", "cpu"])
-        assert exc.value.code == 1
-        out = capsys.readouterr().out
-        assert f"# === {name}: not ported yet" in out
-        assert f"# FAILED: ['{name}']" in out
+    # roofline is ported: with no dry-run records in the cwd it prints a
+    # note and passes, as the JAX entry does; nothing is left unported
+    bench_run.main(["--only", "theory,roofline", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "roofline: no dry-run records found" in out
+    assert out.strip().endswith("# all benchmarks passed")
+    assert bench_run.NOT_PORTED == {}
     with pytest.raises(SystemExit):
         bench_run.main(["--only", "nope", "--device", "cpu"])
     assert set(bench_run.BENCHES) | set(bench_run.NOT_PORTED) == {
