@@ -134,6 +134,15 @@ Phases (any failure exits non-zero):
      measured peak; then as many (arch x shape) cases of the full
      dry-run on mesh ``16`` as its 120 s budget allows, one line each,
      and the cases left out. Any failed case fails the phase.
+  24. the static privacy and wire auditor on the card
+     (``repro_torch.analysis``): the 26 configs of its matrix, each
+     traced for 3 steps on ``StackTransport(4, "cuda")``, must pass every
+     pass, the two negative controls flagged by the taint pass; the
+     ``fixedk_packed`` rows' graphs hold ``fixedk_gather_pack`` nodes and
+     the ``qsgdf:4`` rows' ``qsgd_pack`` nodes, each launched once a node
+     during the trace (added to the kernels' launches); one traced
+     config's graph, run again, gives a final state ``torch.equal`` to an
+     untraced run of the same 3 steps. Budget 60 s.
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -1955,7 +1964,8 @@ def gates_phase(torch, card, kernels):
     log(f"phase 18 serve: decode step {serve['decode_aten_ops']} ATen ops, "
         f"{serve['decode_kernel_launches']} kernel launches (paged "
         f"{serve['decode_paged_kernel_launches']}; the profiler holds "
-        f"{serve['decode_kernel_records']} kernel records); records "
+        f"{serve['decode_kernel_records']} kernel records); host syncs a "
+        f"serve {json.dumps(serve['host_syncs'])}; records "
         f"{json.dumps(serve['records'])}")
     for rec in perf["records"]:
         log(f"phase 18 perf {rec['case']}: kernel_launches "
@@ -3039,6 +3049,80 @@ def dryrun_phase(torch, card):
         raise AssertionError(f"phase 23 failed: {failures}")
 
 
+LINT_BUDGET_S = 60.0
+
+
+def lint_phase(torch, card, dev="cuda"):
+    """Phase 24: the static auditor's matrix traced on the card (see the
+    module docstring). Returns the wire kernels' launches during the
+    traces. CPU rehearsal: ``dev="cpu"`` with ``torch.cuda.synchronize``
+    stubbed (no kernel nodes there: the plain versions run)."""
+    from repro_torch.analysis import graph_taint, wire_audit
+
+    t0 = time.monotonic()
+    log(f"phase 24 on {card}: {len(wire_audit.MATRIX)} configs, "
+        f"{wire_audit.STEPS} steps each on StackTransport"
+        f"({wire_audit.N_NODES}, {dev})")
+    launches = {"fixedk_gather_pack": 0, "qsgd_pack": 0}
+    failures = []
+    for ac in wire_audit.MATRIX:
+        t1 = time.monotonic()
+        row = wire_audit.audit_config(ac, device=dev)
+        torch.cuda.synchronize()
+        g = row["graph"]
+        bad = {k: row[k] for k in ("taint", "prng", "wire", "sensitivity",
+                                   "calibration", "range", "overlap")
+               if row[k]}
+        for key in launches:
+            launches[key] += g["kernel_launches"][key]
+        want = []
+        if "fixedk_packed" in ac.mode:
+            want.append("fixedk_gather_pack")
+        if ac.mode == "qsgdf:4":
+            want.append("qsgd_pack")
+        kernels_ok = dev == "cpu" or all(
+            g["kernel_nodes"][k] > 0
+            and g["kernel_launches"][k] == g["kernel_nodes"][k]
+            for k in want)
+        log(f"  {row['id']:48s} {row['status']} n_draws={row['n_draws']} "
+            f"sanitize={row['n_sanitize_sites']} nodes={g['nodes']} "
+            f"kernel nodes={g['kernel_nodes']} launches="
+            f"{g['kernel_launches']} {time.monotonic() - t1:.2f} s"
+            + (f" findings={bad}" if bad else ""))
+        if row["status"] != "pass" or not kernels_ok:
+            failures.append(row["id"])
+    for cid in ("allreduce/ring4/-/dirty",
+                "sdm-dsgd/ring4/fixedk_packed/dirty"):
+        ac = next(a for a in wire_audit.MATRIX if a.id == cid)
+        b = wire_audit.build(ac, dev)
+        kinds = [f["kind"] for f in graph_taint.analyze_taint(
+            b.gm, {1: "data", 2: "data"})["findings"]]
+        log(f"  negative control {cid}: taint findings {kinds}")
+        for key in launches:
+            launches[key] += b.launches[key]
+        if kinds != ["tainted-collective"]:
+            failures.append(cid)
+    ac = next(a for a in wire_audit.MATRIX
+              if a.id == "sdm-dsgd/ring4/fixedk_packed+ov/sigma1")
+    b = wire_audit.build(ac, dev)
+    x_graph, loss_graph = b.gm(*b.args)
+    x_eager, loss_eager = wire_audit.run_eager(ac, dev)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(x_graph, x_eager)
+                and torch.equal(loss_graph, loss_eager))
+    log(f"  {ac.id}: the traced graph run again == an untraced run of the "
+        f"same {wire_audit.STEPS} steps (final x and loss, torch.equal): "
+        f"{same}")
+    if not same:
+        failures.append("traced != untraced")
+    secs = time.monotonic() - t0
+    log(f"phase 24: {secs:.1f} s (budget {LINT_BUDGET_S:.0f} s) on {card}; "
+        f"wire kernel launches during the traces {launches}")
+    if failures or secs > LINT_BUDGET_S:
+        raise AssertionError(f"phase 24 failed: {failures}, {secs:.1f} s")
+    return launches
+
+
 def ptxas_entries(text: str):
     """{mangled kernel name: (registers, spill store bytes)} from an
     ``nvcc -Xptxas -v`` log."""
@@ -3408,6 +3492,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dryrun_phase(torch, card)
+
+    # ---- 24. the static auditor on the card --------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, n in lint_phase(torch, card).items():
+        launches[key] += n
 
     # ---- results -----------------------------------------------------------
     for key, rows in resources.items():

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "host_to_device"]
 
 
 def resolve_device(device, *, allow_meta: bool = False) -> torch.device:
@@ -21,3 +21,15 @@ def resolve_device(device, *, allow_meta: bool = False) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def host_to_device(array, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on ``device``. On CUDA the
+    copy goes through pinned memory and does not wait for the stream: a
+    copy from pageable memory (``torch.as_tensor(array, device=cuda)``)
+    synchronizes the host with the stream after it. On the CPU the
+    result may share ``array``'s memory, as ``torch.as_tensor``'s does."""
+    t = torch.as_tensor(array)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -6,7 +6,9 @@ Port of ``benchmarks/serve_bench.py``, on the same workload: the
 high-variance ``BUDGETS``, drawn from ``default_rng(SEED)``), served by
 both engines after a warm-up pass:
 
-    tok_s               generated tokens / serve() wall-clock
+    tok_s               generated tokens / serve() wall-clock, the
+                        median wall of ``RUNS`` timed serves (``runs``
+                        holds each one's wall and tok/s)
     p50_ms / p95_ms     per-token decode latency percentiles
                         (step wall / tokens emitted that step)
     ttft_p50_ms / ttft_max_ms
@@ -33,15 +35,26 @@ eagerly and counts one warmed-up ``decode_step_paged`` call instead
                             call, CUDA only, not gated (a process that has
                             traced much work before loses some)
 
+On CUDA the record also counts the host's waits on the device:
+
+    host_syncs          {engine: stream synchronizations of one serve},
+                        counted by torch's sync debug mode (one warning
+                        each: an item read, a copy to the host, a copy
+                        from pageable host memory) in an untimed serve
+
 The plain paged attention runs only on CPU tensors, so the reference
 path has no kernel-launch counterpart; on the CPU the step's ATen ops
 include the plain version's.
 
-Wall-clock is the device's host: continuous against static, one timed
-serve each as in the JAX script. On a shared CPU host another process's
-load can decide that comparison; the structural numbers (decode steps,
-pages, launch counts) do not depend on it. ``baselines/serve.json`` holds, per device (``"cpu"``,
-``"cuda"``), the launch counts that ``check_serve`` gates against.
+Wall-clock is the device's host: continuous against static. After one
+warm-up serve each, the engines serve the workload ``RUNS`` (5) times,
+interleaved static / continuous, and each record's tok/s comes from its
+median wall (the latency percentiles and TTFTs from that median run):
+the JAX script times a single serve each, and on the card one serve of
+78 tokens read either way from run to run. The structural numbers
+(decode steps, pages, launch counts) do not depend on the clock.
+``baselines/serve.json`` holds, per device (``"cpu"``, ``"cuda"``), the
+launch counts that ``check_serve`` gates against.
 
   PYTHONPATH=src python -m repro_torch.bench.serve_bench             # card
   PYTHONPATH=src python -m repro_torch.bench.serve_bench --device cpu
@@ -57,6 +70,7 @@ import argparse
 import json
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -65,7 +79,8 @@ from repro_torch._device import resolve_device
 from repro_torch.bench.counting import KernelLaunches, OpCount
 
 __all__ = ["run", "ARCH", "MAX_BATCH", "MAX_SEQ", "PAGE_SIZE", "N_REQUESTS",
-           "BUDGETS", "SEED", "OUT_PATH", "BASELINE", "BASELINE_KEYS"]
+           "BUDGETS", "SEED", "RUNS", "OUT_PATH", "BASELINE",
+           "BASELINE_KEYS"]
 
 OUT_PATH = "BENCH_serve_torch.json"
 BASELINE = os.path.join(os.path.dirname(__file__), "baselines", "serve.json")
@@ -80,6 +95,7 @@ PAGE_SIZE = 8
 N_REQUESTS = 12
 BUDGETS = [16, 1, 2, 12, 1, 3, 16, 2, 8, 1, 4, 12]   # high variance
 SEED = 7
+RUNS = 5           # timed serves per engine, interleaved; the median decides
 
 
 def _requests(cfg):
@@ -105,14 +121,46 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _engine_record(case, eng, cfg):
-    eng.serve(_requests(cfg))               # warm-up
+def _timed_serve(eng, cfg):
+    """(wall seconds, outputs, stats) of one serve of the workload."""
     _sync(eng.device)
     t0 = time.monotonic()
     out = eng.serve(_requests(cfg))
     _sync(eng.device)
-    wall = time.monotonic() - t0
-    stats = eng.last_stats
+    return time.monotonic() - t0, out, eng.last_stats
+
+
+def _host_syncs(eng, cfg) -> int:
+    """Stream synchronizations of one serve on CUDA: torch's sync debug
+    mode warns once at each."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.serve(_requests(cfg))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def _engine_records(engines, cfg):
+    """One record per (case, engine): a warm-up serve each, then ``RUNS``
+    timed serves, the engines interleaved within each round."""
+    for _, eng in engines:
+        eng.serve(_requests(cfg))               # warm-up
+    timed = {case: [] for case, _ in engines}
+    for _ in range(RUNS):
+        for case, eng in engines:
+            timed[case].append(_timed_serve(eng, cfg))
+    return [_engine_record(case, timed[case]) for case, _ in engines]
+
+
+def _engine_record(case, timed):
+    """A record from the timed serves of one engine: tok/s from the
+    median wall, the latencies of that median run."""
+    order = sorted(range(len(timed)), key=lambda i: timed[i][0])
+    wall, out, stats = timed[order[len(order) // 2]]
     per_tok = [w / max(t, 1) * 1e3
                for w, t in zip(stats.step_wall_s, stats.step_tokens)]
     tokens = sum(len(r.output) for r in out)
@@ -120,6 +168,8 @@ def _engine_record(case, eng, cfg):
         "case": case,
         "tokens": tokens,
         "tok_s": round(tokens / wall, 1),
+        "runs": [{"wall_s": round(w, 6), "tok_s": round(
+            sum(len(r.output) for r in o) / w, 1)} for w, o, _ in timed],
         "p50_ms": round(_percentile(per_tok, 0.50), 3),
         "p95_ms": round(_percentile(per_tok, 0.95), 3),
         "ttft_p50_ms": round(_percentile(stats.ttft_s, 0.50) * 1e3, 3),
@@ -188,15 +238,19 @@ def run(device="cuda", *, params=None, out_path: str = OUT_PATH,
     if params is None:
         params = transformer.init_params(cfg, seed=0, device=device)
 
-    records = [
-        _engine_record("static", StaticServingEngine(
+    engines = [
+        ("static", StaticServingEngine(
             cfg, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
-            device=device), cfg),
-        _engine_record("continuous", ServingEngine(
+            device=device)),
+        ("continuous", ServingEngine(
             cfg, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
-            page_size=PAGE_SIZE, device=device), cfg),
+            page_size=PAGE_SIZE, device=device)),
     ]
+    records = _engine_records(engines, cfg)
     counts = _decode_counts(cfg, params, device)
+    if device.type == "cuda":
+        counts["host_syncs"] = {case: _host_syncs(eng, cfg)
+                                for case, eng in engines}
     out = {
         "device": device.type,
         "device_name": (torch.cuda.get_device_name(device)

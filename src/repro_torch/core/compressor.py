@@ -115,6 +115,10 @@ class Compressor:
     def p_max(self) -> float:
         return max(self.p) if isinstance(self.p, tuple) else self.p
 
+    @property
+    def p_min(self) -> float:
+        return min(self.p) if isinstance(self.p, tuple) else self.p
+
     def p_of(self, node, device="cpu"):
         """Transmit probability of ``node``: the scalar, or an f32 gather
         of the per-node tuple."""
@@ -160,6 +164,15 @@ class Compressor:
         return float(self.wire_bits(shape, value_bits=value_bits,
                                     index_sync=index_sync, node=node))
 
+    def coord_sensitivity_transfer(self, beta: float,
+                                   shape: Tuple[int, ...]) -> float:
+        """Worst-case coordinate bound after a compress -> decompress
+        roundtrip of a tensor whose coordinates are bounded by ``beta``
+        (the static auditor's certificate records it). A family that
+        declares none is unbounded."""
+        del shape
+        return math.inf if beta > 0.0 else 0.0
+
 
 
 # ==========================================================================
@@ -202,6 +215,11 @@ class BernoulliCompressor(Compressor):
         return int(round(self.wire_bits_exact(
             shape, value_bits=value_bits, index_sync=index_sync, node=node)))
 
+    def coord_sensitivity_transfer(self, beta, shape):
+        # kept coordinates are rescaled by 1/p; the sparsest node's
+        # budget is the worst case under per-node p
+        del shape
+        return beta / self.p_min
 
 
 # ==========================================================================
@@ -291,6 +309,13 @@ class FixedKCompressor(Compressor):
             bits += kb * index_bits(nb)
         return bits
 
+    def coord_sensitivity_transfer(self, beta, shape):
+        # kept blocks are rescaled by nb/kb, largest at the smallest p;
+        # distinct top-k indices never stack two blocks on a coordinate
+        d = int(math.prod(shape))
+        nb = -(-d // self.block)
+        return beta * nb / sparsifier.num_kept(nb, self.p_min)
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -334,6 +359,10 @@ class RowsCompressor(Compressor):
         if not index_sync:
             bits += kb * index_bits(rows)
         return bits
+
+    def coord_sensitivity_transfer(self, beta, shape):
+        rows, _ = self._rows_cols(tuple(shape))
+        return beta * rows / sparsifier.num_kept(rows, self.p_min)
 
 
 
@@ -426,6 +455,11 @@ class QSGDCompressor(Compressor):
         if self.pack_factor > 1:
             return -(-d // self.pack_factor) * 8 + 32
         return d * self.bits + 32
+
+    def coord_sensitivity_transfer(self, beta, shape):
+        # a decompressed coordinate is (||x|| / s) q with |q| <= s: at most
+        # the l2 norm, <= beta sqrt(d)
+        return beta * math.sqrt(int(math.prod(shape)))
 
 
 

@@ -39,10 +39,12 @@ time-varying sequence picks its round's schedule in Python
 
 The schedules are plain Python/numpy, identical to the JAX package's, so
 both packages mix with the same dense matrices and charge the same wire
-cost. The JAX package's ``wire_payload`` tag (an identity its analyzer
-reads) has no counterpart here, nor has its ``REPRO_FUSED_PACK=0``
-switch: on a CUDA tensor it would route the packed exchange to the
-plain gather, and on the CPU the plain gather is the route already.
+cost. Every send goes through ``_send``, which marks its buffer with the
+``tagging.wire_payload`` tag (the counterpart of the JAX package's
+``_wire_ppermute``; an identity outside the auditor's trace). The JAX
+package's ``REPRO_FUSED_PACK=0`` switch has no counterpart: on a CUDA
+tensor it would route the packed exchange to the plain gather, and on
+the CPU the plain gather is the route already.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.core import sparsifier
+from repro_torch.core import sparsifier, tagging
 from repro_torch.core.transport import Pending
 
 __all__ = ["mix_dense", "apply_weights_dense", "PermuteSchedule",
@@ -454,6 +456,18 @@ def _round_weight(rnd: ScheduleRound, me: torch.Tensor) -> torch.Tensor:
     return _table(rnd.recv_weights, me)
 
 
+def _send(transport, x: torch.Tensor, perm, defer: bool = True) -> Pending:
+    """The one wire call site: ``x`` tagged as a wire buffer, then
+    ``transport.ppermute_start``."""
+    return transport.ppermute_start(tagging.wire_payload(x), perm,
+                                    defer=defer)
+
+
+def _send_now(transport, x: torch.Tensor, perm) -> torch.Tensor:
+    """``_send`` not deferred, waited on."""
+    return _send(transport, x, perm, defer=False).wait()
+
+
 def _ppermute_payload_start(transport, payload, perm, defer=True
                             ) -> Pending:
     """Every tensor field of a compressor payload across one round (one
@@ -462,8 +476,7 @@ def _ppermute_payload_start(transport, payload, perm, defer=True
     cross as int32, the width ``lax.top_k`` gives them in the JAX
     package, and come back to their own dtype on receipt."""
     def start(v):
-        return None if v is None else transport.ppermute_start(
-            v, perm, defer=defer)
+        return None if v is None else _send(transport, v, perm, defer)
 
     def got(p):
         return None if p is None else p.wait()
@@ -497,8 +510,7 @@ def exchange_start(schedule, x: torch.Tensor, transport, step=None, *,
     rounds = _active(ensure_sequence(schedule), step).rounds
     if not rounds:
         return Pending.done(torch.zeros_like(x))
-    sent = [transport.ppermute_start(x, rnd.perm, defer=defer)
-            for rnd in rounds]
+    sent = [_send(transport, x, rnd.perm, defer) for rnd in rounds]
 
     def finish():
         total = None
@@ -634,7 +646,7 @@ def _packed_exchange_start(seq: ScheduleSequence, db: torch.Tensor,
                                             step=step)
     own = _unpack(db, my_vals, my_idx)
     sched = _active(seq, step)
-    sent = [transport.ppermute_start(my_vals, rnd.perm, defer=defer)
+    sent = [_send(transport, my_vals, rnd.perm, defer)
             for rnd in sched.rounds]
     del my_vals
     shape, dtype = own.shape, own.dtype
@@ -728,8 +740,8 @@ def ring_exchange(x: torch.Tensor, transport
     """Send ``x`` to both ring neighbours: (from_left, from_right) with
     ``from_left[i] = x[i-1]`` and ``from_right[i] = x[i+1]``."""
     n = transport.n
-    return (transport.ppermute(x, _perm(n, +1)),
-            transport.ppermute(x, _perm(n, -1)))
+    return (_send_now(transport, x, _perm(n, +1)),
+            _send_now(transport, x, _perm(n, -1)))
 
 
 def ring_weighted_neighbor_sum(x: torch.Tensor, transport,
@@ -751,8 +763,8 @@ def _ring_packed(db: torch.Tensor, transport, *, base_key, step, p,
     nb = db.shape[-2]
     kb, my_idx, my_vals = _packed_selection(db, p, me, base_key=base_key,
                                             step=step)
-    from_left = transport.ppermute(my_vals, _perm(n, +1))
-    from_right = transport.ppermute(my_vals, _perm(n, -1))
+    from_left = _send_now(transport, my_vals, _perm(n, +1))
+    from_right = _send_now(transport, my_vals, _perm(n, -1))
     own = _unpack(db, my_vals, my_idx)
     del my_vals
     senders = torch.stack([torch.remainder(me - 1, n),
@@ -814,7 +826,7 @@ def union_exchange(useq: UnionSchedule, x: torch.Tensor, transport
                    ) -> torch.Tensor:
     """``x`` over every union round: (L, n_replicas, ...), slot k the
     increment from the shift-s_k sender (zeros where there is none)."""
-    return torch.stack([transport.ppermute(x, rnd.perm)
+    return torch.stack([_send_now(transport, x, rnd.perm)
                         for rnd in useq.rounds], dim=1)
 
 
@@ -840,7 +852,7 @@ def _union_packed_exchange(useq: UnionSchedule, db: torch.Tensor, transport,
     sender_idx = _batched_sender_indices(useq, me, base_key=base_key,
                                          step=step, nb=nb, kb=kb)
     incr = torch.stack([
-        _unpack(db, transport.ppermute(my_vals, rnd.perm), sender_idx[:, i])
+        _unpack(db, _send_now(transport, my_vals, rnd.perm), sender_idx[:, i])
         for i, rnd in enumerate(useq.rounds)], dim=1)
     return own, incr
 

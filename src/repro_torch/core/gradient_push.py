@@ -40,9 +40,9 @@ qsgd path (``sdm_dsgd._plane_payload_exchange``, key
 ``node_round_key(fold_in(base, bucket), node, step)``). The step
 counter is a host int. With ``overlap`` the state's ``nb`` holds the
 exchange started at step t still in flight (``transport.Pending``), waited
-on at step t+1 just before it is folded into s. The JAX package's
-``tagging.pending_buffer`` marks are identities its analyzer reads; the
-port does not carry them.
+on at step t+1 just before it is folded into s; it is marked
+``tagging.pending_buffer`` (an identity outside the static auditor's
+trace).
 """
 from __future__ import annotations
 
@@ -53,7 +53,7 @@ import torch
 
 from repro_torch import tree as tree_mod
 from repro_torch.core import compressor as compressor_mod, gossip
-from repro_torch.core import plane as plane_mod
+from repro_torch.core import plane as plane_mod, tagging
 from repro_torch.core.transport import settle
 from repro_torch.core.sdm_dsgd import (_key_on, _node_noise_key,
                                        _plane_payload_exchange,
@@ -221,10 +221,10 @@ class GradientPushReference:
         elif cfg.overlap:
             # one-step-stale: consume last step's pending increments
             s = tree_mod.tree_map(torch.add, state.s, state.nb)
-            nb = tree_mod.tree_map(
+            nb = tagging.pending_buffer(tree_mod.tree_map(
                 lambda dh, s_: gossip.apply_weights_dense(
                     p_t, dh, include_self=False).to(s_.dtype),
-                delta_hat, s)
+                delta_hat, s))
         else:
             s = tree_mod.tree_map(
                 lambda s_, dh: s_ + gossip.apply_weights_dense(
@@ -370,7 +370,7 @@ def gradient_push_distributed_step(state: GradientPushState, grads: PyTree,
             # consume last step's pending deliveries (waited on here);
             # this step's stay in flight until the next step
             s = tuple(s_ + settle(p_) for s_, p_ in zip(state.s, state.nb))
-            nb_store = nb_sum
+            nb_store = tagging.pending_buffer(nb_sum)
         else:
             s = tuple(s_ + nb for s_, nb in zip(state.s, nb_sum))
         s_store = s

@@ -33,9 +33,10 @@ shared by the block. Where the JAX functions return a new state, the
 port updates the state's buffers in place (x, s, the replicas, and d's
 storage for the next differential): the same numbers, without a second
 copy of every buffer at full width. ``init_*`` copy the params they are
-given into the state. The JAX package's ``tagging`` marks (``sanitize``,
-``pending_buffer``) are identities that only its static analyzer reads;
-the port does not carry them.
+given into the state. ``masked_grad`` marks its output ``sanitize`` (only
+when sigma > 0) and the overlap marks its fresh neighbour sums
+``pending_buffer`` (``core/tagging``): identities outside the static
+auditor's trace.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ import torch
 
 from repro_torch import prng, tree as tree_mod
 from repro_torch.core import clipping, compressor as compressor_mod, gossip
-from repro_torch.core import plane as plane_mod
+from repro_torch.core import plane as plane_mod, tagging
 from repro_torch.core.topology import Topology
 from repro_torch.core.transport import Pending
 
@@ -202,11 +203,14 @@ def compressor_of(cfg) -> compressor_mod.Compressor:
 
 def masked_grad(grads: PyTree, key, *, sigma: float,
                 clip_c: float | None) -> PyTree:
-    """clip (optional) then Gaussian-mask: g_hat = clip(g) + eta."""
+    """clip (optional) then Gaussian-mask: g_hat = clip(g) + eta. Only a
+    noised gradient (sigma > 0) is marked sanitized."""
     if clip_c is not None:
         grads = clipping.clip_tree(grads, clip_c)
     if sigma > 0.0:
         grads = _add_noise(key, grads, sigma)
+        grads = tagging.sanitize(grads,
+                                 node_dims=prng.key_data(key).dim() - 1)
     return grads
 
 
@@ -364,9 +368,9 @@ class ReferenceSimulator:
             # step's wait in the pending buffer until the next advance.
             w_t = self._weights_at(state.step)
             s = tree_mod.tree_map(torch.add, state.s, state.nb)
-            nb = tree_mod.tree_map(
+            nb = tagging.pending_buffer(tree_mod.tree_map(
                 lambda v, s_: gossip.apply_weights_dense(
-                    w_t, v, include_self=False).to(s_.dtype), sd, s)
+                    w_t, v, include_self=False).to(s_.dtype), sd, s))
             return state._replace(x=x, s=s, e=new_e, nb=nb), sd
         if self.time_varying:
             w_t = self._weights_at(state.step)
@@ -646,7 +650,7 @@ def distributed_advance(state: SDMState, *, base_key, transport,
         # this step mixes the PENDING buffer (last step's exchange, waited
         # on here); the fresh exchange stays in flight until the next step
         _add_planes(state.s, state.nb)
-        return state._replace(nb=nb)
+        return state._replace(nb=tagging.pending_buffer(nb))
     _add_planes(state.s, nb)
     return state
 
@@ -712,7 +716,8 @@ def distributed_step_fused(state: SDMFusedState, grads: PyTree, *, base_key,
     del own
     if cfg.overlap:
         _add_planes(state.s, state.nb)
-        return SDMFusedState(x=state.x, s=state.s, step=sp_step, nb=nb)
+        return SDMFusedState(x=state.x, s=state.s, step=sp_step,
+                             nb=tagging.pending_buffer(nb))
     _add_planes(state.s, nb)
     return SDMFusedState(x=state.x, s=state.s, step=sp_step)
 

@@ -44,15 +44,24 @@ Both transports count every exchange once, when it starts
 each is one collective-permute in the JAX package), and the bytes each
 node they hold puts on the wire (``bytes_sent``): the parity contract's
 send and byte invariants (``core/wire_count.py``).
+
+While the static auditor records a trace (``core/tagging.recording``)
+each exchange marks its operand with a ``collective`` node
+(``ppermute``, or ``ppermute_start`` for a deferred one and
+``ppermute_done`` on its result when it is waited on), and ``pmean``
+likewise; the stack transport then completes a deferred exchange on the
+current stream (the graph holds dataflow, not streams).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, Dict, Sequence, Tuple
 
 import torch
 
 from repro_torch import tree as tree_mod
 from repro_torch._device import resolve_device
+from repro_torch.core import tagging
 
 __all__ = ["Pending", "settle", "StackTransport", "ProcessGroupTransport"]
 
@@ -115,6 +124,25 @@ class _Counters:
         return self.ppermute_start(x, perm, defer=False).wait()
 
 
+_UIDS = itertools.count()
+
+
+def _mark_start(x: torch.Tensor, perm: Perm, defer: bool):
+    """(operand marked as a collective's, uid or None): a deferred
+    exchange is a start that its ``wait()`` marks done."""
+    if not tagging.recording():
+        return x, None
+    uid = next(_UIDS)
+    return tagging.collective(x, "ppermute_start" if defer else "ppermute",
+                              perm, uid=uid), (uid if defer else None)
+
+
+def _mark_done(out: torch.Tensor, perm: Perm, uid) -> torch.Tensor:
+    if uid is None:
+        return out
+    return tagging.collective(out, "ppermute_done", perm, uid=uid)
+
+
 class StackTransport(_Counters):
     """All ``n`` nodes of the run as one block on one device: the card
     unless the caller passes ``device="cpu"`` (raises without one), or
@@ -166,6 +194,10 @@ class StackTransport(_Counters):
             raise ValueError(f"StackTransport holds {self.n} nodes, got a "
                              f"block of {x.shape[0]}")
         self._count(x, perm)
+        x, uid = _mark_start(x, perm, defer)
+        if uid is not None:
+            out = self._permute(x, perm)
+            return Pending(lambda: _mark_done(out, perm, uid))
         if not (defer and x.is_cuda):
             return Pending.done(self._permute(x, perm))
         self._pairs(perm)               # index tensors made on this stream
@@ -189,6 +221,7 @@ class StackTransport(_Counters):
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         """Every node's row replaced by the mean over all n nodes."""
+        x = tagging.collective(x, "pmean")
         return torch.mean(x, dim=0, keepdim=True).expand_as(x)
 
 
@@ -240,6 +273,7 @@ class ProcessGroupTransport(_Counters):
         that does not defer waits at once)."""
         self._check(x)
         self._count(x, perm)
+        x, uid = _mark_start(x, perm, defer)
         dist = self._dist
         out = torch.zeros_like(x)
         row = x[0].contiguous()
@@ -254,20 +288,22 @@ class ProcessGroupTransport(_Counters):
                 ops.append(dist.P2POp(dist.irecv, out[0], self._peer(src),
                                       self.group))
         if not ops:
-            return Pending.done(out)
+            return Pending(lambda: _mark_done(out, perm, uid)) \
+                if uid is not None else Pending.done(out)
         # the send buffer stays alive with the requests, until wait()
         held = (dist.batch_isend_irecv(ops), row)
 
         def finish():
             for req in held[0]:
                 req.wait()
-            return out
+            return _mark_done(out, perm, uid)
 
         return Pending(finish)
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over all ranks (an all-reduce sum, then / n)."""
         self._check(x)
+        x = tagging.collective(x, "pmean")
         total = x.contiguous().clone()
         self._dist.all_reduce(total, group=self.group)
         return total / self.n

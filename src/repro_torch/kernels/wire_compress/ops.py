@@ -10,10 +10,16 @@ in ``kernels/csrc/wire_compress.cu`` (which replaces the TPU kernel
 raises; for CPU tensors it runs ``fixedk_gather_pack_ref``.
 ``fixedk_gather_pack.launches`` counts kernel launches.
 
-On ``meta`` tensors (the dry-run) both wrappers return empty meta
-outputs of the kernel's shape and dtype and add the kernel's
-``kernels/cost.py`` count to the open ``cost.KernelTally``; any other
-device raises.
+On ``meta`` tensors (the dry-run) both wrappers add the kernel's
+``kernels/cost.py`` count to the open ``cost.KernelTally`` and return
+empty meta outputs of the kernel's shape and dtype; any other device
+raises.
+
+The CUDA body of each kernel is the custom op ``repro_torch::qsgd_pack``
+/ ``repro_torch::fixedk_gather_pack`` (with a fake impl, which also
+serves ``meta``): a trace of the step (``make_fx``, the static auditor)
+records each launch as one node with its inputs, and a wrapper's
+``.launches`` moves only where the CUDA body runs.
 
 ``qsgd_pack`` (port of ``repro.kernels.wire_compress.ops.qsgd_pack``)
 is the fused QSGD quantize-and-pack. The caller draws
@@ -39,6 +45,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.tagging import define_op
 from repro_torch.kernels import cost
 
 from .ref import (f32_scale, fixedk_gather_pack_ref, levels, pack_factor,
@@ -84,12 +91,22 @@ def qsgd_pack(xf: torch.Tensor, u: torch.Tensor, norm: torch.Tensor, *,
         n = inv.numel()
         d = xf.numel() // n if n else 0
         cost.charge("qsgd_pack", cost.qsgd_pack(n, d, bits))
-        return torch.empty(tuple(inv.shape) + (-(-d // pack_factor(bits)),),
-                           dtype=torch.uint8, device=xf.device)
-    return _qsgd_pack_cuda(xf, u, inv, bits=bits)
+    return torch.ops.repro_torch.qsgd_pack(xf, u, inv, bits)
 
 
 qsgd_pack.launches = 0
+
+
+def _qsgd_pack_op(xf: torch.Tensor, u: torch.Tensor, inv: torch.Tensor,
+                  bits: int) -> torch.Tensor:
+    return _qsgd_pack_cuda(xf, u, inv, bits=bits)
+
+
+def _qsgd_pack_fake(xf, u, inv, bits):
+    n = inv.numel()
+    d = xf.numel() // n if n else 0
+    return xf.new_empty(tuple(inv.shape) + (-(-d // pack_factor(bits)),),
+                        dtype=torch.uint8)
 
 
 def _kernel_fn(name: str = "qsgd_pack"):
@@ -152,15 +169,28 @@ def fixedk_gather_pack(db: torch.Tensor, idx: torch.Tensor, *,
         kb, block = idx.shape[-1], db.shape[-1]
         cost.charge("fixedk_gather_pack", cost.fixedk_gather_pack(
             idx.numel() // kb if kb else 0, kb, block))
-        return torch.empty(tuple(idx.shape) + (block,), dtype=torch.float32,
-                           device=db.device)
-    if db.device.type != "cuda":
+    elif db.device.type != "cuda":
         raise ValueError(f"fixedk_gather_pack: unsupported device "
                          f"{db.device}")
-    return _fixedk_gather_pack_cuda(db, idx, scale=scale)
+    return torch.ops.repro_torch.fixedk_gather_pack(db, idx, float(scale))
 
 
 fixedk_gather_pack.launches = 0
+
+
+def _fixedk_gather_pack_op(db: torch.Tensor, idx: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    return _fixedk_gather_pack_cuda(db, idx, scale=scale)
+
+
+def _fixedk_gather_pack_fake(db, idx, scale):
+    return db.new_empty(tuple(idx.shape) + (db.shape[-1],),
+                        dtype=torch.float32)
+
+
+define_op("qsgd_pack", _qsgd_pack_op, _qsgd_pack_fake, device_types="cuda")
+define_op("fixedk_gather_pack", _fixedk_gather_pack_op,
+          _fixedk_gather_pack_fake, device_types="cuda")
 
 
 def _fixedk_gather_pack_cuda(db, idx, *, scale: float) -> torch.Tensor:

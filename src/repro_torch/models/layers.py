@@ -49,6 +49,23 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     return (x32 * w).to(dt)
 
 
+def promote(*xs: torch.Tensor):
+    """The operands of a product in their common dtype, as ``jnp``
+    promotes them (an f32 context against bf16 weights gives f32; a
+    torch matmul refuses mixed dtypes)."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return tuple(x if x.dtype == dt else x.to(dt) for x in xs)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the operands' promoted dtype."""
+    if x.dtype != w.dtype:
+        x, w = promote(x, w)
+    return x @ w
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     """Gemma-2 soft capping: cap * tanh(x / cap)."""
     if cap is None:
@@ -124,6 +141,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kvh = k.shape[2]
     group = h // kvh
     q = q.reshape(b, sq, kvh, group, hd)
+    if q.dtype != k.dtype:
+        q, k = promote(q, k)
     scores = torch.einsum("bqkgd,bskd->bkgqs", q, k) / math.sqrt(hd)
     scores = softcap(scores.float(), softcap_val)
 
@@ -174,9 +193,9 @@ def _project_qkv(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                  plus_one=cfg.post_block_norm)
     kv_in = kv_source if kv_source is not None else h
     hd = cfg.resolved_head_dim
-    q = h @ params["wq"]
-    k = kv_in @ params["wk"]
-    v = kv_in @ params["wv"]
+    q = matmul(h, params["wq"])
+    k = matmul(kv_in, params["wk"])
+    v = matmul(kv_in, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -194,7 +213,7 @@ def _project_out(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                  out: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
     """Shared post-attention stage: head merge, output projection,
     optional post-block norm, residual add."""
-    out = out.reshape(*out.shape[:2], -1) @ params["wo"]
+    out = matmul(out.reshape(*out.shape[:2], -1), params["wo"])
     if cfg.post_block_norm:
         out = rms_norm(out, params["post_norm"], cfg.norm_eps, plus_one=True)
     return residual + out
@@ -332,12 +351,12 @@ def mlp_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
     residual = x
     h = rms_norm(x, params["norm"], cfg.norm_eps, plus_one=cfg.post_block_norm)
-    up = h @ params["w_up"]
+    up = matmul(h, params["w_up"])
     if cfg.glu:
-        up = _activation(h @ params["w_gate"], cfg.act) * up
+        up = _activation(matmul(h, params["w_gate"]), cfg.act) * up
     else:
         up = _activation(up, cfg.act)
-    out = up @ params["w_down"]
+    out = matmul(up, params["w_down"])
     if cfg.post_block_norm:
         out = rms_norm(out, params["post_norm"], cfg.norm_eps, plus_one=True)
     return residual + out

@@ -40,8 +40,8 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (KVCache, ParamSpec, attention_apply,
                                        attention_decode_paged,
-                                       attention_specs, mlp_apply, mlp_specs,
-                                       rms_norm, softcap)
+                                       attention_specs, matmul, mlp_apply,
+                                       mlp_specs, rms_norm, softcap)
 
 __all__ = ["model_specs", "param_shapes", "flat_specs", "init_params",
            "forward", "lm_loss", "init_cache", "prefill", "decode_step",
@@ -342,17 +342,7 @@ def _embed_tokens(params: Params, cfg: ModelConfig,
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return softcap(x @ head, cfg.logit_softcap)
-
-
-def _check_context(params: Params, context: Optional[torch.Tensor]) -> None:
-    """A context must come in the weights' dtype: JAX promotes an f32
-    context against bf16 weights, a torch matmul raises, and the port
-    never casts silently."""
-    want = params["embed"].dtype
-    if context is not None and context.dtype != want:
-        raise ValueError(f"context dtype {context.dtype} != the weights' "
-                         f"{want}: pass the context in the weights' dtype")
+    return softcap(matmul(x, head), cfg.logit_softcap)
 
 
 def stub_context(cfg: ModelConfig, batch: int, dtype: torch.dtype,
@@ -381,7 +371,6 @@ def _encode_context(params: Params, cfg: ModelConfig,
     positions, then the MLP, each layer; then ``encoder/final_norm``)
     over the stub frame embeddings (b, s, d). VLM: the stub patch
     embeddings pass straight through."""
-    _check_context(params, context)
     if context is None or not cfg.has_encoder:
         return context
     enc = params["encoder"]
@@ -504,7 +493,6 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     scalar ``cache.offset``. ``context`` must be PRE-ENCODED
     (``encode_context``). Attention is the plain ``_sdpa`` (no kernel);
     the recurrent slots' new states come back in the returned cache."""
-    _check_context(params, context)
     b = token.shape[0]
     x = _embed_tokens(params, cfg, token[:, None])
     if offsets is not None:
@@ -560,7 +548,6 @@ def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,
     step; nothing is cached). Returns logits (b, V). Every attention
     layer calls ``paged_attention`` once: the kernel on CUDA.
     """
-    _check_context(params, context)
     x = _embed_tokens(params, cfg, token[:, None])
     # the cross sub-blocks' query positions (a decoder-only step makes none)
     positions = None if context is None else offsets[:, None]

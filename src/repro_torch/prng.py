@@ -26,6 +26,11 @@ What the partitionable threefry computes (``jax/_src/prng.py``):
 ``normal`` follows jax's inverse-erf construction with XLA's own erfinv
 polynomial; its last bits depend on ``log1p``, so it is the one draw
 here that is not bit-exact (within a few ulp).
+
+While the static auditor records a trace (``core/tagging.recording``),
+``fold_in``, ``split``, ``bits``, ``uniform`` and ``normal`` each run as
+one ``repro_torch`` op (the same arithmetic inside), so the graph holds
+one node per key derivation and per draw, with its key and shape.
 """
 from __future__ import annotations
 
@@ -97,10 +102,21 @@ def _words(key: torch.Tensor, extra_dims: int):
     return k1.reshape(shape), k2.reshape(shape)
 
 
+def _tags():
+    """``core/tagging`` when it is recording, else None (imported here:
+    the core package imports this module)."""
+    from repro_torch.core import tagging
+
+    return tagging if tagging.recording() else None
+
+
 def fold_in(key, data: IntLike) -> torch.Tensor:
     """``jax.random.fold_in``: threefry2x32(key, 0, data). ``data`` (an
     int or an integer tensor) broadcasts against the batch of keys."""
     key = key_data(key)
+    tags = _tags()
+    if tags is not None:
+        return tags.prng_fold_in(key, data)
     d = torch.as_tensor(data, device=key.device).to(torch.int64) & _M32
     k1, k2 = key[..., 0], key[..., 1]
     a, b = threefry2x32(k1, k2, torch.zeros_like(d), d)
@@ -110,6 +126,9 @@ def fold_in(key, data: IntLike) -> torch.Tensor:
 def split(key, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (fold-like): (..., num, 2) new keys."""
     key = key_data(key)
+    tags = _tags()
+    if tags is not None:
+        return tags.prng_split(key, num)
     j = torch.arange(num, dtype=torch.int64, device=key.device)
     k1, k2 = _words(key, 1)
     a, b = threefry2x32(k1, k2, torch.zeros_like(j), j)
@@ -136,6 +155,9 @@ def bits(key, shape: Sequence[int]) -> torch.Tensor:
     ``(*key_batch, *shape)``."""
     key = key_data(key)
     shape = tuple(int(s) for s in shape)
+    tags = _tags()
+    if tags is not None:
+        return tags.prng_draw(key, shape, "bits")
     return _bits_range(key, 0, math.prod(shape)).reshape(
         tuple(key.shape[:-1]) + shape)
 
@@ -189,6 +211,9 @@ def _uniform_fn(minval: float, maxval: float):
 def uniform(key, shape: Sequence[int] = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in f32."""
+    tags = _tags()
+    if tags is not None:
+        return tags.prng_draw(key_data(key), shape, "uniform", minval, maxval)
     return _draw(key, shape, _uniform_fn(minval, maxval))
 
 
@@ -235,6 +260,9 @@ def normal(key, shape: Sequence[int] = (),
     (nextafter(-1, 0), 1), then cast to ``dtype`` (``normal(...).astype``
     in JAX). The uniforms are bit-exact; the inverse erf is XLA's
     polynomial, within a few ulp (the tests state the gap)."""
+    tags = _tags()
+    if tags is not None:
+        return tags.prng_draw(key_data(key), shape, "normal", dtype=dtype)
     to_u = _uniform_fn(_NORMAL_LO, 1.0)
     return _draw(key, shape, lambda b: erfinv_xla(to_u(b)) * _SQRT2_F32,
                  dtype)

@@ -12,6 +12,12 @@ done-mask and token buffer. Per window of ``sync_every`` decode steps
 (default 1) the host does one small done-mask poll; the rest of the
 bookkeeping (prefill, page alloc/free,
 output read-back) happens only when a request is admitted or retired.
+The host reads the device back at the poll, at each prefill (the first
+token) and once a retirement round (every row's tokens), and nowhere
+else: its copies to the device (prompts, block tables, page indices)
+go from pinned memory without waiting, and it writes scalars into the
+device state with ``fill_`` (an item assignment from a Python number
+waits for the stream on CUDA).
 The device state is updated in place; the JAX engine donates it to its
 jitted step for the same effect.
 
@@ -34,7 +40,10 @@ batch of b, rows 0..b-1 whatever the batch. Both hand the ENCODED
 context to ``prefill``, which encodes it again (the JAX engines do the
 same: whisper's first token comes from a doubly encoded context, its
 decode steps from a singly encoded one; the VLM's encode is the
-identity). The context's dtype must be the weights'.
+identity). The engines take a context in the weights' dtype only
+(``_check_context``): the model functions promote an f32 context against
+bf16 weights as JAX does, but the JAX engines' scanned layers refuse the
+promoted carry, and the engines' caches hold the weights' dtype.
 """
 from __future__ import annotations
 
@@ -46,7 +55,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import host_to_device, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -107,6 +116,14 @@ def _check_params(params, device: torch.device) -> None:
     got = params["embed"].device
     if got.type != device.type:
         raise ValueError(f"params live on {got}, the engine on {device}")
+
+
+def _check_context(params, context: Optional[torch.Tensor]) -> None:
+    """A served context comes in the weights' dtype (module docstring)."""
+    want = params["embed"].dtype
+    if context is not None and context.dtype != want:
+        raise ValueError(f"context dtype {context.dtype} != the weights' "
+                         f"{want}: pass the context in the weights' dtype")
 
 
 class ServingEngine:
@@ -171,6 +188,7 @@ class ServingEngine:
         ``context`` (n, s, d): row 0 is every request's, as in JAX."""
         if not requests:
             return requests
+        _check_context(self.params, context)
         t0 = time.monotonic()
         stats = ServeStats()
         B = self.max_batch
@@ -203,6 +221,11 @@ class ServingEngine:
         submit = {id(r): t0 for r in requests}
         free = list(range(B - 1, -1, -1))
         live: Dict[int, Request] = {}
+        # the host's copy of ``st.done & st.active``: an admission knows
+        # its row's flag and the window's poll reads the rest, so the
+        # loop reads the device once a window (and once an admission,
+        # for the first token)
+        done_np = np.zeros(B, bool)
 
         def admit_ready() -> bool:
             return bool(queue) and bool(free) and \
@@ -214,7 +237,7 @@ class ServingEngine:
                 req = queue.popleft()
                 slot = free.pop()
                 kv.alloc(slot, len(req.prompt) + req.max_new_tokens)
-                self._prefill_into(st, kv, slot, req, ctx1)
+                done_np[slot] = self._prefill_into(st, kv, slot, req, ctx1)
                 live[slot] = req
                 req.ttft_s = time.monotonic() - submit[id(req)]
                 stats.ttft_s.append(req.ttft_s)
@@ -226,9 +249,8 @@ class ServingEngine:
                     f"request needs {need} pages but the pool only has "
                     f"{kv.n_pages}; raise n_pages or max_seq")
 
-            done_np = (st.done & st.active).cpu().numpy()
             if not done_np.any():
-                emit_n = int((st.active & ~st.done).sum())
+                emit_n = len(live)      # every live row emits
                 ts = time.monotonic()
                 tables = kv.tables()
                 for _ in range(self.sync_every):
@@ -241,16 +263,21 @@ class ServingEngine:
                 # overcounts by at most sync_every-1 tokens, as in JAX
                 stats.step_tokens.append(emit_n * self.sync_every)
 
-            for slot in np.nonzero(done_np)[0].tolist():
+            retired = np.nonzero(done_np)[0].tolist()
+            if retired:
+                # one read of every row's count and tokens
+                outs = torch.cat([st.n_out[:, None], st.out_buf],
+                                 1).cpu().numpy()
+            for slot in retired:
                 req = live.pop(slot)
-                n = int(st.n_out[slot])
-                req.output = st.out_buf[slot, :n].cpu().tolist()
+                req.output = outs[slot, 1:1 + outs[slot, 0]].tolist()
                 req.finish_s = time.monotonic() - submit[id(req)]
                 kv.release(slot)
-                st.active[slot] = False
-                st.done[slot] = False
-                st.offsets[slot] = 0
+                st.active[slot].fill_(False)
+                st.done[slot].fill_(False)
+                st.offsets[slot].fill_(0)
                 free.append(slot)
+                done_np[slot] = False
 
         stats.pages_peak = kv.peak_in_use
         stats.pages_dense_equiv = kv.dense_equivalent_pages()
@@ -261,7 +288,9 @@ class ServingEngine:
 
     @torch.no_grad()
     def _prefill_into(self, st: _DecodeState, kv: PagedKVCache, slot: int,
-                      req: Request, ctx1: Optional[torch.Tensor]) -> None:
+                      req: Request, ctx1: Optional[torch.Tensor]) -> bool:
+        """Prefill ``req`` into ``slot``; True if it is done already (a
+        budget of one token, or the first token is its eos)."""
         L = len(req.prompt)
         if L < 1:
             raise ValueError("empty prompt")
@@ -278,9 +307,9 @@ class ServingEngine:
         # ctx1 is already encoded and prefill encodes it again, as the
         # JAX engine does
         logits, cache = transformer.prefill(
-            self.params, self.cfg, torch.as_tensor(toks, device=self.device),
+            self.params, self.cfg, host_to_device(toks, self.device),
             cache, context=ctx1,
-            last_index=torch.tensor([L - 1], device=self.device))
+            last_index=host_to_device(np.array([L - 1]), self.device))
         first = int(torch.argmax(logits, dim=-1)[0])
         kv.write_prompt(slot, {si: (cache.slots[si].k, cache.slots[si].v)
                                for si in self._attn_slots}, L)
@@ -290,15 +319,19 @@ class ServingEngine:
             for dst, src in zip(st.rec[si], cache.slots[si]):
                 dst[:, slot] = src[:, 0]
         eos = -1 if req.eos_id is None else req.eos_id
-        st.offsets[slot] = L
-        st.last_tok[slot] = first
-        st.out_buf[slot] = 0
-        st.out_buf[slot, 0] = first
-        st.n_out[slot] = 1
-        st.budget[slot] = req.max_new_tokens
-        st.eos[slot] = eos
-        st.active[slot] = True
-        st.done[slot] = req.max_new_tokens <= 1 or first == eos
+        # Python scalars written with fill_: an item assignment copies
+        # from host memory and, on CUDA, waits for the stream
+        st.offsets[slot].fill_(L)
+        st.last_tok[slot].fill_(first)
+        st.out_buf[slot].fill_(0)
+        st.out_buf[slot, 0].fill_(first)
+        st.n_out[slot].fill_(1)
+        st.budget[slot].fill_(req.max_new_tokens)
+        st.eos[slot].fill_(eos)
+        st.active[slot].fill_(True)
+        done = req.max_new_tokens <= 1 or first == eos
+        st.done[slot].fill_(done)
+        return done
 
 
 # --------------------------------------------------------------------------
@@ -329,6 +362,7 @@ class StaticServingEngine:
         models additionally split into equal-prompt-length groups).
         ``context`` (n, s, d): a batch of b takes rows 0..b-1, as in
         JAX."""
+        _check_context(self.params, context)
         t0 = time.monotonic()
         stats = ServeStats()
         if self.recurrent:

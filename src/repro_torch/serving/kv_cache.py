@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import host_to_device, resolve_device
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["PagedKVCache", "TRASH_PAGE"]
@@ -122,8 +122,8 @@ class PagedKVCache:
         """Device copy of the block tables (int32, cached until the next
         alloc/release)."""
         if self._tables_dev is None:
-            self._tables_dev = torch.as_tensor(self._tables.copy(),
-                                               device=self.device)
+            self._tables_dev = host_to_device(self._tables.copy(),
+                                              self.device)
         return self._tables_dev
 
     # ---------------- device writes / reads ----------------
@@ -149,8 +149,8 @@ class PagedKVCache:
                                                 self.n_blocks - 1)],
                            TRASH_PAGE)
         in_page = np.where(real, pos % self.page_size, 0)
-        page_id = torch.as_tensor(page_id, device=self.device)
-        in_page = torch.as_tensor(in_page, device=self.device)
+        page_id = host_to_device(page_id, self.device)
+        in_page = host_to_device(in_page, self.device)
         for si, (k_dense, v_dense) in dense.items():
             kp, vp = self.pages[si]
             kp[:, page_id, in_page] = k_dense[:, 0].to(kp.dtype)

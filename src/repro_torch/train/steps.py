@@ -24,7 +24,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from repro_torch import prng, tree as tree_mod
-from repro_torch.core import gossip, method as method_mod
+from repro_torch.core import gossip, method as method_mod, tagging
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
@@ -169,6 +169,7 @@ def make_distributed_train(tc: DistributedTrainConfig, transport,
         state, losses = executor.step(
             state, lambda x: grad_fn(cfg, x, tok, lab, ctx),
             base_key=base_key)
+        losses = tagging.declared_release(losses, label="loss")
         return state, transport.pmean(losses)[0]
 
     return train_step

@@ -842,3 +842,68 @@ def test_cost_counts_keep_the_bounds_chip_smoke_printed():
     got = cost.ring_exchange_packed(4, kb, 7_041_330, 128).nbytes
     assert got == 9 * packed + 2 * dense
     assert f"{got / hbm * 1e3:.2f}" == "16.36"
+
+
+# --------------------------------------------------------------------------
+# the static auditor (repro_torch.analysis) traced on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_static_auditor_matrix_on_the_card():
+    """The 26 configs traced for 3 steps on StackTransport(4, "cuda") all
+    pass; the wire kernels are graph nodes there (``fixedk_packed`` rows
+    hold ``fixedk_gather_pack``, ``qsgdf:4`` rows ``qsgd_pack``), each
+    launched once a node during the trace; the negative controls are
+    flagged; a traced graph run again equals the untraced 3 steps."""
+    from repro_torch.analysis import graph_taint, wire_audit
+    dev = _cuda()
+    for ac in wire_audit.MATRIX:
+        row = wire_audit.audit_config(ac, device=dev)
+        assert row["status"] == "pass", row
+        g = row["graph"]
+        want = (["fixedk_gather_pack"] if "fixedk_packed" in ac.mode else []
+                ) + (["qsgd_pack"] if ac.mode == "qsgdf:4" else [])
+        for k in want:
+            assert g["kernel_nodes"][k] > 0, (ac.id, g)
+            assert g["kernel_launches"][k] == g["kernel_nodes"][k], (ac.id, g)
+    for cid in ("allreduce/ring4/-/dirty",
+                "sdm-dsgd/ring4/fixedk_packed/dirty"):
+        ac = next(a for a in wire_audit.MATRIX if a.id == cid)
+        rep = graph_taint.analyze_taint(wire_audit.build(ac, dev).gm,
+                                        {1: "data", 2: "data"})
+        assert [f["kind"] for f in rep["findings"]] == ["tainted-collective"]
+    ac = next(a for a in wire_audit.MATRIX
+              if a.id == "sdm-dsgd/ring4/fixedk_packed+ov/sigma1")
+    b = wire_audit.build(ac, dev)
+    x_graph, loss_graph = b.gm(*b.args)
+    x_eager, loss_eager = wire_audit.run_eager(ac, dev)
+    assert torch.equal(x_graph, x_eager) and torch.equal(loss_graph,
+                                                         loss_eager)
+
+
+# --------------------------------------------------------------------------
+# the continuous serving engine's waits on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_continuous_engine_waits_on_the_card_once_a_window():
+    """On the card the continuous engine synchronizes with the stream only
+    where it reads back: once a decode window (the done-mask), once a
+    prefill (the first token) and once a retirement round (the tokens);
+    its copies to the device do not wait. Counted by torch's sync debug
+    mode over ``serve_bench``'s workload."""
+    from repro_torch import configs
+    from repro_torch.bench import serve_bench as sb
+    from repro_torch.models import transformer
+    from repro_torch.serving import ServingEngine
+    dev = _cuda()
+    cfg = configs.get_smoke_config(sb.ARCH)
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    eng = ServingEngine(cfg, params, max_batch=sb.MAX_BATCH,
+                        max_seq=sb.MAX_SEQ, page_size=sb.PAGE_SIZE,
+                        device=dev)
+    eng.serve(sb._requests(cfg))
+    syncs = sb._host_syncs(eng, cfg)
+    stats = eng.last_stats
+    windows = len(stats.step_wall_s)
+    assert windows + stats.prefills < syncs <= windows + 2 * stats.prefills

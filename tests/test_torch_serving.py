@@ -366,6 +366,41 @@ def test_continuous_matches_static_one_at_a_time():
     assert eng.last_stats.pages_peak <= 2 * (32 // 4)
 
 
+def test_continuous_engine_reads_the_device_once_a_window(monkeypatch):
+    """The continuous engine's reads back from the device: the done-mask
+    once a decode window, every row's tokens once a retirement round,
+    and the first token once a prefill; nothing else (on the card each
+    read waits for the stream: ``serve_bench``'s ``host_syncs``)."""
+    cfg, _, _, params = _models()
+    eng = ServingEngine(cfg, params, max_batch=2, max_seq=32, page_size=4,
+                        n_pages=2 * (32 // 4), device="cpu")
+    reads, cpu, to_int = [], torch.Tensor.cpu, torch.Tensor.__int__
+
+    def counted(kind, fn):
+        def read(t, *a, **k):
+            reads.append((kind, tuple(t.shape)))
+            return fn(t, *a, **k)
+        return read
+
+    monkeypatch.setattr(torch.Tensor, "cpu", counted("cpu", cpu))
+    monkeypatch.setattr(torch.Tensor, "__int__", counted("int", to_int))
+    for name in ("item", "tolist", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name,
+                            counted(name, getattr(torch.Tensor, name)))
+    reqs = eng.serve(_requests(Request, cfg))
+    stats = eng.last_stats
+    windows = len(stats.step_wall_s)
+    max_out = max(BUDGETS)
+    polls = reads.count(("cpu", (2,)))
+    rounds = reads.count(("cpu", (2, 1 + max_out)))
+    firsts = reads.count(("int", ()))
+    assert polls == windows == stats.decode_steps
+    assert firsts == stats.prefills == len(reqs)
+    assert 1 <= rounds <= len(reqs)
+    assert len(reads) - reads.count(("numpy", (2,))) - reads.count(
+        ("numpy", (2, 1 + max_out))) == polls + rounds + firsts, reads
+
+
 def test_serve_cli_runs_on_cpu(capsys):
     from repro_torch.launch import serve
     serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--ragged",
