@@ -57,8 +57,8 @@ Phases (any failure exits non-zero):
      ``qsgd_pack`` launched once per step.
   16. the paper's experiments on the card at its 50 nodes (MLR 784 -> 10,
      ER(0.35)): theory and the privacy sweep, fig2 (250 steps), fig3 (the
-     default budget), table1 (eps 0.03 / 0.05 / 0.1 x 3 methods at the
-     script's default 1500-step cap). Each claim is printed held or not
+     default budget), table1 (eps 0.03 / 0.05 / 0.1 x 3 methods, capped at
+     150 steps a run). Each claim is printed held or not
      (the JAX reference fails two); gated: finite losses, fig2's
      divergence / convergence flags, fig3's wire bits == steps x bits a
      step, table1's sigma and T == the port's f64 theory and epsilons ==
@@ -132,7 +132,7 @@ Phases (any failure exits non-zero):
      D), the phase's measured step and peak memory, measured over
      roofline, the model-flop share of the step and predicted over
      measured peak; then as many (arch x shape) cases of the full
-     dry-run on mesh ``16`` as its 120 s budget allows, one line each,
+     dry-run on mesh ``16`` as its 70 s budget allows, one line each,
      and the cases left out. Any failed case fails the phase.
   24. the static privacy and wire auditor on the card
      (``repro_torch.analysis``): the 26 configs of its matrix, each
@@ -143,6 +143,20 @@ Phases (any failure exits non-zero):
      during the trace (added to the kernels' launches); one traced
      config's graph, run again, gives a final state ``torch.equal`` to an
      untraced run of the same 3 steps. Budget 60 s.
+  25. tensor parallelism over the ``model`` axis: first the tensor-
+     parallel forward, loss and gradients over 2 and 4 shards against
+     the unsharded ones on the card (gemma2-2b smoke widths, f32); then
+     phase 10's LM cell on a ``2x2`` mesh (2 nodes, each model split
+     over 2 shards stacked on the card, ``StackModelAxis``) through
+     ``launch.train.train``, 6 steps: the wire-plane buckets and their
+     lanes, ppermutes and wire bytes a step against the accounting
+     under the buckets, the model-axis collectives a step against
+     ``model_axis.tp_collectives``, step 1's loss against phase 10's
+     unsharded step from the same weights, finite losses, step ms and
+     peak memory beside phase 10's, the step's parts alone; then the
+     gather-pack kernel against its plain version on the run's own
+     differential at every bucket's shape, each timed against its byte
+     bound and ``index_select``.
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -735,7 +749,7 @@ def _profile_busy(torch, fn, reps):
 
 def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
              layers=LM_LAYERS, steps=LM_STEPS, seq_len=LM_SEQ,
-             enc_layers=None):
+             enc_layers=None, profile=True):
     """Phases 10, 20g and 21f: the slice at full width through the
     launcher's step function: ``arch`` at its published widths (phase 10:
     gemma2-2b, d_model 2304, 8 / 4 heads, head_dim 256, d_ff 9216, vocab
@@ -745,8 +759,8 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
     ``steps`` steps (the audio / vlm families on the launcher's stub
     context); an MoE config's load-balance term is logged beside node 0's
     cross entropy. Then the fixedk_gather_pack kernel against its plain
-    version on the run's own final differential, its time, and the
-    step's breakdown."""
+    version on the run's own final differential, its time, and (with
+    ``profile``) the step's profile and breakdown."""
     import dataclasses
     import math
 
@@ -829,7 +843,7 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
     LM_CELLS[arch] = dict(layers=layers, enc_layers=enc_layers,
                           seq_len=seq_len, nodes=n, batch=LM_BATCH,
                           sdm=sdm, step_ms=float(ms[1:].mean()),
-                          peak_bytes=peak)
+                          peak_bytes=peak, losses=list(run.losses))
     bits = sdm_dsgd.transmitted_bits_per_step(template, mcfg, seq=seq)
     mode = wire_count.mode_of(meth.name, mcfg)
     calls = steps * wire_count.expected_permutes(meth.name, mode, seq)
@@ -886,26 +900,29 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
     out = dict(launches=launches, failures=failures)
     if dev == "cpu":
         return out
-    # device busy share over two more steps (profiler window)
-    step_fn = steps_mod.make_distributed_train(tc, transport)
-    from repro_torch.data import TokenStream
-    stream = TokenStream(vocab_size=cfg.vocab_size, batch=n * LM_BATCH,
-                         seq_len=seq_len, seed=0)
-    tokens, labels = (torch.as_tensor(a, device=dev)
-                      for a in stream.batch_at(steps))
-    context = transformer.stub_context(cfg, n * LM_BATCH, tc.param_dtype,
-                                       dev)           # train()'s
     holder = {"state": run.state}
     del run, state
+    if profile:
+        # device busy share over one more step (the profiler's window;
+        # its trace takes minutes to read back at two steps)
+        step_fn = steps_mod.make_distributed_train(tc, transport)
+        from repro_torch.data import TokenStream
+        stream = TokenStream(vocab_size=cfg.vocab_size, batch=n * LM_BATCH,
+                             seq_len=seq_len, seed=0)
+        tokens, labels = (torch.as_tensor(a, device=dev)
+                          for a in stream.batch_at(steps))
+        context = transformer.stub_context(cfg, n * LM_BATCH,
+                                           tc.param_dtype, dev)  # train()'s
 
-    def one_step():
-        holder["state"], _ = step_fn(holder["state"], tokens, labels,
-                                     context)
+        def one_step():
+            holder["state"], _ = step_fn(holder["state"], tokens, labels,
+                                         context)
 
-    busy, wall, top = _profile_busy(torch, one_step, 2)
-    log(f"lm step device time {busy:.3f} ms of {wall:.3f} ms wall: device "
-        f"busy share {busy / wall:.3f}; top kernels by device time (ms per "
-        f"step): " + "; ".join(f"{k} {v:.3f} (x{c})" for k, v, c in top))
+        busy, wall, top = _profile_busy(torch, one_step, 1)
+        log(f"lm step device time {busy:.3f} ms of {wall:.3f} ms wall: "
+            f"device busy share {busy / wall:.3f}; top kernels by device "
+            f"time (ms per step): "
+            + "; ".join(f"{k} {v:.3f} (x{c})" for k, v, c in top))
 
     # ---- 8b. the kernel on the run's own differential -------------------
     st = holder["state"]
@@ -948,8 +965,9 @@ def lm_phase(torch, np, card, dev="cuda", smoke=False, arch="gemma2-2b",
                bound_by="bytes", library_ms=lib_ms,
                library="torch.index_select (gather only, no scale)",
                max_abs_err=float(err), host_ms_per_call=ker_host)
-    lm_breakdown(torch, holder, mcfg, seq, transport, float(ms[1:].mean()),
-                 one_step)
+    if profile:
+        lm_breakdown(torch, holder, mcfg, seq, transport,
+                     float(ms[1:].mean()), one_step)
     return out
 
 
@@ -1517,6 +1535,10 @@ def _claims(name: str, claims) -> None:
         f"{k} {'held' if v else 'NOT held'}" for k, v in claims.items()))
 
 
+# table1's step cap on the card (the script's default is 1500)
+TABLE1_MAX_STEPS = 150
+
+
 def paper_phase(torch, np, card):
     """Phase 16: the paper's experiments on the card at its 50 nodes
     (MLR 784 -> 10 on ER(0.35), batch 16 a node), each script with
@@ -1570,19 +1592,20 @@ def paper_phase(torch, np, card):
             raise AssertionError(f"fig3 {key}: a loss is not finite")
     _claims("fig3", f3.claims)
 
-    with phase_clock(torch, "phase 16 table1 (3 eps x 3 methods, "
-                     "max_steps 1500)", card):
+    with phase_clock(torch, f"phase 16 table1 (3 eps x 3 methods, "
+                     f"max_steps {TABLE1_MAX_STEPS})", card):
         t1, lines = _quiet(table1_privacy_accuracy.run, device="cuda",
-                           check=False)
+                           check=False, max_steps=TABLE1_MAX_STEPS)
     log(f"  {lines[-1]}")
-    log("  table1 max_steps: the script's default 1500, not cut: Theorem "
-        "4's T_max caps every run at or below 868 steps")
+    log(f"  table1 max_steps: {TABLE1_MAX_STEPS}, cut from the script's "
+        f"1500 (Theorem 4's T_max caps the runs at or below 868 steps); "
+        f"sigma follows the cut T")
     m = 5000 // common.N_NODES
     for (eps, name), d in t1.details.items():
         _, p, _ = table1_privacy_accuracy.METHODS[name]
         t_want = min(privacy.max_iterations(
             G=table1_privacy_accuracy.G_CLIP, m=m, p=p, eps=eps,
-            delta=table1_privacy_accuracy.DELTA), 1500)
+            delta=table1_privacy_accuracy.DELTA), TABLE1_MAX_STEPS)
         s_want = privacy.sigma_for_budget(
             G=table1_privacy_accuracy.G_CLIP, m=m, p=p, T=t_want, eps=eps,
             delta=table1_privacy_accuracy.DELTA, clamp=True)
@@ -2311,7 +2334,8 @@ def moe_recurrent_phase(torch, np, card, kernels):
     with phase_clock(torch, f"phase 20g granite-moe LM training "
                      f"({MOE_LM_LAYERS} layers, {LM_NODES} nodes)", card):
         lm = lm_phase(torch, np, card, arch=granite.name,
-                      layers=MOE_LM_LAYERS, steps=MOE_LM_STEPS)
+                      layers=MOE_LM_LAYERS, steps=MOE_LM_STEPS,
+                      profile=False)
         if lm["failures"]:
             raise AssertionError(f"granite-moe training failed: "
                                  f"{lm['failures']}")
@@ -2478,7 +2502,7 @@ def encoder_families_phase(torch, np, card, kernels):
         lm = lm_phase(torch, np, card, arch=whisper.name,
                       layers=WHISPER_LM_LAYERS, steps=WHISPER_LM_STEPS,
                       seq_len=WHISPER_LM_SEQ,
-                      enc_layers=WHISPER_LM_ENC_LAYERS)
+                      enc_layers=WHISPER_LM_ENC_LAYERS, profile=False)
         if lm["failures"]:
             raise AssertionError(f"whisper training failed: "
                                  f"{lm['failures']}")
@@ -2494,6 +2518,9 @@ def encoder_families_phase(torch, np, card, kernels):
 # the ring helpers over the LM slice's plane, this many nodes and p
 RING_NODES, RING_P, RING_W = 4, 0.2, 1.0 / 3.0
 OPT_STEPS = 3
+# phase 22a's two --overlap runs, steps each: step 1 already folds step
+# 0's exchange, left in flight, into the state
+OVERLAP_STEPS = 3
 # the optimizers' card run against their plain CPU run (relative)
 OPT_RTOL = 1e-6
 # both optimizers are elementwise, so the CPU run takes this many leading
@@ -2545,8 +2572,8 @@ def exchange_waited_each_step():
 
     make = steps_mod.make_distributed_train
 
-    def make_waited(tc, transport):
-        fn = make(tc, transport)
+    def make_waited(tc, transport, **kw):
+        fn = make(tc, transport, **kw)
 
         def step(state, *args):
             state, loss = fn(state, *args)
@@ -2639,11 +2666,11 @@ def overlap_run(torch, np, card, tc, waited: bool, dev="cuda"):
 
     n0 = fixedk_gather_pack.launches
     with phase_clock(torch, f"phase 22a {tc.model.name} --overlap, exchange "
-                     f"{label} (state made, {LM_STEPS} steps)", card), \
+                     f"{label} (state made, {OVERLAP_STEPS} steps)", card), \
             (exchange_waited_each_step() if waited
              else contextlib.nullcontext()):
         state = steps_mod.init_distributed_state(tc, transport, seed=0)
-        run = train(tc, transport, steps=LM_STEPS,
+        run = train(tc, transport, steps=OVERLAP_STEPS,
                     global_batch=LM_NODES * LM_BATCH, seq_len=LM_SEQ, seed=0,
                     state=state, on_step=on_step)
     return (run, transport, fixedk_gather_pack.launches - n0, flights,
@@ -2719,9 +2746,9 @@ def overlap_library_phase(torch, np, card, dev="cuda"):
         if transport.outstanding != 0:
             failures.append(f"{transport.outstanding} side-stream copies "
                             f"never waited on")
-        if n != LM_STEPS:
+        if n != OVERLAP_STEPS:
             failures.append(f"fixedk_gather_pack launched {n} times in "
-                            f"{LM_STEPS} overlapped steps")
+                            f"{OVERLAP_STEPS} overlapped steps")
         if waited:
             del run                 # only its losses and parameters stay
             gc.collect()
@@ -2754,8 +2781,8 @@ def overlap_library_phase(torch, np, card, dev="cuda"):
                 f"streams, the side stream {p['side']:.3f} ms of which "
                 f"{p['hidden']:.3f} ms under compute-stream work")
     log(f"phase 22a on {card}: gemma2-2b x {LM_LAYERS} layers, {LM_NODES} "
-        f"nodes, ring, fixedk:128, --overlap, {LM_STEPS} steps, each step "
-        f"timed on the compute stream: losses torch.equal {same_loss}, "
+        f"nodes, ring, fixedk:128, --overlap, {OVERLAP_STEPS} steps, each "
+        f"step timed on the compute stream: losses torch.equal {same_loss}, "
         f"final parameters torch.equal {same_x}; IN FLIGHT: {said(fly)}; "
         f"WAITED INSIDE EACH STEP: {said(order)}; the exchange alone (a "
         f"ring round of ({LM_NODES}, {kb}, 128) f32 on the compute stream) "
@@ -2927,7 +2954,7 @@ def overlap_library_phase(torch, np, card, dev="cuda"):
 
 # ---- slice 11: the dry-run against the card (phase 23) ---------------------
 
-DRYRUN_BUDGET_S = 110.0   # the phase stays within 120 s
+DRYRUN_BUDGET_S = 60.0    # the phase stays within 70 s
 # the full dry-run's cases on mesh 16, cheapest first (decode steps, then
 # prefills, then train steps by model size)
 DRYRUN_GROUPS = (("decode_32k,long_500k", "all"), ("prefill_32k", "all"),
@@ -3047,6 +3074,348 @@ def dryrun_phase(torch, card):
     log(f"phase 23 in all: {time.monotonic() - t0:.1f} s on {card}")
     if failures:
         raise AssertionError(f"phase 23 failed: {failures}")
+
+
+# ---- slice 13: tensor parallelism over the model axis (phase 25) ----------
+
+# phase 25's mesh: phase 10's nodes, each model split over TP_MODEL shards
+TP_MODEL = 2
+# the card's tensor-parallel forward against its unsharded forward in f32
+# (smoke widths): the shards' partial sums add in another order, as the
+# CPU tests hold them to JAX (loss 2e-6, gradients 1e-5 of each scale)
+TP_F32_LOSS_RTOL, TP_F32_GRAD_ATOL = 2e-6, 1e-5
+# the full-width f32 forward of node 0's first batch, 2 shards against
+# unsharded: sums up to 9216 long (36x smoke's 256), so sqrt(36) x the
+# smoke's 2e-6, rounded up; logits capped at +-30, 1e-3 absolute
+TP_FULL_F32_RTOL, TP_FULL_F32_LOGIT_ATOL = 2e-5, 1e-3
+# step 1's loss (before any exchange) on 2x2 against phase 10's unsharded
+# step from the same bf16 weights. At this initialisation (embedding std
+# 1/sqrt(256000)) the logits are about 0.1 and every loss sits near log V
+# = 12.45294: all-zero logits would move it by ~1.4e-4 and swapped
+# vocab, head or MLP shards by a few 1e-3, so this gate catches only a
+# gross fault (a wrong label owner, a lost shard of the vocab sum); it
+# was 1.8e-05 on the H100. The forward is held by 25b (f32 logits at
+# 1e-3) and the bf16 train gradients by TP_GRAD_BF16_TOL
+TP_LOSS_ATOL = 1e-3
+# each node's bf16 gradient at the trained state, 2 shards against
+# unsharded, leaf by leaf as max |diff| / max |unsharded|: the partial
+# sums add in another order and each is rounded to bf16 (2^-8 relative)
+# before the all-reduce. The H100 read 1.3e-2 at worst (blocks/1/attn/wq)
+# at full width; the gate is about 3x that, while a swapped or lost shard
+# moves the leaves it feeds by O(1) of their scale
+TP_GRAD_BF16_TOL = 4e-2
+
+
+def tp_forward_check(torch, dev="cuda"):
+    """Phase 25a: the tensor-parallel forward, loss and gradients over 2
+    and 4 shards against the unsharded ones, on the card, f32, gemma2-2b's
+    smoke widths (M = 4 gathers K / V: its 2 KV heads split in quarters).
+    Returns the failures."""
+    from repro_torch import configs, tree as tree_mod
+    from repro_torch.convert import shard_params, unshard_params
+    from repro_torch.core.model_axis import StackModelAxis, tp_collectives
+    from repro_torch.models import transformer
+
+    cfg = configs.get_smoke_config("gemma2-2b")
+    params = transformer.init_params(cfg, seed=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           device=dev)
+    leaves, struct = tree_mod.flatten(params)
+    mine = [v.clone().requires_grad_(True) for v in leaves]
+    logits, aux = transformer.forward(tree_mod.unflatten(struct, mine), cfg,
+                                      tokens)
+    loss = transformer.lm_loss(logits, tokens, cfg.vocab_size, aux)
+    grads = torch.autograd.grad(loss, mine)
+    failures = []
+    for m in (2, 4):
+        axis = StackModelAxis(m, dev)
+        sl, ss = tree_mod.flatten(shard_params(params, cfg, m))
+        sm = [v.requires_grad_(True) for v in sl]
+        tl, taux = transformer.forward(tree_mod.unflatten(ss, sm), cfg,
+                                       tokens, model_axis=axis)
+        tloss = transformer.lm_loss(tl, tokens, cfg.vocab_size, taux,
+                                    model_axis=axis)
+        tg = tree_mod.leaves(unshard_params(tree_mod.unflatten(
+            ss, list(torch.autograd.grad(tloss, sm))), cfg, m))
+        rel = abs(float(tloss) - float(loss)) / abs(float(loss))
+        gerr = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-3))
+                   for a, b in zip(tg, grads))
+        want = tp_collectives(cfg, m, 2, 64, torch.float32)
+        counts = all(axis.calls[op] == v["calls"] and
+                     axis.bytes[op] == v["bytes"] for op, v in want.items())
+        log(f"tp forward on the card, gemma2-2b smoke f32, {m} shards: loss "
+            f"{float(tloss):.7f} vs unsharded {float(loss):.7f} (relative "
+            f"{rel:.2e}, rtol {TP_F32_LOSS_RTOL}); gradients max |diff| / "
+            f"scale {gerr:.2e} (atol {TP_F32_GRAD_ATOL}); model-axis calls "
+            f"{axis.calls} == tp_collectives: {counts}")
+        if not (rel <= TP_F32_LOSS_RTOL and gerr <= TP_F32_GRAD_ATOL
+                and counts):
+            failures.append(f"tp forward at {m} shards")
+    return failures
+
+
+def tp_full_width_f32(torch, cfg, m, dev="cuda"):
+    """Phase 25b: node 0's first batch through ``cfg`` at full width in
+    f32 (the run's initial weights, drawn in f32), over ``m`` shards and
+    unsharded: loss and logits. Returns the failures."""
+    from repro_torch.convert import shard_params
+    from repro_torch.core.model_axis import StackModelAxis
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer
+
+    params = transformer.init_params(cfg, seed=0, dtype=torch.float32,
+                                     device=dev)
+    tokens, labels = (torch.as_tensor(a[:LM_BATCH], device=dev) for a in
+                      TokenStream(vocab_size=cfg.vocab_size,
+                                  batch=LM_NODES * LM_BATCH, seq_len=LM_SEQ,
+                                  seed=0).batch_at(0))
+    axis = StackModelAxis(m, dev)
+    with torch.no_grad():
+        logits, aux = transformer.forward(params, cfg, tokens)
+        loss = float(transformer.lm_loss(logits, labels, cfg.vocab_size,
+                                         aux))
+        shards = shard_params(params, cfg, m)
+        del params
+        tlogits, taux = transformer.forward(shards, cfg, tokens,
+                                            model_axis=axis)
+        tloss = float(transformer.lm_loss(tlogits, labels, cfg.vocab_size,
+                                          taux, model_axis=axis))
+        err = (torch.cat(list(tlogits), dim=-1) - logits).abs().max().item()
+    del shards, logits, tlogits
+    torch.cuda.empty_cache()
+    rel = abs(tloss - loss) / abs(loss)
+    log(f"tp forward at full width, {cfg.name} x{cfg.n_layers} layers f32, "
+        f"node 0's first batch ({LM_BATCH} x {LM_SEQ}), {m} shards: loss "
+        f"{tloss:.7f} vs unsharded {loss:.7f} (relative {rel:.2e}, rtol "
+        f"{TP_FULL_F32_RTOL}); logits max |diff| {err:.3e} (atol "
+        f"{TP_FULL_F32_LOGIT_ATOL}); model-axis calls {axis.calls}")
+    if not (rel <= TP_FULL_F32_RTOL and err <= TP_FULL_F32_LOGIT_ATOL):
+        return ["tp forward at full width in f32"]
+    return []
+
+
+def tp_phase(torch, np, card, dev="cuda"):
+    """Phase 25 (see the module docstring). Returns (the gather-pack
+    launches of the run, timing extras for the kernels line)."""
+    import dataclasses
+
+    from repro_torch import configs, prng, tree as tree_mod
+    from repro_torch.core import (SDMConfig, gossip, sdm_dsgd, sparsifier,
+                                  transport as tr, wire_count)
+    from repro_torch.core.model_axis import StackModelAxis, tp_collectives
+    from repro_torch.core.plane import ParamPlane, ShapeDtype
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.wire_compress import (fixedk_gather_pack,
+                                                   fixedk_gather_pack_ref)
+    from repro_torch.kernels.wire_compress.ops import \
+        _fixedk_gather_pack_cuda
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer
+    from repro_torch.train import steps as steps_mod
+
+    t_phase = time.monotonic()
+    failures = tp_forward_check(torch, dev)
+    base = configs.get_config("gemma2-2b")
+    cfg = dataclasses.replace(base, n_layers=LM_LAYERS)
+    n, m = LM_NODES, TP_MODEL
+    failures += tp_full_width_f32(torch, cfg, m, dev)
+    mesh = parse_mesh(f"{n}x{m}")
+    sdm = SDMConfig(p=0.2, theta=0.5, gamma=1e-3, sigma=1.0, clip_c=1e-4,
+                    compressor="fixedk:128")        # phase 10's
+    tc = steps_mod.DistributedTrainConfig(
+        model=cfg, sdm=sdm, topology="ring", method="sdm-dsgd",
+        param_dtype=torch.bfloat16)
+    meth, mcfg = tc.resolved()
+    seq = steps_mod.gossip_schedule(tc, n)
+    template = transformer.unflatten({
+        k: ShapeDtype(s, torch.bfloat16)
+        for k, s in transformer.param_shapes(cfg).items()})
+    with steps_mod.bucket_ctx(tc, m):
+        spec = ParamPlane.for_tree(template)
+        bits = sdm_dsgd.transmitted_bits_per_step(template, mcfg, seq=seq)
+    flat = ParamPlane.for_tree(template)
+    dims = steps_mod.param_shard_dims(cfg, m)
+    log(f"phase 25: {cfg.name} widths (d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), n_layers {base.n_layers}"
+        f" -> {LM_LAYERS}; mesh {mesh.shape}: {n} nodes x {m} model shards "
+        f"stacked on the card; {sum(d is not None for d in dims.values())} "
+        f"of {len(dims)} leaves split over the model axis; "
+        f"{spec.n_buckets} wire-plane buckets: "
+        + "; ".join(f"{i}: key {b.key} lane {b.lane} rows {b.rows} "
+                    f"({len(b.leaves)} leaves)"
+                    for i, b in enumerate(spec.buckets))
+        + f" (phase 10: one flat plane {flat.buckets[0].shape}; padded "
+        f"{spec.padded_size} vs {flat.padded_size} elements)")
+
+    transport = tr.StackTransport(n, dev)
+    axis = StackModelAxis(m, dev)
+    t0 = time.monotonic()
+    state = steps_mod.init_distributed_state(tc, transport, seed=0,
+                                             model_axis=axis)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 25 init {time.monotonic() - t0:.1f} s")
+    per_step = []
+
+    def on_step(t, loss, sec):
+        per_step.append((dict(axis.calls), dict(axis.bytes)))
+        axis.reset_counters()
+        log(f"  {cfg.name} 2x2 step {t} loss {loss:.5f} ({sec * 1e3:.1f} ms)")
+
+    fixedk_gather_pack.launches = 0
+    run = train(tc, transport, steps=LM_STEPS, global_batch=n * LM_BATCH,
+                seq_len=LM_SEQ, seed=0, state=state, on_step=on_step,
+                model_axis=axis)
+    launches = fixedk_gather_pack.launches
+    peak = torch.cuda.max_memory_allocated()
+    ms = np.asarray(run.step_s) * 1e3
+    mode = wire_count.mode_of(meth.name, mcfg)
+    calls = LM_STEPS * wire_count.permutes_per_step(
+        meth.name, mode, seq, 0, n_buckets=spec.n_buckets)
+    with steps_mod.bucket_ctx(tc, m):
+        want_bytes = wire_count.expected_bytes_sent(meth, template, mcfg,
+                                                    seq, LM_STEPS)
+    formula = tp_collectives(cfg, m, LM_BATCH, LM_SEQ, tc.param_dtype)
+    want_calls = {op: n * v["calls"] for op, v in formula.items()}
+    want_b = {op: n * v["bytes"] for op, v in formula.items()}
+    axis_ok = all(c == want_calls and b == want_b for c, b in per_step)
+    ref = LM_CELLS.get("gemma2-2b", {})
+    ref_loss = (ref.get("losses") or [float("nan")])[0]
+    dloss = abs(run.losses[0] - ref_loss)
+    tok_s = run.tokens_per_step / (ms[1:].mean() / 1e3)
+    log(f"phase 25 train {cfg.name} x{LM_LAYERS} layers bf16 on 2x2, "
+        f"sdm-dsgd {seq.name} fixedk:128 sigma 1.0 clip_c 1e-4, seq "
+        f"{LM_SEQ}, batch {LM_BATCH}/node, {LM_STEPS} steps on {card}: step "
+        f"ms mean {ms.mean():.3f} p50 {np.percentile(ms, 50):.3f} (first "
+        f"{ms[0]:.3f}; steps 2.. mean {ms[1:].mean():.3f}; phase 10 "
+        f"unsharded {ref.get('step_ms', float('nan')):.3f}); {tok_s:.1f} "
+        f"tokens/s; peak memory {peak / 1e9:.3f} GB (phase 10 "
+        f"{ref.get('peak_bytes', 0) / 1e9:.3f}); losses "
+        f"{[round(v, 5) for v in run.losses]}; step 1 loss "
+        f"{run.losses[0]:.6f} vs phase 10's {ref_loss:.6f}: |diff| "
+        f"{dloss:.3e} (atol {TP_LOSS_ATOL}); ppermutes {transport.permutes} "
+        f"== {LM_STEPS} x {calls // LM_STEPS} ({spec.n_buckets} buckets x "
+        f"{wire_count.expected_permutes(meth.name, mode, seq)} rounds x "
+        f"payload tensors); wire bits per node per step {bits} (bytes sent "
+        f"{sorted(set(transport.bytes_sent.values()))} == accounting: "
+        f"{transport.bytes_sent == want_bytes}); model-axis collectives a "
+        f"step ({n} nodes' gradients) {per_step[0][0]} calls, "
+        f"{per_step[0][1]} bytes == tp_collectives x {n} in every step: "
+        f"{axis_ok}; fixedk_gather_pack launches {launches} == steps x "
+        f"buckets {LM_STEPS * spec.n_buckets}")
+    if not all(math.isfinite(v) for v in run.losses):
+        failures.append("non-finite loss")
+    if not dloss <= TP_LOSS_ATOL:
+        failures.append(f"step 1 loss {run.losses[0]} vs phase 10's "
+                        f"{ref_loss}")
+    if transport.permutes != calls or transport.bytes_sent != want_bytes:
+        failures.append("wire counters disagree with the accounting")
+    if not axis_ok or want_calls["all_reduce"] == 0:
+        failures.append("model-axis collectives disagree with the formula")
+    if launches != LM_STEPS * spec.n_buckets:
+        failures.append(f"fixedk_gather_pack launched {launches} times")
+
+    # ---- what the model axis and the buckets cost ----------------------
+    # each node's gradient with and without the model axis (P C C P), and
+    # the exchange (selection, kernel, permutes, unpack) over the buckets
+    st = run.state
+    tok = steps_mod.node_batch(torch.as_tensor(
+        TokenStream(vocab_size=cfg.vocab_size, batch=n * LM_BATCH,
+                    seq_len=LM_SEQ, seed=0).batch_at(0)[0], device=dev),
+        transport)
+    grad_ms = {"unsharded": [], "2 shards": []}
+    kept = {}
+    with phase_clock(torch, "phase 25 gradients timed (P C C P)", card):
+        for label in ("unsharded", "2 shards", "2 shards", "unsharded"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g, _ = steps_mod.node_grads(
+                cfg, st.x, tok, tok,
+                model_axis=axis if label == "2 shards" else None)
+            torch.cuda.synchronize()
+            grad_ms[label].append((time.perf_counter() - t0) * 1e3)
+            kept.setdefault(label, g)
+            del g
+        kw = dict(base_key=prng.PRNGKey(0, device=dev), transport=transport,
+                  cfg=mcfg, schedule=seq)
+        adv = []
+        with steps_mod.bucket_ctx(tc, m):
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sdm_dsgd.distributed_advance(st, **kw)
+                torch.cuda.synchronize()
+                adv.append((time.perf_counter() - t0) * 1e3)
+    gerr = {}
+    for key, want in tree_mod.flatten_with_paths(kept["unsharded"]).items():
+        got = tree_mod.flatten_with_paths(kept["2 shards"])[key]
+        gerr[key] = float((got.float() - want.float()).abs().max()
+                          / want.float().abs().max().clamp_min(1e-30))
+    del kept
+    worst = max(gerr, key=gerr.get)
+    log(f"phase 25 bf16 gradients at the trained state, both nodes, 2 "
+        f"shards vs unsharded, max |diff| / scale per leaf: worst {worst} "
+        f"{gerr[worst]:.3e} (tol {TP_GRAD_BF16_TOL}); "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(gerr.items())))
+    if not gerr[worst] <= TP_GRAD_BF16_TOL:
+        failures.append(f"bf16 tp gradient {worst} off by {gerr[worst]}")
+    log(f"phase 25 parts on {card}: both nodes' gradients (forward + "
+        f"backward, host wall, synchronised) unsharded "
+        f"{[round(v, 3) for v in grad_ms['unsharded']]} ms, over 2 shards "
+        f"{[round(v, 3) for v in grad_ms['2 shards']]} ms; "
+        f"distributed_advance over the {spec.n_buckets} buckets "
+        f"{[round(v, 3) for v in adv]} ms (phase 10, one flat plane: see "
+        f"its breakdown)")
+    extra = dict(grad_ms=grad_ms, advance_ms=adv)
+
+    # ---- the kernel at every bucket's shape ----------------------------
+    key = prng.PRNGKey(0, device=dev)
+    rows = []
+    for b, dplane in enumerate(st.d):
+        db = dplane.reshape(n, -1, 128)
+        nb = db.shape[1]
+        kb = math.ceil(0.2 * nb)
+        idx = sparsifier.fixedk_indices(gossip.node_round_key(
+            prng.fold_in(key, b), transport.me, st.step), nb, kb
+        ).to(torch.int32)
+        scale = nb / kb
+        got = fixedk_gather_pack(db, idx, scale=scale)
+        want = fixedk_gather_pack_ref(db, idx, scale=scale)
+        same = torch.equal(got, want)
+        err = (got - want).abs().max().item()
+        del got, want
+        gidx = (idx.long() + (torch.arange(n, device=dev) * nb)[:, None]
+                ).reshape(-1)
+        flat_rows = db.reshape(n * nb, 128)
+        ker_ms, _ = cuda_ms(torch, lambda i: _fixedk_gather_pack_cuda(
+            db, idx, scale=scale), iters=20)
+        plain_ms, _ = cuda_ms(torch, lambda i: fixedk_gather_pack_ref(
+            db, idx, scale=scale), iters=10)
+        lib_ms, _ = cuda_ms(torch, lambda i: torch.index_select(
+            flat_rows, 0, gidx), iters=20)
+        bound_ms = cost.fixedk_gather_pack(n, kb, 128).nbytes \
+            / HBM_BYTES_PER_S * 1e3
+        bk = spec.buckets[b]
+        rows.append(dict(bucket=b, key=str(bk.key), lane=bk.lane,
+                         plane=list(dplane.shape), nb=nb, kb=kb, ms=ker_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, max_abs_err=err, equal=same))
+        log(f"fixedk_gather_pack at bucket {b} (key {bk.key}, lane "
+            f"{bk.lane}, plane {tuple(dplane.shape)} -> (L={n}, nb={nb}, "
+            f"kb={kb}, block 128)): kernel == plain (torch.equal) {same}; "
+            f"kernel {ker_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+            f"index_select {lib_ms * 1e3:.2f} us, bound "
+            f"{bound_ms * 1e3:.2f} us (bytes) on {card}")
+        if not same:
+            failures.append(f"fixedk_gather_pack disagrees at bucket {b}")
+    log(f"phase 25 in all: {time.monotonic() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 25 failed: {failures}")
+    return launches, dict(buckets=rows, step_ms=float(ms[1:].mean()),
+                          peak_bytes=peak, **extra)
 
 
 LINT_BUDGET_S = 60.0
@@ -3216,6 +3585,10 @@ def path_kernels():
     }
 
 
+# the script's start, for the phase marks
+T_MAIN = 0.0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3234,10 +3607,13 @@ def main() -> int:
                                                        split_plan)
     from repro_torch.models import transformer
 
+    global T_MAIN
+    T_MAIN = time.monotonic()
     kernels = path_kernels()
     memo_token_batches()
 
     # ---- 1. card and build ----------------------------------------------
+    log(f"-- phase 1 at {time.monotonic() - T_MAIN:.1f} s")
     card = smi()
     name = torch.cuda.get_device_name(0)
     log(f"card: {card}")
@@ -3265,6 +3641,7 @@ def main() -> int:
                 f"{r['blocks_per_sm']} blocks per SM")
 
     # ---- 2. kernels against their plain versions -------------------------
+    log(f"-- phase 2 at {time.monotonic() - T_MAIN:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = dict(kvh=4, group=2, dh=256, page=16)        # gemma2-2b decode
     # ragged lengths: empty, one token, a page boundary and one past it,
@@ -3362,6 +3739,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3. the main path: serve gemma2-2b --------------------------------
+    log(f"-- phase 3 at {time.monotonic() - T_MAIN:.1f} s")
     cfg = configs.get_config("gemma2-2b")
     params = init_model(torch, np, cfg, seed=0, dtype=torch.bfloat16)
     # the serving path's kernels; the training path's are read in phase 6
@@ -3372,6 +3750,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. end to end against plain, f32 ---------------------------------
+    log(f"-- phase 4 at {time.monotonic() - T_MAIN:.1f} s")
     params = transformer.init_params(cfg, seed=1, dtype=torch.float32,
                                      device="cuda")
     e2e = paged_vs_dense(torch, np, cfg, params, seed=1)
@@ -3407,11 +3786,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5.-7. the training path (Algorithm 1, qsgdf wire) ----------------
+    log(f"-- phase 5.-7 at {time.monotonic() - T_MAIN:.1f} s")
     timing["qsgd_pack"] = qsgd_pack_phase(torch)
     launches.update(training_phases(torch, np, kernels, card))
     torch.cuda.empty_cache()
 
     # ---- 8.-10. the distributed LM slice (fixedk_packed wire) --------------
+    log(f"-- phase 8.-10 at {time.monotonic() - T_MAIN:.1f} s")
     # earlier phases' objects can sit in reference cycles: collect them so
     # the full-width slice starts from an empty card
     gc.collect()
@@ -3436,6 +3817,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 11.-15. the fused update, prefill flash, kernel_bench, push -------
+    log(f"-- phase 11.-15 at {time.monotonic() - T_MAIN:.1f} s")
     timing["sdm_update"] = sdm_update_phase(torch, card)
     timing["flash_attn"] = flash_phase(torch, card)
     bench_launches, bench_err = kernel_bench_phase(torch, kernels)
@@ -3448,12 +3830,14 @@ def main() -> int:
     push_resnet_phase(torch, np, card)
 
     # ---- 16.-17. the paper's experiments and the edge-fleet simulator -----
+    log(f"-- phase 16.-17 at {time.monotonic() - T_MAIN:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     paper_phase(torch, np, card)
     launches["qsgd_pack"] += sim_phase(torch, np, card)
 
     # ---- 18.-19. the gates on the card, the three dense configs ------------
+    log(f"-- phase 18.-19 at {time.monotonic() - T_MAIN:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     for key, n in gates_phase(torch, card, kernels).items():
@@ -3465,6 +3849,7 @@ def main() -> int:
     launches["paged_decode"] += dense_launches
 
     # ---- 20. the MoE and recurrent families ---------------------------------
+    log(f"-- phase 20 at {time.monotonic() - T_MAIN:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     moe_launches, timing["paged_decode"]["moe_recurrent_layouts"] = \
@@ -3473,6 +3858,7 @@ def main() -> int:
         launches[key] += n
 
     # ---- 21. the encoder families ----------------------------------------
+    log(f"-- phase 21 at {time.monotonic() - T_MAIN:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     enc_launches, timing["paged_decode"]["encoder_layouts"] = \
@@ -3481,6 +3867,7 @@ def main() -> int:
         launches[key] += n
 
     # ---- 22. the exchange in flight, ring helpers, optimizers, checkpoint
+    log(f"-- phase 22 at {time.monotonic() - T_MAIN:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     with phase_clock(torch, "phase 22 in all", card):
@@ -3489,17 +3876,27 @@ def main() -> int:
     launches["fixedk_gather_pack"] += n
 
     # ---- 23. the dry-run and roofline against the LM cells -----------------
+    log(f"-- phase 23 at {time.monotonic() - T_MAIN:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     dryrun_phase(torch, card)
 
     # ---- 24. the static auditor on the card --------------------------------
+    log(f"-- phase 24 at {time.monotonic() - T_MAIN:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     for key, n in lint_phase(torch, card).items():
         launches[key] += n
 
+    # ---- 25. tensor parallelism over the model axis ------------------------
+    log(f"-- phase 25 at {time.monotonic() - T_MAIN:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, timing["fixedk_gather_pack"]["phase25"] = tp_phase(torch, np, card)
+    launches["fixedk_gather_pack"] += n
+
     # ---- results -----------------------------------------------------------
+    log(f"-- phase results at {time.monotonic() - T_MAIN:.1f} s")
     for key, rows in resources.items():
         timing[key]["ptxas"] = rows
     rows = [dict(rec, launches=launches[key], **timing[key])

@@ -48,7 +48,8 @@ from repro_torch.core import (baselines, compressor as compressor_mod, gossip,
 
 __all__ = ["Method", "DistributedExecutor", "register", "get", "names",
            "normalize", "PARAM", "SCALAR", "COUNTER", "PLANE", "REPLICA",
-           "state_fields_of", "state_shape_dtype", "transmitted_elements",
+           "state_fields_of", "state_shape_dtype", "state_shardings",
+           "transmitted_elements",
            "transmitted_bits", "AllreduceReference", "stale_capable",
            "withhold_differential", "defer_differential", "select_node_rows"]
 
@@ -161,6 +162,48 @@ def state_shape_dtype(meth: Method, x_stack: PyTree, cfg=None, seq=None):
             kw[fname] = sd((n,), torch.float32)
         else:
             kw[fname] = sd((n,), torch.int32)
+    return meth.state_cls(**kw)
+
+
+def _plane_sharding(lead, bucket, n_lead_axes: int = 1):
+    """A stacked plane's spec: the node axes on dim 0, a keyed bucket's
+    mesh axis on the lane dim (the leaves' split trailing dim), the rest
+    replicated; ``n_lead_axes=2`` adds the replica axis."""
+    from repro_torch.sharding import PartitionSpec
+
+    mid = (None,) * n_lead_axes
+    lane_axis = bucket.key[0] if bucket.key is not None else None
+    return PartitionSpec(lead, *mid[1:], None, lane_axis)
+
+
+def state_shardings(meth: Method, x_shardings: PyTree, node_vec, cfg=None,
+                    seq=None, template: PyTree = None):
+    """The split plan of the stacked state (``repro.core.method.
+    state_shardings``): PARAM fields take ``x_shardings`` (a spec per
+    leaf), PLANE / REPLICA fields a spec per bucket plane of
+    ``template``'s layout (the stacked params; bucket keys from the
+    ``plane.use_buckets`` context), the rest ``node_vec``. A spec is a
+    ``sharding.PartitionSpec``: which mesh axis splits which dim."""
+    lead = node_vec[0] if len(node_vec) else None
+    spec = (plane_mod.ParamPlane.for_stacked(template)
+            if template is not None else None)
+    kw = {}
+    for fname, kind in state_fields_of(meth, cfg, seq):
+        if kind in (PLANE, REPLICA) and spec is None:
+            raise ValueError(
+                f"state_shardings: field {fname!r} of {meth.name} is "
+                "plane-shaped; pass template= (the stacked params "
+                "ShapeDtype tree) so the plane layout can be derived")
+        if kind == PARAM:
+            kw[fname] = x_shardings
+        elif kind == PLANE:
+            kw[fname] = tuple(_plane_sharding(lead, b)
+                              for b in spec.buckets)
+        elif kind == REPLICA:
+            kw[fname] = tuple(_plane_sharding(lead, b, n_lead_axes=2)
+                              for b in spec.buckets)
+        else:
+            kw[fname] = node_vec
     return meth.state_cls(**kw)
 
 

@@ -16,23 +16,34 @@ the plane-padded shape (``shape_dtype``).
 
 ``for_tree(tree, lane=, row_multiple=)`` lays the flat bucket out at
 another width and pads its rows to a multiple (the fused-update kernel's
-(rows, 1024) layout with rows % block_rows == 0). The JAX package's
-``use_buckets`` context, which gives tensor-parallel leaves planes of
-their own, belongs to the LM train path and is not ported yet: every
-tree here packs into the single flat bucket (``buckets=None``).
+(rows, 1024) layout with rows % block_rows == 0).
+
+Buckets: leaves may carry a bucket key (``use_buckets``). A leaf whose
+key is ``None`` joins the default flat bucket; leaves keyed ``(mesh
+axis, cols)`` -- their trailing dimension splits over the model axis --
+group into one plane per distinct (key, trailing dim) whose lane IS that
+trailing dim, packed as stacked rows ``(size // cols, cols)``, so the
+plane's lane dimension keeps the leaf's model-axis split. Buckets come
+in order of first appearance in flatten order, as JAX's ``_build`` lays
+them out; the compressor draws fold the bucket index in, so the layout
+must be JAX's exactly. The train-step factory (``train/steps``) owns the
+policy and installs the key tree around the step (``use_buckets``);
+with no context every tree packs into the single flat bucket.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch import tree as tree_mod
 
-__all__ = ["LANE", "PlaneBucket", "ParamPlane", "ShapeDtype"]
+__all__ = ["LANE", "PlaneBucket", "ParamPlane", "ShapeDtype", "use_buckets",
+           "current_bucket_keys", "bucket_keys_from_axes"]
 
 PyTree = Any
 
@@ -50,10 +61,81 @@ class ShapeDtype:
     dtype: torch.dtype
 
 
+# --------------------------------------------------------------------------
+# Bucket-key context: the train-step factory owns the sharding policy.
+# --------------------------------------------------------------------------
+
+_STATE = threading.local()
+
+
+def _key_walk(t, out):
+    """A key tree's structure as ``tree.flatten`` gives a parameter
+    tree's (dicts in sorted order; a key leaf -- None or a tuple -- is
+    one leaf)."""
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_key_walk(t[k], out) for k in keys))
+    out.append(t)
+    return "*"
+
+
+@contextlib.contextmanager
+def use_buckets(keys_tree):
+    """Install a per-leaf bucket-key tree for ``ParamPlane.for_tree``:
+    a nested dict congruent with the parameter tree, each leaf a tuple
+    key (e.g. ``('model', cols)``) or ``None`` (the flat bucket); a
+    ``keys_tree`` of None installs nothing."""
+    prev = getattr(_STATE, "buckets", None)
+    if keys_tree is None:
+        _STATE.buckets = None
+    else:
+        leaves: list = []
+        struct = _key_walk(keys_tree, leaves)
+        _STATE.buckets = (struct, tuple(leaves))
+    try:
+        yield
+    finally:
+        _STATE.buckets = prev
+
+
+def current_bucket_keys(structure) -> Optional[Tuple]:
+    """The installed keys (None when none are installed). Raises when the
+    installed key tree does not have ``structure``: a plane built for
+    another tree inside the context would silently take the flat layout
+    (JAX's ``current_bucket_keys`` returns None there)."""
+    ctx = getattr(_STATE, "buckets", None)
+    if ctx is None:
+        return None
+    if ctx[0] != structure:
+        raise ValueError("the installed bucket keys (use_buckets) are not "
+                         "of this tree's structure")
+    return ctx[1]
+
+
+def bucket_keys_from_axes(axes_tree, shapes_tree, mapping):
+    """Bucket keys from logical-axis tuples (the train step's policy): a
+    leaf whose LAST logical axis maps to a mesh axis gets ``(mesh_axis,
+    trailing dim)``; every other leaf None. Both trees are nested dicts
+    of the parameters' structure."""
+    if isinstance(axes_tree, dict):
+        return {k: bucket_keys_from_axes(axes_tree[k], shapes_tree[k],
+                                         mapping) for k in axes_tree}
+    axes, shape = axes_tree, shapes_tree
+    if not axes or not shape:
+        return None
+    mesh_axis = mapping.get(axes[-1]) if axes[-1] is not None else None
+    if mesh_axis is None:
+        return None
+    if isinstance(mesh_axis, (tuple, list)):
+        mesh_axis = tuple(mesh_axis)
+    return (mesh_axis, int(shape[-1]))
+
+
 @dataclasses.dataclass(frozen=True)
 class PlaneBucket:
     """One plane of the layout: the leaves it packs, in order."""
 
+    key: Any                       # None = the default flat bucket
     lane: int
     leaves: Tuple[int, ...]        # member leaf indices (flatten order)
     sizes: Tuple[int, ...]         # flat element count per member
@@ -76,6 +158,41 @@ _SPECS: dict = {}
 _SPECS_LOCK = threading.Lock()
 
 
+def _build(shapes, keys, lane: int, row_multiple: int
+           ) -> Tuple[PlaneBucket, ...]:
+    """JAX's ``ParamPlane._build``: buckets in order of first appearance
+    in flatten order; the flat bucket ``lane`` wide, a keyed bucket as
+    wide as its leaves' trailing dim, rows padded to ``row_multiple``."""
+    groups: dict = {}
+    for i, (shape, key) in enumerate(zip(shapes, keys)):
+        size = math.prod(shape)
+        if key is not None:
+            cols = shape[-1] if shape else 1
+            if cols < 1 or size % cols:
+                raise ValueError(f"bucket {key!r}: leaf {i} shape {shape} "
+                                 "has no whole trailing-dim rows")
+            gkey = ("k", key, cols)
+        else:
+            gkey = ("flat",)
+        groups.setdefault(gkey, []).append((i, size))
+    out = []
+    for gkey, members in groups.items():     # dicts keep first appearance
+        idxs = tuple(i for i, _ in members)
+        sizes = tuple(n for _, n in members)
+        total = sum(sizes)
+        if gkey[0] == "flat":
+            key, b_lane = None, lane
+            rows = max(-(-total // (lane * row_multiple)) * row_multiple,
+                       row_multiple)
+        else:
+            _, key, b_lane = gkey
+            rows = max(-(-(total // b_lane) // row_multiple) * row_multiple,
+                       row_multiple)
+        out.append(PlaneBucket(key=key, lane=b_lane, leaves=idxs,
+                               sizes=sizes, rows=rows))
+    return tuple(out)
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamPlane:
     """Static flatten/unflatten layout of a parameter tree."""
@@ -87,34 +204,31 @@ class ParamPlane:
 
     @classmethod
     def for_tree(cls, tree: PyTree, *, lane: int = LANE,
-                 row_multiple: int = 1, buckets=None) -> "ParamPlane":
+                 row_multiple: int = 1, buckets="auto") -> "ParamPlane":
         """The (cached) layout of ``tree``; leaves may be tensors or
         ``ShapeDtype``s (only shape and dtype are read). The flat bucket
-        is ``lane`` wide with its rows padded to a multiple of
-        ``row_multiple`` (at least ``row_multiple`` rows)."""
-        if buckets is not None:
-            raise NotImplementedError(
-                "bucket key trees (tensor-parallel planes) are not ported")
+        is ``lane`` wide, a keyed bucket as wide as its leaves' trailing
+        dim; each bucket's rows are padded to a multiple of
+        ``row_multiple`` (at least ``row_multiple`` rows).
+        ``buckets="auto"`` consults the ``use_buckets`` context (none:
+        one flat bucket); ``None`` forces the flat bucket."""
         if lane < 1 or row_multiple < 1:
             raise ValueError(f"lane {lane} and row_multiple {row_multiple} "
                              "must be positive")
         leaves, struct = tree_mod.flatten(tree)
         shapes = tuple(tuple(int(d) for d in l.shape) for l in leaves)
         dtypes = tuple(l.dtype for l in leaves)
-        key = (struct, shapes, dtypes, lane, row_multiple)
+        if buckets not in ("auto", None):
+            raise ValueError(f"buckets={buckets!r}: 'auto' or None")
+        keys = current_bucket_keys(struct) if buckets == "auto" else None
+        keys = keys or (None,) * len(leaves)
+        cache_key = (struct, shapes, dtypes, keys, lane, row_multiple)
         with _SPECS_LOCK:
-            spec = _SPECS.get(key)
+            spec = _SPECS.get(cache_key)
             if spec is None:
-                sizes = tuple(math.prod(s) for s in shapes)
-                step = lane * row_multiple
-                rows = max(-(-sum(sizes) // step) * row_multiple,
-                           row_multiple)
-                bucket = PlaneBucket(lane=lane,
-                                     leaves=tuple(range(len(shapes))),
-                                     sizes=sizes, rows=rows)
                 spec = cls(structure=struct, shapes=shapes, dtypes=dtypes,
-                           buckets=(bucket,))
-                _SPECS[key] = spec
+                           buckets=_build(shapes, keys, lane, row_multiple))
+                _SPECS[cache_key] = spec
         return spec
 
     @classmethod

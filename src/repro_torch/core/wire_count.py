@@ -14,7 +14,14 @@ runtime contract it becomes here: the transport's counters
   / 8 for the deterministic wire formats (not Bernoulli, whose count is
   an expectation).
 
-On a static schedule ``permutes_per_step`` equals ``expected_permutes``.
+On a static schedule with one wire plane ``permutes_per_step`` equals
+``expected_permutes``. Under tensor-parallel buckets (``plane.
+use_buckets``: a run on a model axis M > 1) every bucket's plane crosses
+the wire in exchanges of its own, so the payload permutes multiply by
+the bucket count (``n_buckets``), as in the JAX package's compiled step;
+JAX's ``expected_permutes`` counts one plane whatever the buckets.
+``expected_bytes_sent`` reads the plane layout, so it is computed under
+the run's bucket context.
 Gradient-push adds its 4-byte mass w on each of the step's own rounds.
 The accounting charges gradient-push's explicit fixed-k indices at
 ceil(log2 d) bits; the transport ships them as int32, as the JAX package
@@ -76,8 +83,10 @@ def _exchange_step(meth_name: str, step: int) -> int:
     return step + 1 if meth_name == "sdm-dsgd-fused" else step
 
 
-def permutes_per_step(meth_name: str, mode: str, seq, step: int) -> int:
-    """ppermute calls the per-node transport makes in step ``step``."""
+def permutes_per_step(meth_name: str, mode: str, seq, step: int,
+                      n_buckets: int = 1) -> int:
+    """ppermute calls the per-node transport makes in step ``step``, on
+    ``n_buckets`` wire planes."""
     seq = gossip.ensure_sequence(seq)
     rounds = seq.at(_exchange_step(meth_name, step)).n_rounds
     if _uses_replicas(meth_name, seq, mode):
@@ -86,7 +95,7 @@ def permutes_per_step(meth_name: str, mode: str, seq, step: int) -> int:
         r = rounds
     # the push-sum mass rides the step's own rounds
     extra = rounds if meth_name == "gradient-push" else 0
-    return r * _payload_tensors(meth_name, mode) + extra
+    return r * _payload_tensors(meth_name, mode) * n_buckets + extra
 
 
 # the width explicit indices cross the transport at (gossip._ppermute_payload)

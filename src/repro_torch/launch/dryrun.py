@@ -27,10 +27,11 @@ counts what the step does:
   ``compile_s``).
 
 Meshes are node counts (``launch/mesh.parse_mesh``): one card a node, no
-``model`` axis (a TP mesh raises). The defaults ``16`` and ``2x16x1`` are
-the node counts of JAX's ``single_pod`` and ``multi_pod`` without their
-model axis of 16. A record's ``n_devices`` is the node count, and its
-values are per device:
+``model`` axis (an ``NxM`` mesh with M > 1 raises: the dry-run of the
+tensor-parallel step is ROADMAP Queue 1, item 5). The defaults ``16``
+and ``2x16x1`` are the node counts of JAX's ``single_pod`` and
+``multi_pod`` without their model axis of 16. A record's ``n_devices``
+is the node count, and its values are per device:
 
 * train: the step runs on a ``StackTransport`` that holds all n nodes as
   one block (``train.steps.make_distributed_train``); each value is the
@@ -320,7 +321,12 @@ def build_case(arch: str, shape_name: str, mesh_name: str, method: str,
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": skip}
 
-    n_nodes = parse_mesh(mesh_name).n_nodes
+    mesh = parse_mesh(mesh_name)
+    if mesh.model > 1:
+        raise ValueError(f"mesh {mesh_name!r} has a model axis of "
+                         f"{mesh.model}: the dry-run does not trace the "
+                         "tensor-parallel step yet (ROADMAP Queue 1, item 5)")
+    n_nodes = mesh.n_nodes
     record = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
               "algorithm": method if case.kind == "train" else "serve",
               "n_devices": n_nodes, "status": "ok",

@@ -1,13 +1,16 @@
-"""Mesh specs of the launcher: ``--mesh N`` or ``--mesh NxM``.
+"""Mesh specs of the launcher: ``--mesh N``, ``NxM`` or ``PxNxM``.
 
 The counterpart of ``repro.launch.mesh`` (``make_mesh_by_name`` /
-``node_axis_names``). The port has no device mesh: a mesh spec only
-names how many edge nodes the run simulates, and the per-node executor
-holds them as node blocks (``core/transport.py``). ``N`` is N nodes;
-``NxM`` is N nodes with a ``model`` axis of M, and ``PxNxM`` adds a
-``pod`` axis whose nodes multiply in, as in the JAX package. A model
-axis above 1 (tensor parallelism inside a node) and the production pod
-meshes raise: they need more than one GPU.
+``node_axis_names``). The port has no device mesh: a mesh spec names
+how many edge nodes the run simulates and how wide each node's
+``model`` axis is. The per-node executor holds the nodes as a node block
+(``core/transport.py``); a model axis M > 1 splits each node's model
+into M shards, held as a stack on the same device
+(``core/model_axis.py``), with the ``model``-axis collectives between
+them. ``PxNxM`` adds a ``pod`` axis whose nodes multiply in, as in the
+JAX package. The production pod meshes (``16x16``, ``2x16x16`` and
+their names) raise: a model axis across cards needs a model-axis
+process group (ROADMAP Queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -15,7 +18,10 @@ import dataclasses
 import math
 from typing import Dict, Tuple
 
-__all__ = ["MeshSpec", "parse_mesh"]
+__all__ = ["MeshSpec", "parse_mesh", "make_mesh_by_name", "node_axis_names",
+           "POD_MESHES"]
+
+POD_MESHES = ("single_pod", "16x16", "multi_pod", "2x16x16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,16 +39,22 @@ class MeshSpec:
         return tuple(a for a, _ in self.axes if a != "model")
 
     @property
+    def model(self) -> int:
+        """The model axis's size (1 without one)."""
+        return self.shape.get("model", 1)
+
+    @property
     def n_nodes(self) -> int:
         return math.prod(size for a, size in self.axes if a != "model")
 
 
 def parse_mesh(name: str) -> MeshSpec:
-    """``N`` / ``NxM`` / ``PxNxM`` -> MeshSpec; TP meshes raise."""
-    if name in ("single_pod", "16x16", "multi_pod", "2x16x16"):
+    """``N`` / ``NxM`` / ``PxNxM`` -> MeshSpec; the pod meshes raise."""
+    if name in POD_MESHES:
         raise ValueError(
-            f"mesh {name!r} is a TPU pod mesh with a model axis of 16: "
-            "tensor parallelism needs more than one GPU and is not ported")
+            f"mesh {name!r} is a TPU pod mesh: its model axis of 16 spans "
+            "16 chips, and a model axis across cards needs a model-axis "
+            "process group, not ported (ROADMAP Queue 1, item 4)")
     try:
         dims = tuple(int(d) for d in name.lower().split("x"))
     except ValueError:
@@ -51,9 +63,14 @@ def parse_mesh(name: str) -> MeshSpec:
         raise ValueError(f"mesh {name!r}: expected N, NxM or PxNxM")
     axes = {1: ("data",), 2: ("data", "model"),
             3: ("pod", "data", "model")}[len(dims)]
-    spec = MeshSpec(tuple(zip(axes, dims)))
-    if spec.shape.get("model", 1) > 1:
-        raise ValueError(
-            f"mesh {name!r} has a model axis of {spec.shape['model']}: "
-            "tensor parallelism needs more than one GPU and is not ported")
-    return spec
+    return MeshSpec(tuple(zip(axes, dims)))
+
+
+def make_mesh_by_name(name: str) -> MeshSpec:
+    """``repro.launch.mesh.make_mesh_by_name``: the mesh spec of a name."""
+    return parse_mesh(name)
+
+
+def node_axis_names(mesh: MeshSpec) -> Tuple[str, ...]:
+    """The mesh's node axes (every axis but ``model``)."""
+    return mesh.node_axes

@@ -6,7 +6,15 @@
 The counterpart of ``repro.launch.train``, with the same flags plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain
 versions of the kernels). ``--mesh N`` simulates N edge nodes, all held
-on the one device as one node block; ``--init-method``, ``--rank`` and
+on the one device as one node block; ``--mesh NxM`` splits each node's
+model over a ``model`` axis of M shards, held as a stack on the same
+device (``core/model_axis``: the dense decoder family; the wire planes
+take JAX's tensor-parallel buckets):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
+      --smoke --mesh 2x2 --steps 3 --compressor fixedk:8 --device cpu
+
+``--init-method``, ``--rank`` and
 ``--world-size`` instead run one node per process on
 ``torch.distributed`` (NCCL on CUDA, one GPU per rank; gloo on the CPU).
 Each step runs the method's per-node executor through
@@ -48,8 +56,8 @@ class TrainRun:
 
 
 def train(tc, transport, *, steps: int, global_batch: int, seq_len: int,
-          seed: int = 0, state=None, on_step: Optional[Callable] = None
-          ) -> TrainRun:
+          seed: int = 0, state=None, on_step: Optional[Callable] = None,
+          model_axis=None) -> TrainRun:
     """The launcher's step loop: ``steps`` steps of
     ``make_distributed_train`` on the synthetic token stream, with the
     JAX launcher's stub context (``transformer.stub_context``) for the
@@ -57,7 +65,8 @@ def train(tc, transport, *, steps: int, global_batch: int, seq_len: int,
     ``init_distributed_state`` from ``seed``; ``on_step(t, loss,
     seconds)`` is called after each step. Under ``overlap`` each step
     leaves its exchange in flight for the next; the last one is waited
-    on before the state is returned."""
+    on before the state is returned. ``model_axis`` runs each node's
+    model over its M shards (``core/model_axis.StackModelAxis``)."""
     import torch
 
     from repro_torch.core.transport import settle
@@ -67,8 +76,10 @@ def train(tc, transport, *, steps: int, global_batch: int, seq_len: int,
 
     cfg = tc.model
     if state is None:
-        state = steps_mod.init_distributed_state(tc, transport, seed=seed)
-    step_fn = steps_mod.make_distributed_train(tc, transport)
+        state = steps_mod.init_distributed_state(tc, transport, seed=seed,
+                                                 model_axis=model_axis)
+    step_fn = steps_mod.make_distributed_train(tc, transport,
+                                               model_axis=model_axis)
     stream = TokenStream(vocab_size=cfg.vocab_size, batch=global_batch,
                          seq_len=seq_len, seed=seed)
     dev = transport.device
@@ -174,14 +185,33 @@ def _save(directory: str, step: int, state, transport) -> str:
     return save_checkpoint(directory, step, state)
 
 
+def _describe_buckets(tc, mesh) -> None:
+    """The run's wire-plane buckets (key, lane, rows)."""
+    from repro_torch.core import plane as plane_mod
+    from repro_torch.models import transformer
+    from repro_torch.train import steps as steps_mod
+
+    template = transformer.unflatten({
+        k: plane_mod.ShapeDtype(s, tc.param_dtype)
+        for k, s in transformer.param_shapes(tc.model).items()})
+    with steps_mod.bucket_ctx(tc, mesh.model):
+        spec = plane_mod.ParamPlane.for_tree(template)
+    print(f"model axis {mesh.model}: {spec.n_buckets} wire-plane buckets",
+          flush=True)
+    for i, b in enumerate(spec.buckets):
+        print(f"  bucket {i}: key {b.key} lane {b.lane} rows {b.rows} "
+              f"({len(b.leaves)} leaves)", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config")
     ap.add_argument("--mesh", default="2",
-                    help="N or Nx1: N simulated edge nodes (a model axis "
-                         "above 1 is tensor parallelism: not ported)")
+                    help="N or NxM: N simulated edge nodes, each node's "
+                         "model split over a model axis of M shards "
+                         "(tensor parallelism, the dense family)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--global-batch", type=int, default=None)
     ap.add_argument("--seq-len", type=int, default=None)
@@ -258,6 +288,11 @@ def main(argv=None) -> None:
     mesh = parse_mesh(args.mesh)
     n_nodes = mesh.n_nodes
     dev = resolve_device(args.device)
+    if mesh.model > 1 and (args.init_method or args.sim):
+        ap.error("a model axis above 1 runs with every node in one process "
+                 "(its shards stacked on one device): drop --init-method "
+                 "and --sim (a model-axis process group is ROADMAP Queue 1, "
+                 "item 4)")
     if args.init_method:
         import torch.distributed as dist
 
@@ -284,6 +319,13 @@ def main(argv=None) -> None:
         topology_seed=args.topology_seed, method=meth_name,
         param_dtype=torch.float32 if args.smoke else torch.bfloat16)
     sched = steps_mod.gossip_schedule(tc, n_nodes)
+    model_axis = None
+    if mesh.model > 1:
+        from repro_torch.core.model_axis import StackModelAxis
+        from repro_torch.models.transformer import check_tensor_parallel
+
+        check_tensor_parallel(cfg)
+        model_axis = StackModelAxis(mesh.model, dev)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"arch={cfg.name} mesh={mesh.shape} nodes={n_nodes} "
           f"method={meth_name} p={args.p} theta={args.theta} "
@@ -292,6 +334,8 @@ def main(argv=None) -> None:
           + (f" time_varying_L={sched.length}" if sched.length > 1 else "")
           + (" overlap=on" if args.overlap else "")
           + f" device={where}", flush=True)
+    if model_axis is not None:
+        _describe_buckets(tc, mesh)
 
     if args.sim:
         if cfg.family in ("audio", "vlm"):
@@ -303,11 +347,19 @@ def main(argv=None) -> None:
         return
 
     def report(t, loss, seconds):
-        print(f"step {t:4d} loss {loss:.4f} ({seconds:.2f}s)", flush=True)
+        extra = ""
+        if model_axis is not None:
+            extra = " model-axis " + " ".join(
+                f"{op} {model_axis.calls[op]} ({model_axis.bytes[op]} B)"
+                for op in model_axis.calls if model_axis.calls[op])
+            model_axis.reset_counters()
+        print(f"step {t:4d} loss {loss:.4f} ({seconds:.2f}s){extra}",
+              flush=True)
 
     try:
         run = train(tc, transport, steps=args.steps, global_batch=batch,
-                    seq_len=seq, seed=args.seed, on_step=report)
+                    seq_len=seq, seed=args.seed, on_step=report,
+                    model_axis=model_axis)
         if args.checkpoint_dir:
             path = _save(args.checkpoint_dir, args.steps, run.state,
                          transport)

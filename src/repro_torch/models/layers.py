@@ -20,17 +20,34 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ParamSpec", "rms_norm", "rope", "attention_specs",
-           "attention_apply", "attention_decode_paged", "mlp_specs",
-           "mlp_apply", "KVCache", "softcap"]
+__all__ = ["ParamSpec", "axes_of", "shapes_of", "rms_norm", "rope",
+           "attention_specs", "attention_apply", "attention_decode_paged",
+           "mlp_specs", "mlp_apply", "KVCache", "softcap"]
 
 NEG_INF = -1e30
 
 
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical axis names (sharding.py)
     init: str = "normal"      # normal | zeros | ones | half
     scale: float = 1.0        # stddev multiplier for normal init
+
+
+def _spec_map(fn, specs):
+    if isinstance(specs, ParamSpec):
+        return fn(specs)
+    return {k: _spec_map(fn, v) for k, v in specs.items()}
+
+
+def axes_of(specs) -> Dict:
+    """The logical-axes tree of a (nested dict) spec tree."""
+    return _spec_map(lambda s: s.axes, specs)
+
+
+def shapes_of(specs) -> Dict:
+    """The shapes tree of a (nested dict) spec tree."""
+    return _spec_map(lambda s: s.shape, specs)
 
 
 # --------------------------------------------------------------------------
@@ -111,18 +128,19 @@ def attention_specs(cfg: ModelConfig,
     (``cross``) carries no QKV biases, even under ``cfg.qkv_bias``."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     specs = {
-        "wq": ParamSpec((d, h * hd)),
-        "wk": ParamSpec((d, kv * hd)),
-        "wv": ParamSpec((d, kv * hd)),
-        "wo": ParamSpec((h * hd, d)),
-        "norm": ParamSpec((d,), "zeros" if cfg.post_block_norm else "ones"),
+        "wq": ParamSpec((d, h * hd), ("embed", "heads_flat")),
+        "wk": ParamSpec((d, kv * hd), ("embed", "kv_flat")),
+        "wv": ParamSpec((d, kv * hd), ("embed", "kv_flat")),
+        "wo": ParamSpec((h * hd, d), ("heads_flat", "embed")),
+        "norm": ParamSpec((d,), ("embed",),
+                          "zeros" if cfg.post_block_norm else "ones"),
     }
     if cfg.qkv_bias and not cross:
-        specs["bq"] = ParamSpec((h * hd,), "zeros")
-        specs["bk"] = ParamSpec((kv * hd,), "zeros")
-        specs["bv"] = ParamSpec((kv * hd,), "zeros")
+        specs["bq"] = ParamSpec((h * hd,), ("heads_flat",), "zeros")
+        specs["bk"] = ParamSpec((kv * hd,), ("kv_flat",), "zeros")
+        specs["bv"] = ParamSpec((kv * hd,), ("kv_flat",), "zeros")
     if cfg.post_block_norm:
-        specs["post_norm"] = ParamSpec((d,), "zeros")
+        specs["post_norm"] = ParamSpec((d,), ("embed",), "zeros")
     return specs
 
 
@@ -229,6 +247,7 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                     kv_source: Optional[torch.Tensor] = None,
                     causal: bool = True,
                     use_rope: bool = True,
+                    model_axis=None,
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Self- or cross-attention with an optional dense KV cache.
 
@@ -241,7 +260,22 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     and returned. Cross-attention (``kv_source``: encoder or image
     states (b, skv, d)): every query sees every key, nothing is cached,
     and no cache comes back.
+
+    ``model_axis`` (``core/model_axis``) with ``params`` in the
+    model-axis layout (``convert.shard_params``): the tensor-parallel
+    self-attention of a training forward (no cache); a block whose
+    ``wq`` the divisibility fallback left whole runs as without it.
     """
+    if model_axis is not None and _split(params["wq"], 2):
+        if cache is not None or kv_source is not None or not causal \
+                or not use_rope:
+            raise NotImplementedError(
+                "tensor-parallel attention runs the causal self-attention "
+                "of a training forward only; caches (prefill / decode), "
+                "cross-attention and the encoder are not ported (ROADMAP "
+                "Queue 1, item 5)")
+        return _attention_tp(params, cfg, x, positions=positions,
+                             layer_kind=layer_kind, axis=model_axis), None
     residual, q, k, v = _project_qkv(params, cfg, x, positions=positions,
                                      kv_source=kv_source, use_rope=use_rope)
     if kv_source is not None:
@@ -327,14 +361,15 @@ def attention_decode_paged(params: Dict[str, torch.Tensor], cfg: ModelConfig,
 def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, f = cfg.d_model, cfg.d_ff
     specs = {
-        "w_up": ParamSpec((d, f)),
-        "w_down": ParamSpec((f, d)),
-        "norm": ParamSpec((d,), "zeros" if cfg.post_block_norm else "ones"),
+        "w_up": ParamSpec((d, f), ("embed", "mlp")),
+        "w_down": ParamSpec((f, d), ("mlp", "embed")),
+        "norm": ParamSpec((d,), ("embed",),
+                          "zeros" if cfg.post_block_norm else "ones"),
     }
     if cfg.glu:
-        specs["w_gate"] = ParamSpec((d, f))
+        specs["w_gate"] = ParamSpec((d, f), ("embed", "mlp"))
     if cfg.post_block_norm:
-        specs["post_norm"] = ParamSpec((d,), "zeros")
+        specs["post_norm"] = ParamSpec((d,), ("embed",), "zeros")
     return specs
 
 
@@ -348,15 +383,121 @@ def _activation(x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def mlp_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
-              x: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor, model_axis=None) -> torch.Tensor:
+    """The feed-forward sub-block. With ``model_axis`` and ``params`` in
+    the model-axis layout: ``w_up`` / ``w_gate`` split by columns,
+    ``w_down`` by rows, then the all-reduce (Megatron's MLP)."""
+    tp = model_axis is not None and _split(params["w_up"], 2)
+    mm = _bmm if tp else matmul
     residual = x
     h = rms_norm(x, params["norm"], cfg.norm_eps, plus_one=cfg.post_block_norm)
-    up = matmul(h, params["w_up"])
+    if tp:
+        h = model_axis.copy_in(h)
+    up = mm(h, params["w_up"])
     if cfg.glu:
-        up = _activation(matmul(h, params["w_gate"]), cfg.act) * up
+        up = _activation(mm(h, params["w_gate"]), cfg.act) * up
     else:
         up = _activation(up, cfg.act)
-    out = matmul(up, params["w_down"])
+    out = mm(up, params["w_down"])
+    if tp:
+        out = model_axis.all_reduce(out)
+    if cfg.post_block_norm:
+        out = rms_norm(out, params["post_norm"], cfg.norm_eps, plus_one=True)
+    return residual + out
+
+
+# --------------------------------------------------------------------------
+# Tensor parallelism over the model axis (training forward)
+# --------------------------------------------------------------------------
+#
+# ``params`` come in the model-axis layout (``convert.shard_params``): a
+# leaf JAX's rules split over ``model`` is (M,) + its shard, each shard
+# the contiguous block of the split dimension that ``NamedSharding``
+# gives that device; a leaf the divisibility fallback replicates stays
+# whole. Sharded activations are (M, ...) stacks, replicated ones are
+# held once (``core/model_axis``). Every product of a split weight is a
+# batched matmul over the shards, each shard with its own block.
+
+def _split(w: torch.Tensor, ndim: int) -> bool:
+    """Whether a leaf of ``ndim`` dimensions (per layer) is in the
+    model-axis layout (a leading shard dimension)."""
+    return w.dim() == ndim + 1
+
+
+def _bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Each shard's product: x (M, ..., k) @ w (M, k, n) -> (M, ..., n)."""
+    if x.dtype != w.dtype:
+        x, w = promote(x, w)
+    m = x.shape[0]
+    out = torch.bmm(x.reshape(m, -1, x.shape[-1]), w)
+    return out.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
+def _kv_of_own_heads(t: torch.Tensor, cfg: ModelConfig,
+                     m: int) -> torch.Tensor:
+    """(M, b, s, kv heads x hd), every shard holding every KV head ->
+    (M, b, s, hq x hd): shard i's copy of the KV head of each of its
+    ``hq = n_heads / M`` query heads (GQA group 1 from here on)."""
+    hd = cfg.resolved_head_dim
+    hq = cfg.n_heads // m
+    group = cfg.n_heads // cfg.n_kv_heads
+    idx = (torch.arange(m * hq, device=t.device) // group).reshape(m, hq)
+    t = t.reshape(tuple(t.shape[:3]) + (cfg.n_kv_heads, hd))
+    idx = idx[:, None, None, :, None].expand(
+        tuple(t.shape[:3]) + (hq, hd))
+    return torch.gather(t, 3, idx).reshape(tuple(t.shape[:3]) + (hq * hd,))
+
+
+def _attention_tp(params, cfg: ModelConfig, x: torch.Tensor, *,
+                  positions: torch.Tensor, layer_kind: str, axis):
+    """Megatron's attention: the input copied into the shards, each
+    shard's query heads from its block of ``wq`` (heads split whole,
+    GQA groups kept), its output through its rows of ``wo``, the partial
+    sums all-reduced before ``post_norm`` and the residual add. K / V:
+    from the shard's own block of ``wk`` / ``wv`` where it holds exactly
+    its query heads' KV heads (``n_kv_heads % M == 0``); otherwise every
+    shard gathers the whole K / V (split ``wk``: all-gathered from the
+    blocks; ``wk`` left whole: computed once, copied in) and takes its
+    query heads' KV heads."""
+    m, hd = axis.size, cfg.resolved_head_dim
+    if cfg.n_heads % m:
+        raise NotImplementedError(
+            f"{cfg.n_heads} query heads do not split whole over a model "
+            f"axis of {m} (JAX's GSPMD splits inside a head): not ported "
+            "(ROADMAP Queue 1, item 5)")
+    residual = x
+    h = rms_norm(x, params["norm"], cfg.norm_eps,
+                 plus_one=cfg.post_block_norm)
+    hs = axis.copy_in(h)
+    q = _bmm(hs, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"][:, None, None]
+    wk, wv = params["wk"], params["wv"]
+    if _split(wk, 2):
+        k, v = _bmm(hs, wk), _bmm(hs, wv)
+        if "bk" in params:
+            k = k + params["bk"][:, None, None]
+            v = v + params["bv"][:, None, None]
+        if cfg.n_kv_heads % m:
+            k = _kv_of_own_heads(axis.all_gather(k), cfg, m)
+            v = _kv_of_own_heads(axis.all_gather(v), cfg, m)
+    else:
+        k, v = matmul(h, wk), matmul(h, wv)
+        if "bk" in params:
+            k, v = k + params["bk"], v + params["bv"]
+        k = _kv_of_own_heads(axis.copy_in(k), cfg, m)
+        v = _kv_of_own_heads(axis.copy_in(v), cfg, m)
+    b, s = x.shape[:2]
+    q, k, v = (t.reshape(m * b, s, -1, hd) for t in (q, k, v))
+    pos = positions.repeat(m, 1)                     # the shards fold into b
+    if cfg.pos_embedding == "rope":
+        q = rope(q, pos, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, pos, cfg.rope_theta, cfg.rope_fraction)
+    window = cfg.sliding_window if layer_kind == "attn_local" else None
+    out = _attend(q, k, v, chunk_q=cfg.attn_chunk_q, q_positions=pos,
+                  kv_positions=pos, causal=True, window=window,
+                  softcap_val=cfg.attn_softcap, kv_valid_len=None)
+    out = axis.all_reduce(_bmm(out.reshape(m, b, s, -1), params["wo"]))
     if cfg.post_block_norm:
         out = rms_norm(out, params["post_norm"], cfg.norm_eps, plus_one=True)
     return residual + out

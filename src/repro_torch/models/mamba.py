@@ -34,16 +34,16 @@ def mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, di = cfg.d_model, cfg.mamba_d_inner
     ds, dc, dtr = cfg.mamba_d_state, cfg.mamba_d_conv, cfg.mamba_dt_rank
     return {
-        "norm": ParamSpec((d,), "ones"),
-        "w_in": ParamSpec((d, 2 * di)),              # x and z branches
-        "conv_w": ParamSpec((dc, di)),
-        "conv_b": ParamSpec((di,), "zeros"),
-        "w_x_dbc": ParamSpec((di, dtr + 2 * ds)),
-        "w_dt": ParamSpec((dtr, di)),
-        "dt_bias": ParamSpec((di,), "zeros"),
-        "a_log": ParamSpec((di, ds), "ones"),        # A = -exp(a_log)
-        "d_skip": ParamSpec((di,), "ones"),
-        "w_out": ParamSpec((di, d)),
+        "norm": ParamSpec((d,), ("embed",), "ones"),
+        "w_in": ParamSpec((d, 2 * di), ("embed", "mlp")),  # x and z
+        "conv_w": ParamSpec((dc, di), (None, "mlp")),
+        "conv_b": ParamSpec((di,), ("mlp",), "zeros"),
+        "w_x_dbc": ParamSpec((di, dtr + 2 * ds), ("mlp", None)),
+        "w_dt": ParamSpec((dtr, di), (None, "mlp")),
+        "dt_bias": ParamSpec((di,), ("mlp",), "zeros"),
+        "a_log": ParamSpec((di, ds), ("mlp", None), "ones"),  # -exp(A)
+        "d_skip": ParamSpec((di,), ("mlp",), "ones"),
+        "w_out": ParamSpec((di, d), ("mlp", "embed")),
     }
 
 

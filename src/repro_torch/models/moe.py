@@ -32,15 +32,16 @@ __all__ = ["moe_specs", "moe_apply"]
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, fe, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
     specs = {
-        "router": ParamSpec((d, e)),
-        "w_up": ParamSpec((e, d, fe)),
-        "w_down": ParamSpec((e, fe, d)),
-        "norm": ParamSpec((d,), "zeros" if cfg.post_block_norm else "ones"),
+        "router": ParamSpec((d, e), ("embed", None)),
+        "w_up": ParamSpec((e, d, fe), ("experts", "embed", "mlp")),
+        "w_down": ParamSpec((e, fe, d), ("experts", "mlp", "embed")),
+        "norm": ParamSpec((d,), ("embed",),
+                          "zeros" if cfg.post_block_norm else "ones"),
     }
     if cfg.glu:
-        specs["w_gate"] = ParamSpec((e, d, fe))
+        specs["w_gate"] = ParamSpec((e, d, fe), ("experts", "embed", "mlp"))
     if cfg.post_block_norm:
-        specs["post_norm"] = ParamSpec((d,), "zeros")
+        specs["post_norm"] = ParamSpec((d,), ("embed",), "zeros")
     return specs
 
 

@@ -42,32 +42,33 @@ def rwkv_time_mix_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     n = cfg.rwkv_head_size
     h = cfg.rwkv_n_heads
     return {
-        "norm": ParamSpec((d,), "ones"),
-        "mix_r": ParamSpec((d,), "half"),
-        "mix_k": ParamSpec((d,), "half"),
-        "mix_v": ParamSpec((d,), "half"),
-        "mix_w": ParamSpec((d,), "half"),
-        "mix_g": ParamSpec((d,), "half"),
-        "w_r": ParamSpec((d, h * n)),
-        "w_k": ParamSpec((d, h * n)),
-        "w_v": ParamSpec((d, h * n)),
-        "w_g": ParamSpec((d, d)),
-        "w_decay": ParamSpec((d, h * n), scale=0.1),
-        "decay_bias": ParamSpec((h, n), "zeros"),
-        "bonus_u": ParamSpec((h, n), "zeros"),
-        "w_out": ParamSpec((d, d)),
+        "norm": ParamSpec((d,), ("embed",), "ones"),
+        "mix_r": ParamSpec((d,), ("embed",), "half"),
+        "mix_k": ParamSpec((d,), ("embed",), "half"),
+        "mix_v": ParamSpec((d,), ("embed",), "half"),
+        "mix_w": ParamSpec((d,), ("embed",), "half"),
+        "mix_g": ParamSpec((d,), ("embed",), "half"),
+        "w_r": ParamSpec((d, h * n), ("embed", "heads_flat")),
+        "w_k": ParamSpec((d, h * n), ("embed", "heads_flat")),
+        "w_v": ParamSpec((d, h * n), ("embed", "heads_flat")),
+        "w_g": ParamSpec((d, d), ("embed", "mlp")),
+        "w_decay": ParamSpec((d, h * n), ("embed", "heads_flat"),
+                             scale=0.1),
+        "decay_bias": ParamSpec((h, n), ("heads", None), "zeros"),
+        "bonus_u": ParamSpec((h, n), ("heads", None), "zeros"),
+        "w_out": ParamSpec((d, d), ("mlp", "embed")),
     }
 
 
 def rwkv_channel_mix_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "norm": ParamSpec((d,), "ones"),
-        "mix_k": ParamSpec((d,), "half"),
-        "mix_r": ParamSpec((d,), "half"),
-        "w_k": ParamSpec((d, f)),
-        "w_v": ParamSpec((f, d)),
-        "w_r": ParamSpec((d, d)),
+        "norm": ParamSpec((d,), ("embed",), "ones"),
+        "mix_k": ParamSpec((d,), ("embed",), "half"),
+        "mix_r": ParamSpec((d,), ("embed",), "half"),
+        "w_k": ParamSpec((d, f), ("embed", "mlp")),
+        "w_v": ParamSpec((f, d), ("mlp", "embed")),
+        "w_r": ParamSpec((d, d), ("embed", "mlp")),
     }
 
 

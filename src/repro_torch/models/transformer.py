@@ -38,12 +38,15 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.layers import (KVCache, ParamSpec, attention_apply,
+from repro_torch.models.layers import (KVCache, ParamSpec, _bmm, _split,
+                                       attention_apply,
                                        attention_decode_paged,
-                                       attention_specs, matmul, mlp_apply,
-                                       mlp_specs, rms_norm, softcap)
+                                       attention_specs, axes_of, matmul,
+                                       mlp_apply, mlp_specs, rms_norm,
+                                       softcap)
 
-__all__ = ["model_specs", "param_shapes", "flat_specs", "init_params",
+__all__ = ["model_specs", "param_shapes", "param_axes", "cache_logical_axes",
+           "check_tensor_parallel", "flat_specs", "init_params",
            "forward", "lm_loss", "init_cache", "prefill", "decode_step",
            "decode_step_paged", "encode_context", "stub_context", "Cache",
            "period_params"]
@@ -82,15 +85,16 @@ def _slot_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
 
 
 def _stack(specs: Dict[str, ParamSpec], n: int) -> Dict[str, ParamSpec]:
-    return {k: ParamSpec((n,) + s.shape, s.init, s.scale)
+    return {k: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init,
+                         s.scale)
             for k, s in specs.items()}
 
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
     specs: Dict[str, Any] = {
-        "embed": ParamSpec((cfg.padded_vocab, d)),
-        "final_norm": ParamSpec((d,), "ones"),
+        "embed": ParamSpec((cfg.padded_vocab, d), ("vocab", "embed")),
+        "final_norm": ParamSpec((d,), ("embed",), "ones"),
         "blocks": {
             str(i): {name: _stack(sub, cfg.n_periods)
                      for name, sub in _slot_specs(cfg, spec).items()}
@@ -98,16 +102,18 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
         },
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((d, cfg.padded_vocab))
+        specs["lm_head"] = ParamSpec((d, cfg.padded_vocab),
+                                     ("embed", "vocab"))
     if cfg.pos_embedding == "learned":
         specs["pos_embed"] = ParamSpec((cfg.max_position_embeddings, d),
+                                       (None, "embed"),
                                        scale=0.02)
     if cfg.has_encoder:
         specs["encoder"] = {
             "layers": {"attn": _stack(attention_specs(cfg),
                                       cfg.n_encoder_layers),
                        "mlp": _stack(mlp_specs(cfg), cfg.n_encoder_layers)},
-            "final_norm": ParamSpec((d,), "ones"),
+            "final_norm": ParamSpec((d,), ("embed",), "ones"),
         }
     return specs
 
@@ -130,6 +136,12 @@ def flat_specs(cfg: ModelConfig) -> List[Tuple[str, ParamSpec]]:
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return {k: s.shape for k, s in flat_specs(cfg)}
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Each parameter's logical axes, as a tree of the parameters' own
+    (nested dict) structure (``repro.models.transformer.param_axes``)."""
+    return axes_of(model_specs(cfg))
 
 
 def unflatten(flat: Dict[str, torch.Tensor]) -> Params:
@@ -229,6 +241,27 @@ def _at(st, i: int):
     return type(st)(*(a[i] for a in st))
 
 
+def cache_logical_axes(cfg: ModelConfig) -> Cache:
+    """The logical axes of ``init_cache``'s leaves, in its structure."""
+    def slot_axes(spec: LayerSpec):
+        if spec.mixer in ATTN:
+            a = ("layers", "batch", "cache_seq", "kv_heads", None)
+            return KVCache(k=a, v=a)
+        if spec.mixer == "mamba":
+            return mamba_mod.MambaState(
+                conv=("layers", "batch", None, "mlp"),
+                ssm=("layers", "batch", "mlp", None))
+        if spec.mixer == "rwkv":
+            return rwkv_mod.RWKVState(
+                att_shift=("layers", "batch", "embed"),
+                ffn_shift=("layers", "batch", "embed"),
+                wkv=("layers", "batch", "heads", None, None))
+        raise ValueError(spec.mixer)
+
+    return Cache(slots={str(i): slot_axes(s)
+                        for i, s in enumerate(cfg.period)}, offset=())
+
+
 def _with_states(cache: Cache, states: Dict[str, List[Any]],
                  offset: int) -> Cache:
     """``cache`` with the recurrent slots' per-period states stacked in."""
@@ -244,11 +277,11 @@ def _with_states(cache: Cache, states: Dict[str, List[Any]],
 # --------------------------------------------------------------------------
 
 def _ffn_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
-              state):
+              state, model_axis=None):
     """A slot's feed-forward over a full sequence: (x, MoE aux or None,
     the slot's recurrent state)."""
     if spec.ffn == "mlp":
-        return mlp_apply(sp["mlp"], cfg, x), None, state
+        return mlp_apply(sp["mlp"], cfg, x, model_axis), None, state
     if spec.ffn == "moe":
         x, aux = moe_mod.moe_apply(sp["moe"], cfg, x)
         return x, aux, state
@@ -271,17 +304,19 @@ def _cross(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
 
 def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
                positions: torch.Tensor, cache=None,
-               ctx: Optional[torch.Tensor] = None):
+               ctx: Optional[torch.Tensor] = None, model_axis=None):
     """One layer slot over a full sequence. ``cache``: an attention
     slot's ``KVCache`` to fill from position 0 (prefill), or an rwkv
     slot's initial state (zeros when None); ``ctx``: the encoded context
-    of a cross-attention slot. Returns (x, MoE aux or None, the recurrent
-    slot's final state or None)."""
+    of a cross-attention slot; ``model_axis``: a dense slot's tensor-
+    parallel forward. Returns (x, MoE aux or None, the recurrent slot's
+    final state or None)."""
     state = None
     if spec.mixer in ATTN:
         if cache is None:
             x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
-                                   layer_kind=spec.mixer)
+                                   layer_kind=spec.mixer,
+                                   model_axis=model_axis)
         else:
             x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
                                    layer_kind=spec.mixer, cache=cache,
@@ -295,7 +330,7 @@ def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
                                              x.device)
         x, state = rwkv_mod.rwkv_time_mix(sp["time_mix"], cfg, x, cache)
     x = _cross(cfg, spec, sp, x, positions, ctx)
-    return _ffn_full(cfg, spec, sp, x, state)
+    return _ffn_full(cfg, spec, sp, x, state, model_axis)
 
 
 def _slot_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
@@ -329,8 +364,11 @@ def _ffn_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _embed_tokens(params: Params, cfg: ModelConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+                  tokens: torch.Tensor, model_axis=None) -> torch.Tensor:
+    if model_axis is not None and _split(params["embed"], 2):
+        x = _embed_vocab_split(params["embed"], tokens, model_axis)
+    else:
+        x = params["embed"][tokens.long()]
     if cfg.scale_embeddings:
         # the scale rounded to x's dtype first, as in JAX (a fill, so no
         # host-to-device copy on the decode path)
@@ -339,9 +377,33 @@ def _embed_tokens(params: Params, cfg: ModelConfig,
     return x
 
 
-def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _embed_vocab_split(embed: torch.Tensor, tokens: torch.Tensor,
+                       axis) -> torch.Tensor:
+    """The vocab-split embedding (M, V/M, d): each shard looks up the
+    tokens its block of rows holds (zeros for the others), then the
+    all-reduce sums the one owner's row with zeros (exact)."""
+    m, rows = embed.shape[:2]
+    local = tokens.long()[None] - (torch.arange(
+        m, device=tokens.device) * rows).reshape((m,) + (1,) * tokens.dim())
+    own = (local >= 0) & (local < rows)
+    shard = torch.arange(m, device=tokens.device).reshape(
+        (m,) + (1,) * tokens.dim())
+    x = embed[shard, local.clamp(0, rows - 1)]
+    x = torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    return axis.all_reduce(x)
+
+
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            model_axis=None) -> torch.Tensor:
+    """The (softcapped) logits; with ``model_axis`` and a vocab-split
+    head, each shard's block of the vocab: (M, ..., V/M)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if model_axis is not None and _split(head, 2):
+        head = head.transpose(-1, -2) if cfg.tie_embeddings else head
+        return softcap(_bmm(model_axis.copy_in(x), head), cfg.logit_softcap)
+    head = head.T if cfg.tie_embeddings else head
     return softcap(matmul(x, head), cfg.logit_softcap)
 
 
@@ -386,37 +448,62 @@ def _encode_context(params: Params, cfg: ModelConfig,
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
-def _embed_prompt(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
+def _embed_prompt(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  model_axis=None):
     """Token embeddings of a (b, s) prompt plus, with learned positions,
     ``pos_embed[:s]``; and the positions (b, s)."""
     b, s = tokens.shape
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, model_axis)
     if cfg.pos_embedding == "learned":
         x = x + params["pos_embed"][:s][None]
     return x, torch.arange(s, device=x.device).expand(b, s)
 
 
 def _period(params: Params, cfg: ModelConfig, i: int, x: torch.Tensor,
-            positions: torch.Tensor, ctx: Optional[torch.Tensor] = None):
+            positions: torch.Tensor, ctx: Optional[torch.Tensor] = None,
+            model_axis=None):
     """Period ``i`` of the layer stack over a full sequence (no cache).
     Returns (x, the period's summed MoE aux or None without MoE)."""
     aux = None
     for si, spec in enumerate(cfg.period):
         sp = period_params(params, str(si), i)
-        x, a, _ = _slot_full(cfg, spec, sp, x, positions, ctx=ctx)
+        x, a, _ = _slot_full(cfg, spec, sp, x, positions, ctx=ctx,
+                             model_axis=model_axis)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
 
 
+def check_tensor_parallel(cfg: ModelConfig) -> None:
+    """Raises unless ``cfg`` is a dense decoder (attention + MLP slots):
+    the only family whose forward runs over a model axis."""
+    bad = [s for s in cfg.period
+           if s.mixer not in ATTN or s.ffn != "mlp" or s.cross_attn]
+    if bad or cfg.has_encoder or cfg.pos_embedding == "learned":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over a model axis runs the "
+            "dense decoder family only; the MoE experts, the mamba / rwkv "
+            "mixers, cross-attention and the encoder are not ported "
+            "(ROADMAP Queue 1, item 5)")
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            context: Optional[torch.Tensor] = None
+            context: Optional[torch.Tensor] = None, model_axis=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward. tokens (b, s) -> (logits (b, s, V), aux loss):
     the MoE slots' load-balance losses summed over slots and periods (0
     without MoE). ``context``: the raw (b, s_ctx, d) context, encoded
-    here."""
-    x, positions = _embed_prompt(params, cfg, tokens)
+    here.
+
+    ``model_axis`` (``core/model_axis``, M > 1 shards) runs the dense
+    decoder tensor-parallel over ``params`` in the model-axis layout
+    (``convert.shard_params``); the logits then come vocab-split, (M, b,
+    s, V/M), for ``lm_loss(..., model_axis=)``. Other families raise."""
+    if model_axis is not None and model_axis.size == 1:
+        model_axis = None
+    if model_axis is not None:
+        check_tensor_parallel(cfg)
+    x, positions = _embed_prompt(params, cfg, tokens, model_axis)
     ctx = _encode_context(params, cfg, context)
     auxs = []
     for i in range(cfg.n_periods):
@@ -424,20 +511,25 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             from torch.utils.checkpoint import checkpoint
 
             x, aux = checkpoint(_period, params, cfg, i, x, positions, ctx,
-                                use_reentrant=False)
+                                model_axis, use_reentrant=False)
         else:
-            x, aux = _period(params, cfg, i, x, positions, ctx)
+            x, aux = _period(params, cfg, i, x, positions, ctx, model_axis)
         if aux is not None:
             auxs.append(aux)
     total = (torch.sum(torch.stack(auxs)) if auxs
              else torch.zeros((), device=x.device))
-    return _logits(params, cfg, x), total
+    return _logits(params, cfg, x, model_axis), total
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
-            aux=0.0, aux_weight: float = 0.01) -> torch.Tensor:
+            aux=0.0, aux_weight: float = 0.01, *,
+            model_axis=None) -> torch.Tensor:
     """Next-token cross entropy in f32; the padded vocab tail is masked
-    out (logits there set to -1e30)."""
+    out (logits there set to -1e30). Vocab-split logits (M, b, s, V/M)
+    from a tensor-parallel ``forward`` take ``model_axis``."""
+    if model_axis is not None and logits.dim() == labels.dim() + 2:
+        return _lm_loss_vocab_split(logits, labels, vocab_size, model_axis) \
+            + aux_weight * aux
     v = logits.shape[-1]
     pad = torch.arange(v, device=logits.device) >= vocab_size
     logits = torch.where(pad, torch.full((), -1e30, device=logits.device),
@@ -445,6 +537,30 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(logz - gold) + aux_weight * aux
+
+
+def _lm_loss_vocab_split(logits: torch.Tensor, labels: torch.Tensor,
+                         vocab_size: int, axis) -> torch.Tensor:
+    """The mean cross entropy of vocab-split logits: logsumexp from the
+    model-axis max and the all-reduced sum of exponentials, the label's
+    logit from the shard whose block holds it (all-reduced with the
+    others' zeros)."""
+    m, cols = logits.shape[0], logits.shape[-1]
+    lead = (m,) + (1,) * (logits.dim() - 2)
+    start = torch.arange(m, device=logits.device).reshape(lead) * cols
+    col = start[..., None] + torch.arange(cols, device=logits.device)
+    logits = torch.where(col >= vocab_size,
+                         torch.full((), -1e30, device=logits.device),
+                         logits.float())
+    top = axis.all_max(logits.amax(-1))
+    total = axis.all_reduce(torch.exp(logits - top[..., None]).sum(-1))
+    logz = torch.log(total) + top
+    local = labels.long()[None] - start
+    own = (local >= 0) & (local < cols)
+    gold = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])
+    gold = axis.all_reduce(torch.where(own, gold[..., 0],
+                                       torch.zeros((), device=gold.device)))
+    return torch.mean(logz - gold)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -287,9 +287,13 @@ def test_launcher_targets_cuda_by_default_and_refuses_what_is_not_ported():
     base = ["--arch", ARCH, "--smoke", "--steps", "1"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_mod.main(base)
-    with pytest.raises(ValueError, match="tensor parallelism needs more "
-                       "than one GPU and is not ported"):
-        train_mod.main(base + ["--device", "cpu", "--mesh", "2x2"])
+    # a model axis across the cards of a pod, and tensor parallelism
+    # outside the dense family, are not ported
+    with pytest.raises(ValueError, match="TPU pod mesh.*ROADMAP"):
+        train_mod.main(base + ["--device", "cpu", "--mesh", "16x16"])
+    with pytest.raises(NotImplementedError, match="dense decoder family"):
+        train_mod.main(["--arch", "granite-moe-1b-a400m", "--smoke",
+                        "--steps", "1", "--device", "cpu", "--mesh", "2x2"])
 
 
 @pytest.mark.parametrize("name,nodes", [("4", 4), ("4x1", 4), ("2x3x1", 6),
@@ -300,8 +304,18 @@ def test_mesh_specs_name_node_counts(name, nodes):
 
 @pytest.mark.parametrize("name", ["2x2", "single_pod", "multi_pod", "4x"])
 def test_mesh_specs_refuse_tensor_parallel_and_pods(name):
-    with pytest.raises(ValueError):
-        mesh_mod.parse_mesh(name)
+    """The pod meshes and malformed names raise. A model axis on one
+    device runs the dense family only: ``2x2`` parses (2 nodes, 2
+    shards) and tensor parallelism of an MoE model raises."""
+    if name != "2x2":
+        with pytest.raises(ValueError):
+            mesh_mod.parse_mesh(name)
+        return
+    mesh = mesh_mod.parse_mesh(name)
+    assert (mesh.n_nodes, mesh.model) == (2, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.check_tensor_parallel(
+            configs.get_smoke_config("granite-moe-1b-a400m"))
 
 
 def test_registry_faces_are_callable():
