@@ -157,6 +157,24 @@ Phases (any failure exits non-zero):
      gather-pack kernel against its plain version on the run's own
      differential at every bucket's shape, each timed against its byte
      bound and ``index_select``.
+  26. the serving steps over the ``model`` axis
+     (``train.steps.make_prefill_fn`` / ``make_decode_fn``, no kernel):
+     gemma2-2b at full width in f32 at 2 layers, then at full width and
+     depth in bf16, one node at M = 2 and 4 (4 KV heads: split whole);
+     4 rows of 4352 prompt tokens (past the local layers' 4096 window)
+     into an 8192-position cache, the cache moved from the prefill
+     layout (split by KV heads) to the decode layout (split by
+     positions: flash decoding, the partials merged by a max and a sum
+     across the shards) by ``convert.shard_cache``, then 32 decode steps
+     teacher-forced on the unsharded run's greedy tokens. Gates: each
+     row's logits against the unsharded ``prefill`` / ``decode_step``
+     (max |diff| / max |unsharded|: bf16 2^-5, f32 1e-4), finite, the
+     model-axis counters equal ``tp_serving_collectives``, parameters,
+     cache and axis on the card; a fault control (1x2, 4 decode steps
+     with the last shard's partials dropped from the merge) must read
+     above each gate; prints the greedy tokens that agree,
+     the mean decode step for M = 1, 2 and 4, the phase's seconds and
+     peak memory.
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -3076,6 +3094,235 @@ def dryrun_phase(torch, card):
         raise AssertionError(f"phase 23 failed: {failures}")
 
 
+# ---- slice 14: the serving steps over the model axis (phase 26) -----------
+
+# phase 26's serving shape: 4 equal rows whose prompts pass the local
+# layers' 4096-token window, into an 8192-position cache, 32 decode steps
+TPS_ROWS, TPS_PROMPT, TPS_MAX_LEN, TPS_STEPS = 4, 4352, 8192, 32
+TPS_MODELS = (2, 4)
+# bf16, each row's max |TP - unsharded| / max |unsharded| over a step's
+# logits: the split softmax rounds its partials to bf16 where the plain
+# attention rounds its normalised probabilities, and the shards' partial
+# sums of each projection add in another order (each rounded to bf16,
+# 2^-8): 2^-5, the bf16 bound of phase 12's rows
+TPS_BF16_ROW_RTOL = 2 ** -5
+# f32 at full width, 2 layers: the CPU tests hold the smoke config to
+# JAX at 1e-5 of the logits' scale; full width sums 18x longer (d_model
+# 2304, d_ff 9216), so 1e-4 relative
+TPS_F32_RTOL = 1e-4
+TPS_F32_LAYERS, TPS_F32_STEPS = 2, 4
+
+
+def _tps_serve(torch, cfg, params, tokens, feed, m, dev, *, steps):
+    """Prefill ``tokens`` then ``steps`` decode steps fed ``feed`` (the
+    unsharded run's greedy tokens; None: greedy itself), through
+    ``make_prefill_fn`` / ``make_decode_fn`` on a ``1xM`` mesh (``1``: no
+    model axis). Returns (per-step whole logits in f32, the greedy
+    tokens, decode step ms, prefill ms, the model axes' counters per
+    step, the cache's and parameters' devices)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.convert import shard_cache, shard_params, unshard_cache
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.models import transformer
+    from repro_torch.train import steps as steps_mod
+
+    mesh = parse_mesh(f"1x{m}" if m > 1 else "1")
+    pf, prules = steps_mod.make_prefill_fn(cfg, mesh, device=dev)
+    df, drules = steps_mod.make_decode_fn(cfg, mesh, device=dev)
+    p = shard_params(params, cfg, m) if m > 1 else params
+    cache = transformer.init_cache(cfg, TPS_ROWS, TPS_MAX_LEN,
+                                   params["embed"].dtype, dev)
+    if m > 1:
+        cache = shard_cache(cache, cfg, prules)
+    devices = {t.device.type for t in tree_mod.leaves(p)}
+    devices |= {t.device.type for kv in cache.slots.values() for t in kv}
+    whole = lambda lg: torch.cat(list(lg), -1) if m > 1 else lg
+    counts = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pf(p, tokens, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if m > 1:
+        counts.append(("prefill", dict(pf.model_axis.calls),
+                       dict(pf.model_axis.bytes)))
+        cache = shard_cache(unshard_cache(cache, cfg, prules), cfg, drules)
+        devices |= {t.device.type for kv in cache.slots.values() for t in kv}
+        devices.add(df.model_axis.device.type)
+    outs = [whole(logits).float()]
+    greedy = [outs[0].argmax(-1)]
+    step_ms = []
+    for t in range(steps):
+        nxt = greedy[-1] if feed is None else feed[t]
+        if m > 1:
+            df.model_axis.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = df(p, nxt, cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if m > 1:
+            counts.append(("decode", dict(df.model_axis.calls),
+                           dict(df.model_axis.bytes)))
+        outs.append(whole(logits).float())
+        greedy.append(outs[-1].argmax(-1))
+    del p, cache
+    return outs, greedy, step_ms, prefill_ms, counts, devices
+
+
+def _tps_fault_reading(torch, cfg, params, tokens, ref, feed, dev):
+    """The gate's reading of a broken merge: the 1x2 serve of 26a / 26b
+    for TPS_F32_STEPS decode steps with the last shard's partials (its
+    sums and weighted sums: the newest positions, the token each step
+    writes among them) dropped from the decode merge's packed all-reduce
+    (told apart from the step's other all-reduces by its last dimension,
+    head_dim + 1). Returns the worst row's relative error against the
+    unsharded ``ref``."""
+    from repro_torch.core import model_axis as ma
+
+    real = ma.StackModelAxis.all_reduce
+    width = cfg.resolved_head_dim + 1
+
+    def dropped(self, x):
+        if x.dtype == torch.float32 and x.shape[-1] == width:
+            x = x.clone()
+            x[-1] = 0
+        return real(self, x)
+
+    ma.StackModelAxis.all_reduce = dropped
+    try:
+        got = _tps_serve(torch, cfg, params, tokens, feed, 2, dev,
+                         steps=TPS_F32_STEPS)[0]
+    finally:
+        ma.StackModelAxis.all_reduce = real
+    return _tps_compare(torch, ref, got)
+
+
+def _tps_compare(torch, ref, got):
+    """Each row's max |got - ref| / max |ref|, the worst over the steps."""
+    worst = 0.0
+    for a, b in zip(got, ref):
+        err = (a - b).abs().amax(-1) / b.abs().amax(-1)
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def _tps_counts_ok(cfg, m, counts, dtype):
+    from repro_torch.core.model_axis import tp_serving_collectives
+
+    for kind, calls, nbytes in counts:
+        seq = TPS_PROMPT if kind == "prefill" else 1
+        want = tp_serving_collectives(cfg, m, TPS_ROWS, seq, kind, dtype)
+        if calls != {op: v["calls"] for op, v in want.items()} or \
+                nbytes != {op: v["bytes"] for op, v in want.items()}:
+            return False
+    return bool(counts)
+
+
+def tp_serving_phase(torch, np, card, dev="cuda"):
+    """Phase 26 (see the module docstring). Returns the failures."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    t_phase = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    failures = []
+    cfg = configs.get_config("gemma2-2b")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    tokens = torch.randint(0, cfg.vocab_size, (TPS_ROWS, TPS_PROMPT),
+                           generator=gen, device=dev)
+
+    # 26a: f32, full width, 2 layers
+    small = dataclasses.replace(cfg, n_layers=TPS_F32_LAYERS)
+    params = transformer.init_params(small, seed=26, dtype=torch.float32,
+                                     device=dev)
+    ref, greedy, _, _, _, _ = _tps_serve(torch, small, params, tokens, None,
+                                         1, dev, steps=TPS_F32_STEPS)
+    for m in TPS_MODELS:
+        got, _, _, _, counts, devs = _tps_serve(
+            torch, small, params, tokens, greedy[:-1], m, dev,
+            steps=TPS_F32_STEPS)
+        err = _tps_compare(torch, ref, got)
+        ok = _tps_counts_ok(small, m, counts, torch.float32)
+        log(f"phase 26a {small.name} x{TPS_F32_LAYERS} layers f32 at full "
+            f"width, 1x{m}: prefill ({TPS_ROWS} x {TPS_PROMPT}) + "
+            f"{TPS_F32_STEPS} decode steps, logits max row |TP - "
+            f"unsharded| / max |unsharded| {err:.3e} (rtol {TPS_F32_RTOL});"
+            f" model-axis counters == tp_serving_collectives: {ok}; "
+            f"devices {sorted(devs)}")
+        if not (err <= TPS_F32_RTOL and ok and devs == {"cuda"}):
+            failures.append(f"f32 tp serving at 1x{m}")
+        del got
+    fault = _tps_fault_reading(torch, small, params, tokens, ref,
+                               greedy[:-1], dev)
+    log(f"phase 26a fault control, 1x2 with the last shard's partials "
+        f"dropped from the decode merge: {fault:.3e} (must exceed the rtol "
+        f"{TPS_F32_RTOL})")
+    if not fault > TPS_F32_RTOL:
+        failures.append("the f32 gate does not see a dropped shard")
+    del params, ref
+    torch.cuda.empty_cache()
+
+    # 26b: bf16, full width and depth
+    t0 = time.monotonic()
+    params = transformer.init_params(cfg, seed=26, dtype=torch.bfloat16,
+                                     device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 26 init {cfg.name} x{cfg.n_layers} bf16: "
+        f"{time.monotonic() - t0:.1f} s")
+    ref, greedy, ms1, pre1, _, _ = _tps_serve(
+        torch, cfg, params, tokens, None, 1, dev, steps=TPS_STEPS)
+    step_ms = {1: float(np.mean(ms1))}
+    prefill_ms = {1: pre1}
+    feed = greedy[:-1]
+    for m in TPS_MODELS:
+        got, tg, ms, pre, counts, devs = _tps_serve(
+            torch, cfg, params, tokens, feed, m, dev, steps=TPS_STEPS)
+        err = _tps_compare(torch, ref, got)
+        agree = sum(int((a == b).sum()) for a, b in zip(tg, greedy))
+        total = sum(int(b.numel()) for b in greedy)
+        ok = _tps_counts_ok(cfg, m, counts, torch.bfloat16)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        step_ms[m], prefill_ms[m] = float(np.mean(ms)), pre
+        per = counts[1] if len(counts) > 1 else ("", {}, {})
+        log(f"phase 26b {cfg.name} x{cfg.n_layers} bf16, 1x{m} (cache split "
+            f"by KV heads for prefill, by positions for decode): prefill "
+            f"{TPS_ROWS} x {TPS_PROMPT} tokens into {TPS_MAX_LEN} positions"
+            f", {TPS_STEPS} decode steps teacher-forced on the unsharded "
+            f"run's greedy tokens: logits max row |TP - unsharded| / max "
+            f"|unsharded| {err:.3e} (rtol {TPS_BF16_ROW_RTOL:.5f}); greedy "
+            f"tokens agree {agree} of {total}; finite {finite}; model-axis "
+            f"counters == tp_serving_collectives: {ok} (a decode step: "
+            f"{per[1]} calls, {per[2]} bytes); devices {sorted(devs)}")
+        if not (err <= TPS_BF16_ROW_RTOL and ok and finite
+                and devs == {"cuda"}):
+            failures.append(f"bf16 tp serving at 1x{m}")
+        del got
+    fault = _tps_fault_reading(torch, cfg, params, tokens, ref, feed, dev)
+    log(f"phase 26b fault control, 1x2 with the last shard's partials "
+        f"dropped from the decode merge: {fault:.3e} (must exceed the rtol "
+        f"{TPS_BF16_ROW_RTOL:.5f})")
+    if not fault > TPS_BF16_ROW_RTOL:
+        failures.append("the bf16 gate does not see a dropped shard")
+    del params, ref
+    torch.cuda.empty_cache()
+    secs = time.monotonic() - t_phase
+    log(f"phase 26 on {card}: mean decode step ms ({TPS_ROWS} rows, "
+        f"{TPS_MAX_LEN}-position cache, steps 1..{TPS_STEPS}, host wall, "
+        f"synchronised) "
+        + ", ".join(f"M {m} {v:.3f}" for m, v in step_ms.items())
+        + "; prefill ms "
+        + ", ".join(f"M {m} {v:.1f}" for m, v in prefill_ms.items())
+        + f"; phase {secs:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if failures:
+        raise AssertionError(f"phase 26 failed: {failures}")
+    return dict(step_ms=step_ms, prefill_ms=prefill_ms, seconds=secs)
+
+
 # ---- slice 13: tensor parallelism over the model axis (phase 25) ----------
 
 # phase 25's mesh: phase 10's nodes, each model split over TP_MODEL shards
@@ -3894,6 +4141,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     n, timing["fixedk_gather_pack"]["phase25"] = tp_phase(torch, np, card)
     launches["fixedk_gather_pack"] += n
+
+    # ---- 26. the serving steps over the model axis -------------------------
+    log(f"-- phase 26 at {time.monotonic() - T_MAIN:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_serving_phase(torch, np, card)
 
     # ---- results -----------------------------------------------------------
     log(f"-- phase results at {time.monotonic() - T_MAIN:.1f} s")

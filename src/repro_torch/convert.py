@@ -17,11 +17,26 @@ the i-th contiguous block of dimension k (the block JAX's
 ``NamedSharding`` gives device i), the shard dimension first -- after
 the ``layers`` dimension for the stacked block leaves, so that a
 period's view is (M,) + its shard; the divisibility fallback's leaves
-stay whole.
+stay whole. With ``index`` they give or take one shard alone, (1,) +
+its block (``core/model_axis.ShardModelAxis``, the dry-run's one
+device).
+
+``shard_cache`` / ``unshard_cache`` do the same for a dense KV cache
+(``transformer.init_cache``), by ``transformer.cache_logical_axes``
+under a serving step's rules (``train/steps.serving_rules``): prefill
+splits ``kv_heads`` (shard i holds KV heads [i kvh/M, (i+1) kvh/M) of
+every position), decode splits ``cache_seq`` (shard i holds positions
+[i L/M, (i+1) L/M) of every KV head: the flash-decoding layout), and
+``shard_cache_seq`` splits ``cache_seq`` over ("data", "model") into
+N M blocks, block d M + i on device (d, i) as JAX lays it out; shard i
+then holds its N blocks in node order, (layers, M, b, N L/(N M), kvh,
+hd). A dimension the rules leave whole (the divisibility fallback)
+keeps the cache whole. The batch stays whole: the port holds every
+node's rows on one device.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,10 +45,13 @@ from repro_torch import tree as tree_mod
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.npz import as_float_array
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Params, flat_specs, unflatten
+from repro_torch.models.transformer import (Cache, Params,
+                                            check_tensor_parallel,
+                                            flat_specs, unflatten)
 
 __all__ = ["params_from_jax", "tree_from_jax", "shard_params",
-           "unshard_params"]
+           "unshard_params", "shard_cache", "unshard_cache", "cache_split",
+           "node_blocks"]
 
 
 def params_from_jax(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
@@ -85,13 +103,119 @@ def _by_key(params: Params, cfg: ModelConfig, m: int, fn) -> Params:
                       for k, v in flat.items()})
 
 
-def shard_params(params: Params, cfg: ModelConfig, m: int) -> Params:
-    """Whole leaves -> the model-axis layout of ``m`` shards (copies)."""
-    return _by_key(params, cfg, m, lambda v, k, lead: torch.stack(
-        v.chunk(m, dim=k), dim=lead))
+def shard_params(params: Params, cfg: ModelConfig, m: int,
+                 index: Optional[int] = None) -> Params:
+    """Whole leaves -> the model-axis layout of ``m`` shards (copies);
+    with ``index``, that shard alone, (1,) + its block."""
+    if index is None:
+        return _by_key(params, cfg, m, lambda v, k, lead: torch.stack(
+            v.chunk(m, dim=k), dim=lead))
+    return _by_key(params, cfg, m, lambda v, k, lead: v.chunk(
+        m, dim=k)[index].unsqueeze(lead).clone())
 
 
-def unshard_params(params: Params, cfg: ModelConfig, m: int) -> Params:
-    """The model-axis layout of ``m`` shards -> whole leaves (copies)."""
+def unshard_params(params: Params, cfg: ModelConfig, m: int,
+                   index: Optional[int] = None) -> Params:
+    """The model-axis layout of ``m`` shards -> whole leaves (copies).
+    With ``index`` (one shard, (1,) + its block) the whole shapes come
+    back with that block in every position: what a trace on ``meta``
+    needs of them, and wrong values on data, so it takes ``meta``
+    leaves only."""
+    if index is None:
+        return _by_key(params, cfg, m, lambda v, k, lead: torch.cat(
+            v.unbind(lead), dim=k))
+    if any(v.device.type != "meta" for v in tree_mod.leaves(params)):
+        raise ValueError("unshard_params(index=) repeats one shard's block "
+                         "into the whole shape; it takes meta tensors only")
     return _by_key(params, cfg, m, lambda v, k, lead: torch.cat(
-        v.unbind(lead), dim=k))
+        [v.select(lead, 0)] * m, dim=k))
+
+
+def cache_split(cfg: ModelConfig, rules, batch: int,
+                max_len: int) -> Tuple[Optional[int], int]:
+    """(the dimension of an attention cache leaf (layers, b, L, kvh, hd)
+    that ``rules`` split over ``model``, 2 or 3, or None; the node
+    blocks of that split: N where ``cache_seq`` goes over ("data",
+    "model"), else 1)."""
+    axes = ("layers", "batch", "cache_seq", "kv_heads", None)
+    shape = (cfg.n_periods, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    for dim, part in enumerate(rules.spec(axes, shape)):
+        if "model" in (part if isinstance(part, tuple) else (part,)):
+            if dim not in (2, 3):
+                raise ValueError(
+                    f"rules split cache dimension {axes[dim]!r} over "
+                    "'model': the port's attention splits a cache by "
+                    "positions or by KV heads only")
+            return dim, node_blocks(rules, part)
+    return None, 1
+
+
+def node_blocks(rules, part) -> int:
+    """The node blocks of a dimension mapped to ``part`` (a mesh axis or
+    a tuple of them): the product of its axes other than ``model``."""
+    nodes = 1
+    for a in (part if isinstance(part, tuple) else (part,)):
+        if a not in (None, "model"):
+            nodes *= rules.sizes.get(a, 1)
+    return nodes
+
+
+def shard_cache(cache: Cache, cfg: ModelConfig, rules,
+                index: Optional[int] = None) -> Cache:
+    """A whole dense cache -> its model-axis layout under ``rules``
+    (copies; a whole leaf is kept as it is). With ``index``, shard
+    ``index`` alone, (layers, 1, ...) (node 0's block under
+    ``shard_cache_seq``): one device's cache."""
+    check_tensor_parallel(cfg)          # attention slots only
+    m = rules.sizes.get("model", 1)
+    slots = {}
+    for slot, kv in cache.slots.items():
+        dim, nodes = cache_split(cfg, rules, kv.k.shape[1], kv.k.shape[2])
+
+        def split(t):
+            if dim is None or m == 1:
+                return t
+            if dim == 3:
+                parts = t.chunk(m, dim=3)
+                if index is not None:
+                    return parts[index].unsqueeze(1).clone()
+                return torch.stack(parts, dim=1)
+            n, b, length = t.shape[:3]
+            blocks = t.reshape((n, b, nodes, m, length // (nodes * m))
+                               + tuple(t.shape[3:]))
+            if index is not None:
+                return blocks[:, :, 0, index].unsqueeze(1).clone()
+            return blocks.movedim(3, 1).reshape(
+                (n, m, b, length // m) + tuple(t.shape[3:]))
+
+        slots[slot] = type(kv)(*(split(t) for t in kv))
+    return Cache(slots=slots, offset=cache.offset)
+
+
+def unshard_cache(cache: Cache, cfg: ModelConfig, rules) -> Cache:
+    """The model-axis layout of a dense cache under ``rules`` -> whole
+    leaves (copies)."""
+    check_tensor_parallel(cfg)
+    m = rules.sizes.get("model", 1)
+    slots = {}
+    for slot, kv in cache.slots.items():
+        whole = kv.k.dim() == 5
+        b = kv.k.shape[1] if whole else kv.k.shape[2]
+        length = kv.k.shape[2] if whole else (
+            kv.k.shape[3] * (m if kv.k.shape[4] == cfg.n_kv_heads else 1))
+        dim, nodes = cache_split(cfg, rules, b, length)
+
+        def join(t):
+            if whole:
+                return t
+            if dim == 3:
+                return torch.cat(t.unbind(1), dim=3)
+            n = t.shape[0]
+            blocks = t.reshape((n, m, b, nodes, length // (nodes * m))
+                               + tuple(t.shape[4:]))
+            return blocks.movedim(1, 3).reshape(
+                (n, b, length) + tuple(t.shape[4:]))
+
+        slots[slot] = type(kv)(*(join(t) for t in kv))
+    return Cache(slots=slots, offset=cache.offset)

@@ -30,8 +30,11 @@ gradient taken at the de-biased z = x / w; ``push-sum`` and ``sgp`` are
 aliases) and ``allreduce``, each with its per-node face. The
 edge-fleet simulator's stale-gossip helpers (``stale_capable``,
 ``withhold_differential``, ``defer_differential``, ``select_node_rows``)
-work on the stacked reference state. The JAX package's sharding builders
-(``state_shardings``) are not ported.
+work on the stacked reference state. ``state_shardings`` is JAX's
+split plan of a node-stacked state (a ``PartitionSpec`` per leaf and
+plane, ``train/steps.state_shardings`` builds it under the run's rules);
+the port has no GSPMD, so it is a plan that tests hold to JAX's, not a
+placement.
 """
 from __future__ import annotations
 

@@ -10,12 +10,19 @@ and bytes as the node transports count theirs (``core/transport.py``).
 
 ``StackModelAxis(m, device)`` holds the M shards of one node as a
 stacked leading dimension on one device, as ``StackTransport`` holds the
-nodes: a SHARDED tensor is (M, ...), shard i's block at ``[i]``; a
-REPLICATED tensor (every shard holds the same value: the residual
-stream, a norm's output) is held once, without the M dimension. A
-process-group version (one shard per rank, L = 1 local shard) would
-implement the same ``ModelAxis`` protocol; it is not ported (ROADMAP
-Queue 1, item 4).
+nodes: a SHARDED tensor is (L, ...), local shard j's block at ``[j]``
+(L = M here: every shard is local); a REPLICATED tensor (every shard
+holds the same value: the residual stream, a norm's output) is held
+once, without the L dimension. ``size`` is M, the axis's width;
+``local`` is L, the length of a sharded stack; ``held`` (a tuple) and
+``shard_ids`` (a tensor) the global index of each local shard.
+
+``ShardModelAxis(m, index)`` holds ONE shard of M (L = 1) on ``meta``:
+the dry-run's axis (``launch/dryrun``), whose collectives give the
+shapes one device sees and count that device's bytes, so that a trace
+over it is one device's work. On data it would be a process group's
+axis (one shard per rank), which is not ported (ROADMAP Queue 1, item
+4): it takes ``meta`` tensors only.
 
 Megatron's pair of operators, as ``torch.autograd.Function``s:
 
@@ -28,17 +35,23 @@ Megatron's pair of operators, as ``torch.autograd.Function``s:
 ``all_gather`` (backward: a reduce-scatter) and ``all_max`` (no
 gradient) complete the set. Every collective counts once where it runs,
 forward or backward: ``calls[op]`` and ``bytes[op]``, the operand's
-bytes over all M shards.
+bytes over the local shards (all M in the stack, one device's on a
+``ShardModelAxis``).
+
+``tp_collectives`` and ``tp_serving_collectives`` are the closed-form
+counts of the train step's gradient and of the serving steps
+(``train/steps.make_prefill_fn`` / ``make_decode_fn``) on a stack.
 """
 from __future__ import annotations
 
-from typing import Dict, Protocol
+from typing import Dict, Protocol, Tuple
 
 import torch
 
 from repro_torch._device import resolve_device
 
-__all__ = ["ModelAxis", "StackModelAxis", "OPS", "tp_collectives"]
+__all__ = ["ModelAxis", "StackModelAxis", "ShardModelAxis", "OPS",
+           "tp_collectives", "tp_serving_collectives"]
 
 OPS = ("all_reduce", "all_gather", "reduce_scatter", "all_max")
 
@@ -47,8 +60,12 @@ class ModelAxis(Protocol):
     """What the tensor-parallel model code needs of a model axis."""
 
     size: int
+    local: int
+    held: Tuple[int, ...]
     calls: Dict[str, int]
     bytes: Dict[str, int]
+
+    def shard_ids(self, device) -> torch.Tensor: ...
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor: ...
 
@@ -68,7 +85,7 @@ class _CopyIn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        return x.unsqueeze(0).expand((axis.size,) + tuple(x.shape))
+        return x.unsqueeze(0).expand((axis.local,) + tuple(x.shape))
 
     @staticmethod
     def backward(ctx, grad):
@@ -81,26 +98,20 @@ class _AllGather(torch.autograd.Function):
     def forward(ctx, x, axis, dim):
         ctx.axis, ctx.dim = axis, dim
         axis._count("all_gather", x)
-        full = torch.cat(x.unbind(0), dim=dim)
-        return full.unsqueeze(0).expand((axis.size,) + tuple(full.shape))
+        full = axis._gather_blocks(x, dim)
+        return full.unsqueeze(0).expand((axis.local,) + tuple(full.shape))
 
     @staticmethod
     def backward(ctx, grad):
         ctx.axis._count("reduce_scatter", grad)
-        parts = grad.sum(0).chunk(ctx.axis.size, dim=ctx.dim)
-        return torch.stack(parts), None, None
+        return ctx.axis._scatter_blocks(grad.sum(0), ctx.dim), None, None
 
 
-class StackModelAxis:
-    """A node's M model shards as a stacked leading dimension on one
-    device (the card unless the caller passes ``device="cpu"``)."""
+class _AxisBase:
+    """Counters and the collectives over a stack of ``local`` shards."""
 
-    def __init__(self, m: int, device="cuda"):
-        if m < 1:
-            raise ValueError(f"model axis of {m}")
-        self.size = int(m)
-        self.device = resolve_device(device)
-        self.reset_counters()
+    size: int
+    local: int
 
     def reset_counters(self) -> None:
         self.calls: Dict[str, int] = {op: 0 for op in OPS}
@@ -111,17 +122,17 @@ class StackModelAxis:
         self.bytes[op] += _nbytes(x)
 
     def _check(self, x: torch.Tensor) -> None:
-        if x.shape[0] != self.size:
-            raise ValueError(f"a model axis of {self.size} shards got a "
-                             f"stack of {x.shape[0]}")
+        if x.shape[0] != self.local:
+            raise ValueError(f"a model axis holding {self.local} shards "
+                             f"got a stack of {x.shape[0]}")
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
-        """Megatron's *f*: replicated (...) -> sharded (M, ...), every
+        """Megatron's *f*: replicated (...) -> sharded (L, ...), every
         shard the same value; its gradient is all-reduced."""
         return _CopyIn.apply(x, self)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Megatron's *g*: the shards' partial sums (M, ...) -> their sum
+        """Megatron's *g*: the shards' partial sums (L, ...) -> their sum
         (...), replicated; identity backward."""
         self._check(x)
         self._count("all_reduce", x)
@@ -129,8 +140,8 @@ class StackModelAxis:
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every shard's block concatenated along ``dim`` (a dimension
-        of one shard's block), held by every shard: (M, ..., c, ...) ->
-        (M, ..., M c, ...); backward a reduce-scatter."""
+        of one shard's block), held by every shard: (L, ..., c, ...) ->
+        (L, ..., M c, ...); backward a reduce-scatter."""
         self._check(x)
         return _AllGather.apply(x, self, dim if dim >= 0 else x.dim() - 1
                                 + dim)
@@ -140,6 +151,65 @@ class StackModelAxis:
         self._check(x)
         self._count("all_max", x)
         return x.detach().amax(0)
+
+
+class StackModelAxis(_AxisBase):
+    """A node's M model shards as a stacked leading dimension on one
+    device (the card unless the caller passes ``device="cpu"``)."""
+
+    def __init__(self, m: int, device="cuda"):
+        if m < 1:
+            raise ValueError(f"model axis of {m}")
+        self.size = self.local = int(m)
+        self.device = resolve_device(device)
+        self.reset_counters()
+
+    @property
+    def held(self) -> Tuple[int, ...]:
+        return tuple(range(self.size))
+
+    def shard_ids(self, device) -> torch.Tensor:
+        return torch.arange(self.size, device=device)
+
+    def _gather_blocks(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return torch.cat(x.unbind(0), dim=dim)
+
+    def _scatter_blocks(self, g: torch.Tensor, dim: int) -> torch.Tensor:
+        return torch.stack(g.chunk(self.size, dim=dim))
+
+
+class ShardModelAxis(_AxisBase):
+    """Shard ``index`` of an M-shard model axis, alone (L = 1), on
+    ``meta``: what one device of the axis holds and sends. The all-
+    reduce and the max return the local operand's shape, the all-gather
+    its local block in every position (values are not computed on
+    ``meta``); each counts the one device's operand."""
+
+    def __init__(self, m: int, index: int = 0, device="meta"):
+        if m < 1 or not 0 <= index < m:
+            raise ValueError(f"shard {index} of a model axis of {m}")
+        dev = resolve_device(device, allow_meta=True)
+        if dev.type != "meta":
+            raise ValueError(
+                "a one-shard model axis on data needs a model-axis process "
+                "group, not ported (ROADMAP Queue 1, item 4); it takes "
+                "meta tensors only")
+        self.size, self.local, self.index = int(m), 1, int(index)
+        self.device = dev
+        self.reset_counters()
+
+    @property
+    def held(self) -> Tuple[int, ...]:
+        return (self.index,)
+
+    def shard_ids(self, device) -> torch.Tensor:
+        return torch.full((1,), self.index, device=device)
+
+    def _gather_blocks(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return torch.cat([x[0]] * self.size, dim=dim)
+
+    def _scatter_blocks(self, g: torch.Tensor, dim: int) -> torch.Tensor:
+        return g.chunk(self.size, dim=dim)[self.index].unsqueeze(0)
 
 
 def tp_collectives(cfg, m: int, batch: int, seq: int,
@@ -193,4 +263,60 @@ def tp_collectives(cfg, m: int, batch: int, seq: int,
         add("all_reduce", act)                       # the logits' f
         add("all_max", row)
         add("all_reduce", row, 2)                    # sum of exp, label logit
+    return out
+
+
+def tp_serving_collectives(cfg, m: int, batch: int, seq: int, kind: str,
+                           dtype: torch.dtype = torch.bfloat16
+                           ) -> Dict[str, Dict[str, int]]:
+    """The model-axis collectives of one serving step of the dense
+    decoder over an M-shard stack, ``batch`` rows of ``seq`` new tokens
+    (``train/steps.make_prefill_fn`` / ``make_decode_fn``): {op:
+    {"calls", "bytes"}}, from the layer list. ``kind`` names the cache's
+    layout: "prefill" (split by KV heads where M divides them, else
+    whole) or "decode" (split by positions: the flash-decoding layout,
+    also under ``shard_cache_seq``, where the merge spans the node axis
+    and still counts once; a cache length M does not divide falls back
+    to the prefill layout). Per attention layer: the output's all-reduce;
+    a whole cache all-gathers K and V where ``wk`` is split; split by
+    positions, the query heads and (where ``wk`` is split) K and V are
+    all-gathered, then the partials' max (f32) and one all-reduce of
+    their sums and weighted sums (f32, head_dim + 1 a head). Per MLP
+    layer with a sharded ``w_up``: the all-reduce; a vocab-split
+    embedding's all-reduce. No gradient: *f* counts nothing."""
+    from repro_torch.train.steps import param_shard_dims
+
+    out = {op: {"calls": 0, "bytes": 0} for op in OPS}
+    if m <= 1:
+        return out
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"kind {kind!r}: expected 'prefill' or 'decode'")
+    dims = param_shard_dims(cfg, m)
+    split = {k.rsplit("/", 1)[-1]: dims[k] is not None for k in dims
+             if k.startswith("blocks/0/") or "/" not in k}
+    elt = torch.tensor([], dtype=dtype).element_size()
+    hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    tokens = batch * seq
+    act = m * tokens * cfg.d_model * elt            # an (M, b, s, d) stack
+
+    def add(op, nbytes, calls=1):
+        out[op]["calls"] += calls
+        out[op]["bytes"] += calls * nbytes
+
+    n_attn = sum(s.mixer in ("attn", "attn_local") for s in cfg.period) \
+        * cfg.n_periods
+    n_mlp = sum(s.ffn == "mlp" for s in cfg.period) * cfg.n_periods
+    if split.get("wq"):
+        add("all_reduce", act, n_attn)               # g of wo
+        kv_gather = split["wk"] and (kind == "decode" or kvh % m)
+        if kv_gather:
+            add("all_gather", tokens * kvh * hd * elt, 2 * n_attn)
+        if kind == "decode":
+            add("all_gather", tokens * h * hd * elt, n_attn)
+            add("all_max", m * tokens * h * 4, n_attn)
+            add("all_reduce", m * tokens * h * (hd + 1) * 4, n_attn)
+    if split.get("w_up"):
+        add("all_reduce", act, n_mlp)
+    if split["embed"]:
+        add("all_reduce", act)
     return out

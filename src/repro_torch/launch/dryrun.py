@@ -15,8 +15,12 @@ counts what the step does:
   eager port moves op by op; XLA counts its fused HLO), plus the kernels'
   bytes;
 * ``collective_bytes`` / ``collective_ops``: the transport's own counters
-  (``StackTransport.bytes_sent`` and ``permutes``): the wire, not the
-  loss's mean;
+  (``StackTransport.bytes_sent`` and ``permutes``, as
+  ``collective-permute``: the node wire, one permute per bucket plane
+  and round, not the loss's mean) and, on an ``NxM`` mesh, the model
+  axis's (``core/model_axis``) under JAX's HLO names: ``all_reduce``
+  and ``all_max`` as ``all-reduce``, ``all_gather`` as ``all-gather``,
+  ``reduce_scatter`` as ``reduce-scatter``;
 * ``memory``: ``argument_size_in_bytes`` (state and inputs),
   ``output_size_in_bytes`` (what the step returns that is not an
   argument), ``peak_memory_in_bytes`` (arguments plus the most storage
@@ -26,25 +30,42 @@ counts what the step does:
 * ``trace_s``: the trace's wall seconds (in place of JAX's ``lower_s`` /
   ``compile_s``).
 
-Meshes are node counts (``launch/mesh.parse_mesh``): one card a node, no
-``model`` axis (an ``NxM`` mesh with M > 1 raises: the dry-run of the
-tensor-parallel step is ROADMAP Queue 1, item 5). The defaults ``16``
-and ``2x16x1`` are the node counts of JAX's ``single_pod`` and
+Meshes (``launch/mesh.parse_mesh``, which here also takes JAX's pod
+meshes ``16x16`` / ``single_pod`` and ``2x16x16`` / ``multi_pod``: a
+count on ``meta`` needs no process group): N nodes, or N x M devices on
+an ``NxM`` mesh, each node's model split over M shards. The defaults
+``16`` and ``2x16x1`` are the node counts of JAX's ``single_pod`` and
 ``multi_pod`` without their model axis of 16. A record's ``n_devices``
-is the node count, and its values are per device:
+is N M, and its values are per device, one shard of one node: on
+``NxM`` the model runs over a ``ShardModelAxis`` (one shard of M, L = 1,
+on ``meta``), so its flops, bytes and collectives are exactly one
+device's, replicated work included.
 
 * train: the step runs on a ``StackTransport`` that holds all n nodes as
   one block (``train.steps.make_distributed_train``); each value is the
-  block's total divided by n. The executor takes the nodes' gradients
-  one node at a time, so the block's temporaries hold one node's
-  activations: divided by n they understate what a device holding one
-  node needs. ``memory["block_peak_memory_in_bytes"]`` keeps the block's
-  own peak, what one card holding all n nodes needs.
-* serve: each node serves its own rows of the batch with the whole bf16
-  weights (JAX's ``make_prefill_fn`` / ``make_decode_fn`` bodies without
-  the sharding rules), so the traced block is one node's rows,
-  ceil(global_batch / n) (long_500k's single row sits on one node: the
-  port has no sequence sharding), and its values are already per device.
+  block's total divided by N M. The gradient of one device (node 0,
+  over the one-shard axis on ``NxM``) is traced and charged for every
+  device (``_grads_by_symmetry``), so its share is exact; the executor
+  runs on the nodes' whole leaves, so its share is the block's over
+  N M (on ``NxM`` a leaf the rules replicate is counted once a node, not
+  M times). The block's temporaries hold one device's activations:
+  divided by N M they understate what a device needs, so
+  ``memory["grad_peak_memory_in_bytes"]`` gives the one device's
+  gradient's own peak above the arguments (its activations, its shard's
+  gradient and the node's whole-leaf copy the executor takes; not the
+  block's gradient buffers), and ``memory["block_peak_memory_in_bytes"]`` the block's
+  peak, what one card holding all n nodes needs.
+* serve: JAX's ``make_prefill_fn`` / ``make_decode_fn``
+  (``train/steps``), traced for one device: its rows of the batch,
+  ceil(global_batch / N) (all of it where the rules leave the batch
+  whole: long_500k's ``shard_cache_seq``), its shard of the bf16 weights
+  and of the cache (``convert.shard_params`` / ``shard_cache`` with
+  ``index``: split by KV heads for prefill, by positions for decode,
+  by positions over N M blocks for long_500k), its values already per
+  device. A decode case's traced arguments carry a () int32 meta tensor
+  for the cache's offset, an argument of JAX's decode step and a Python
+  int in the port's cache, so that its ``argument_size_in_bytes``
+  counts it.
 
 The port unrolls the period loop in Python, so every layer is traced and
 JAX's probe1 / probe2 layer correction has no counterpart. rwkv6's
@@ -130,26 +151,48 @@ def trace_step(fn, args) -> dict:
             "trace_s": trace_s}
 
 
-def _per_device(block: dict, n: int, collective: int, permutes: int) -> dict:
+# the model axis's collectives under JAX's HLO op names
+HLO_NAMES = {"all_reduce": "all-reduce", "all_max": "all-reduce",
+             "all_gather": "all-gather", "reduce_scatter": "reduce-scatter"}
+
+
+def _per_device(block: dict, n: int, collective: int, permutes: int,
+                axis=None) -> dict:
+    """A block's totals over its ``n`` devices; the node wire per node
+    (``collective`` bytes, ``permutes`` calls) and the model axis's
+    counters (one device's, on a ``ShardModelAxis``) as JAX names
+    collectives."""
     mem = {k: v / n for k, v in block["memory"].items()}
     mem["block_peak_memory_in_bytes"] = block["memory"][
         "peak_memory_in_bytes"]
+    cbytes, ops = {}, {}
+    if permutes:
+        # a node's payloads, as each of its devices sends them
+        nodes = n if axis is None else n // axis.size
+        cbytes["collective-permute"] = collective / nodes
+        ops["collective-permute"] = permutes
+    for op, calls in (axis.calls.items() if axis is not None else ()):
+        if calls:
+            name = HLO_NAMES[op]
+            ops[name] = ops.get(name, 0) + calls
+            cbytes[name] = cbytes.get(name, 0) + axis.bytes[op]
+    cbytes["total"] = sum(cbytes.values())
     return {"flops": block["flops"] / n,
             "bytes_accessed": block["bytes_accessed"] / n,
-            "collective_bytes": {"collective-permute": collective / n,
-                                 "total": collective / n}
-            if permutes else {"total": 0},
-            "collective_ops": {"collective-permute": permutes}
-            if permutes else {},
+            "collective_bytes": cbytes, "collective_ops": ops,
             "memory": mem, "trace_s": block["trace_s"],
             "kernel_calls": block["kernel_calls"]}
 
 
-def _grads_by_symmetry(cfg, x_block, tokens, labels, context=None):
-    """``steps.node_grads`` for the dry-run: node 0 traced, the other
-    L - 1 nodes (the same work on the same shapes) charged as its
-    multiple. The block's gradient buffers are allocated as in the full
-    loop, so the memory peak is the loop's too."""
+def _grads_by_symmetry(cfg, x_block, tokens, labels, context=None, *,
+                       model_axis=None, peak=None):
+    """``steps.node_grads`` for the dry-run: node 0 traced (over
+    ``model_axis``: one device's shard), the other devices (the same
+    work on the same shapes: the other L - 1 nodes, times M on a model
+    axis) charged as its multiple. The block's gradient buffers are
+    allocated as in the full loop, so the memory peak is the loop's too.
+    ``peak`` (a dict) takes the traced gradient's own memory peak."""
+    from torch.utils._pytree import tree_leaves
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.bench.counting import ByteCount
@@ -159,8 +202,13 @@ def _grads_by_symmetry(cfg, x_block, tokens, labels, context=None):
     with FlopCounterMode(display=False) as fc, ByteCount() as bc, \
             cost.KernelTally() as kt:
         out = steps_mod.node_grads(cfg, x_block, tokens, labels, context,
-                                   nodes=[0])
-    more = len(tokens) - 1
+                                   nodes=[0], model_axis=model_axis)
+    if peak is not None:
+        # less the block's whole-leaf gradient buffers (all L nodes')
+        peak["grad"] = bc.peak - sum(
+            v.numel() * v.element_size() for v in tree_leaves(out[0]))
+    devices = 1 if model_axis is None else model_axis.size
+    more = len(tokens) * devices - 1
     cost.charge("node_grads", cost.Cost(
         more * (fc.get_total_flops() + kt.flops),
         more * (bc.nbytes + kt.nbytes)), calls=0)
@@ -169,9 +217,12 @@ def _grads_by_symmetry(cfg, x_block, tokens, labels, context=None):
     return out
 
 
-def _measure_train(cfg, case, n_nodes: int, method: str, gossip_mode: str,
+def _measure_train(cfg, case, mesh, method: str, gossip_mode: str,
                    sdm_overrides, topology: str, compressor,
                    symmetry: bool) -> dict:
+    import functools
+
+    from repro_torch.core.model_axis import ShardModelAxis
     from repro_torch.core.sdm_dsgd import SDMConfig
     from repro_torch.core.transport import StackTransport
     from repro_torch.launch import shapes as shapes_mod
@@ -183,63 +234,94 @@ def _measure_train(cfg, case, n_nodes: int, method: str, gossip_mode: str,
     sdm_kw.update(sdm_overrides or {})
     tc = steps_mod.DistributedTrainConfig(
         model=cfg, sdm=SDMConfig(**sdm_kw), method=method, topology=topology)
+    n_nodes, m = mesh.n_nodes, mesh.model
+    axis = ShardModelAxis(m) if m > 1 else None
     transport = StackTransport(n_nodes, "meta")
     params = transformer.init_params(cfg, dtype=tc.param_dtype,
                                      device="meta")
-    state = steps_mod.init_distributed_state(tc, transport, params=params)
+    state = steps_mod.init_distributed_state(tc, transport, params=params,
+                                             model_axis=axis)
     del params
     specs = shapes_mod.input_specs(cfg, case)
     args = [state, specs["tokens"], specs["labels"]]
     if "context" in specs:
         args.append(specs["context"])
-    step = steps_mod.make_distributed_train(
-        tc, transport, grad_fn=_grads_by_symmetry if symmetry else None)
+    peak = {}
+    grad_fn = None
+    if symmetry or axis is not None:
+        grad_fn = functools.partial(_grads_by_symmetry, model_axis=axis,
+                                    peak=peak)
+    step = steps_mod.make_distributed_train(tc, transport, grad_fn=grad_fn,
+                                            model_axis=axis)
     transport.reset_counters()
     block = trace_step(step, args)
     sent = sum(transport.bytes_sent.values())
-    return _per_device(block, n_nodes, sent, transport.permutes)
+    got = _per_device(block, n_nodes * m, sent, transport.permutes, axis)
+    if axis is not None:
+        got["memory"]["grad_peak_memory_in_bytes"] = peak["grad"]
+    return got
 
 
-def _measure_serve(cfg, case, n_nodes: int) -> dict:
+def _measure_serve(cfg, case, mesh) -> dict:
     import torch
 
+    from repro_torch.convert import shard_cache, shard_params
+    from repro_torch.core.model_axis import ShardModelAxis
     from repro_torch.launch import shapes as shapes_mod
     from repro_torch.models import transformer
+    from repro_torch.train import steps as steps_mod
 
-    rows = -(-case.global_batch // n_nodes)
+    m = mesh.model
+    axis = ShardModelAxis(m) if m > 1 else None
+    make = steps_mod.make_prefill_fn if case.kind == "prefill" \
+        else steps_mod.make_decode_fn
+    fn, rules = make(cfg, mesh, shard_cache_seq=case.name == "long_500k",
+                     device="meta", model_axis=axis)
+    whole = rules.spec(("batch",), (case.global_batch,)) == ()
+    rows = case.global_batch if whole \
+        else -(-case.global_batch // mesh.n_nodes)
     specs = shapes_mod.input_specs(cfg, case, batch=rows)
     params = transformer.init_params(cfg, dtype=torch.bfloat16,
                                      device="meta")
-    ctx = specs.get("context")
+    cache = specs["cache"]
+    if axis is not None:
+        params = shard_params(params, cfg, m, index=axis.index)
+        cache = shard_cache(cache, cfg, rules, index=axis.index)
+    # the context stands for the encoded one in a decode step, as in
+    # JAX's decode_fn
+    args = [params, specs["tokens" if case.kind == "prefill" else "token"],
+            cache]
+    step = fn
+    if case.kind == "decode":
+        # JAX's decode step takes the cache's offset as a () int32 array
+        # (its prefill does not read it, and XLA drops the argument); the
+        # port's is a Python int in the cache, so a () int32 stands for
+        # it among the traced arguments
+        args.append(torch.zeros((), dtype=torch.int32, device="meta"))
 
-    if case.kind == "prefill":
-        def fn(p, tokens, cache, context=None):
-            with torch.no_grad():
-                return transformer.prefill(p, cfg, tokens, cache,
-                                           context=context)
-        args = [params, specs["tokens"], specs["cache"]]
-    else:
-        # the context stands for the encoded one, as in JAX's decode_fn
-        def fn(p, token, cache, context=None):
-            with torch.no_grad():
-                return transformer.decode_step(p, cfg, token, cache,
-                                               context=context)
-        args = [params, specs["token"], specs["cache"]]
-    if ctx is not None:
-        args.append(ctx)
-    return _per_device(trace_step(fn, args), 1, 0, 0)
+        def step(params, token, cache, offset, *context):
+            return fn(params, token, cache, *context)
+    if "context" in specs:
+        args.append(specs["context"])
+    return _per_device(trace_step(step, args), 1, 0, 0, axis)
 
 
 def _has_seq_loop(cfg) -> bool:
     return any(s.mixer == "rwkv" for s in cfg.period)
 
 
-def _measure(cfg, case, n_nodes: int, method: str, gossip_mode: str,
+def _measure(cfg, case, mesh, method: str, gossip_mode: str,
              sdm_overrides, topology: str, compressor, probes: bool) -> dict:
+    """One case's per-device record values. ``mesh``: a ``MeshSpec`` or
+    a node count (no model axis)."""
+    from repro_torch.launch.mesh import parse_mesh
+
+    if isinstance(mesh, int):
+        mesh = parse_mesh(str(mesh))
     if case.kind == "train":
-        return _measure_train(cfg, case, n_nodes, method, gossip_mode,
+        return _measure_train(cfg, case, mesh, method, gossip_mode,
                               sdm_overrides, topology, compressor, probes)
-    return _measure_serve(cfg, case, n_nodes)
+    return _measure_serve(cfg, case, mesh)
 
 
 def _combine(vals, weights):
@@ -286,9 +368,10 @@ def build_case(arch: str, shape_name: str, mesh_name: str, method: str,
                compressor: Optional[str] = None,
                shape_overrides: Optional[dict] = None) -> Dict[str, Any]:
     """Trace one case and write its record (``out_root`` "" writes
-    nothing); returns the record. ``rule_overrides`` are JAX's tensor-
-    parallel sharding rules: the port has none, and a non-empty one
-    raises. ``shape_overrides`` replaces fields of the shape case
+    nothing); returns the record. ``rule_overrides`` are JAX's overrides
+    of the tensor-parallel sharding rules: the port's model code splits by
+    ``INNER_RULES`` / ``serving_rules`` alone, and a non-empty one raises
+    (ROADMAP Queue 1, item 5d). ``shape_overrides`` replaces fields of the shape case
     (``seq_len``, ``global_batch``: a cell of another size). A train
     case runs with ``remat=True``, as in JAX, unless ``cfg_overrides``
     sets it."""
@@ -297,9 +380,6 @@ def build_case(arch: str, shape_name: str, mesh_name: str, method: str,
     from repro_torch.launch import shapes as shapes_mod
     from repro_torch.launch.mesh import parse_mesh
 
-    if rule_overrides:
-        raise ValueError("rule_overrides are tensor-parallel sharding "
-                         "rules: the port has no model axis")
     method = method_mod.normalize(method)
     method_mod.get(method)      # unknown registrations fail before tracing
     case = shapes_mod.SHAPES[shape_name]
@@ -321,17 +401,18 @@ def build_case(arch: str, shape_name: str, mesh_name: str, method: str,
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": skip}
 
-    mesh = parse_mesh(mesh_name)
-    if mesh.model > 1:
-        raise ValueError(f"mesh {mesh_name!r} has a model axis of "
-                         f"{mesh.model}: the dry-run does not trace the "
-                         "tensor-parallel step yet (ROADMAP Queue 1, item 5)")
+    if rule_overrides:
+        raise ValueError(
+            f"rule_overrides {rule_overrides}: the port's tensor-parallel "
+            "steps split by INNER_RULES / serving_rules alone; overrides "
+            "are not ported (ROADMAP Queue 1, item 5d)")
+    mesh = parse_mesh(mesh_name, pods=True)
     n_nodes = mesh.n_nodes
     record = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
               "algorithm": method if case.kind == "train" else "serve",
-              "n_devices": n_nodes, "status": "ok",
+              "n_devices": n_nodes * mesh.model, "status": "ok",
               "n_periods": cfg.n_periods}
-    a = (n_nodes, method, gossip_mode, sdm_overrides, topology, compressor,
+    a = (mesh, method, gossip_mode, sdm_overrides, topology, compressor,
          probes)
     if probes and _has_seq_loop(cfg) and case.kind in ("train", "prefill") \
             and case.seq_len > 3 * SEQ_PROBE:
@@ -370,7 +451,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="16,2x16x1",
-                    help="comma-separated node meshes (N or PxNx1)")
+                    help="comma-separated meshes: N, NxM, PxNxM, or "
+                         "JAX's pod meshes 16x16 / 2x16x16")
     ap.add_argument("--method", default=None,
                     help="method registry name (repro_torch.core.method); "
                          "legacy --algorithm spellings accepted")

@@ -10,7 +10,9 @@ into M shards, held as a stack on the same device
 them. ``PxNxM`` adds a ``pod`` axis whose nodes multiply in, as in the
 JAX package. The production pod meshes (``16x16``, ``2x16x16`` and
 their names) raise: a model axis across cards needs a model-axis
-process group (ROADMAP Queue 1, item 4).
+process group (ROADMAP Queue 1, item 4). The dry-run alone parses them
+(``parse_mesh(name, pods=True)``): it traces one device on ``meta``
+and needs no process group.
 """
 from __future__ import annotations
 
@@ -48,9 +50,14 @@ class MeshSpec:
         return math.prod(size for a, size in self.axes if a != "model")
 
 
-def parse_mesh(name: str) -> MeshSpec:
-    """``N`` / ``NxM`` / ``PxNxM`` -> MeshSpec; the pod meshes raise."""
-    if name in POD_MESHES:
+def parse_mesh(name: str, pods: bool = False) -> MeshSpec:
+    """``N`` / ``NxM`` / ``PxNxM`` -> MeshSpec; the pod meshes raise
+    unless ``pods`` (the dry-run: ``single_pod`` is ``16x16``,
+    ``multi_pod`` ``2x16x16``, as JAX's ``make_mesh_by_name``)."""
+    if pods and name in POD_MESHES:
+        name = {"single_pod": "16x16", "multi_pod": "2x16x16"}.get(name,
+                                                                  name)
+    elif name in POD_MESHES:
         raise ValueError(
             f"mesh {name!r} is a TPU pod mesh: its model axis of 16 spans "
             "16 chips, and a model axis across cards needs a model-axis "

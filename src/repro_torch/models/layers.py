@@ -248,6 +248,7 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                     causal: bool = True,
                     use_rope: bool = True,
                     model_axis=None,
+                    cache_nodes: int = 1,
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Self- or cross-attention with an optional dense KV cache.
 
@@ -263,19 +264,37 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
 
     ``model_axis`` (``core/model_axis``) with ``params`` in the
     model-axis layout (``convert.shard_params``): the tensor-parallel
-    self-attention of a training forward (no cache); a block whose
-    ``wq`` the divisibility fallback left whole runs as without it.
+    causal self-attention, without a cache (a training forward) or with
+    one at ``cache_offset`` (the serving steps), the cache in its
+    model-axis layout (``convert.shard_cache``): split by KV heads, by
+    positions (``cache_nodes`` node blocks a shard under
+    ``shard_cache_seq``) or whole. A block whose ``wq`` the divisibility
+    fallback left whole runs as without the axis (with a whole cache).
     """
-    if model_axis is not None and _split(params["wq"], 2):
-        if cache is not None or kv_source is not None or not causal \
-                or not use_rope:
+    if model_axis is not None and (_split(params["wq"], 2)
+                                   or (cache is not None
+                                       and cache.k.dim() == 5)):
+        if kv_source is not None or not causal or not use_rope:
             raise NotImplementedError(
-                "tensor-parallel attention runs the causal self-attention "
-                "of a training forward only; caches (prefill / decode), "
-                "cross-attention and the encoder are not ported (ROADMAP "
-                "Queue 1, item 5)")
-        return _attention_tp(params, cfg, x, positions=positions,
-                             layer_kind=layer_kind, axis=model_axis), None
+                "tensor-parallel attention runs causal self-attention "
+                "only; cross-attention and the encoder are not ported "
+                "(ROADMAP Queue 1, item 5)")
+        if cache is None:
+            return _attention_tp(params, cfg, x, positions=positions,
+                                 layer_kind=layer_kind, axis=model_axis), None
+        if cache_offsets is not None:
+            raise NotImplementedError(
+                "ragged offsets over a model axis are not ported (ROADMAP "
+                "Queue 1, item 5): the serving steps share the scalar "
+                "offset")
+        if not _split(params["wq"], 2):
+            raise NotImplementedError(
+                "a model-axis cache beside a whole wq is not ported "
+                "(ROADMAP Queue 1, item 5)")
+        return _attention_tp_cached(
+            params, cfg, x, positions=positions, layer_kind=layer_kind,
+            cache=cache, offset=int(cache_offset), axis=model_axis,
+            nodes=cache_nodes), cache
     residual, q, k, v = _project_qkv(params, cfg, x, positions=positions,
                                      kv_source=kv_source, use_rope=use_rope)
     if kv_source is not None:
@@ -434,32 +453,31 @@ def _bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _kv_of_own_heads(t: torch.Tensor, cfg: ModelConfig,
-                     m: int) -> torch.Tensor:
-    """(M, b, s, kv heads x hd), every shard holding every KV head ->
-    (M, b, s, hq x hd): shard i's copy of the KV head of each of its
-    ``hq = n_heads / M`` query heads (GQA group 1 from here on)."""
+                     axis) -> torch.Tensor:
+    """(L, b, s, kv heads x hd), every shard holding every KV head ->
+    (L, b, s, hq x hd): each local shard's copy of the KV head of each of
+    its ``hq = n_heads / M`` query heads (GQA group 1 from here on)."""
     hd = cfg.resolved_head_dim
-    hq = cfg.n_heads // m
+    hq = cfg.n_heads // axis.size
     group = cfg.n_heads // cfg.n_kv_heads
-    idx = (torch.arange(m * hq, device=t.device) // group).reshape(m, hq)
+    ids = axis.shard_ids(t.device)
+    idx = (ids[:, None] * hq + torch.arange(hq, device=t.device)) // group
     t = t.reshape(tuple(t.shape[:3]) + (cfg.n_kv_heads, hd))
     idx = idx[:, None, None, :, None].expand(
         tuple(t.shape[:3]) + (hq, hd))
     return torch.gather(t, 3, idx).reshape(tuple(t.shape[:3]) + (hq * hd,))
 
 
-def _attention_tp(params, cfg: ModelConfig, x: torch.Tensor, *,
-                  positions: torch.Tensor, layer_kind: str, axis):
-    """Megatron's attention: the input copied into the shards, each
-    shard's query heads from its block of ``wq`` (heads split whole,
-    GQA groups kept), its output through its rows of ``wo``, the partial
-    sums all-reduced before ``post_norm`` and the residual add. K / V:
-    from the shard's own block of ``wk`` / ``wv`` where it holds exactly
-    its query heads' KV heads (``n_kv_heads % M == 0``); otherwise every
-    shard gathers the whole K / V (split ``wk``: all-gathered from the
-    blocks; ``wk`` left whole: computed once, copied in) and takes its
-    query heads' KV heads."""
-    m, hd = axis.size, cfg.resolved_head_dim
+def _tp_project(params, cfg: ModelConfig, x: torch.Tensor, axis):
+    """The shards' shared pre-attention stage: the norm, *f*, each
+    shard's query heads from its block of ``wq``, (L, b, s, hq hd); K / V
+    from each shard's block of ``wk`` / ``wv``, (L, b, s, c), where they
+    are split (``kv`` "own": the block is exactly its query heads' KV
+    heads, ``n_kv_heads % M == 0``; "gather": columns that cut a head),
+    or once from the replicated norm, (b, s, kvh hd), where the
+    divisibility fallback left them whole ("whole"). Returns (residual,
+    q, k, v, kv)."""
+    m = axis.size
     if cfg.n_heads % m:
         raise NotImplementedError(
             f"{cfg.n_heads} query heads do not split whole over a model "
@@ -478,26 +496,210 @@ def _attention_tp(params, cfg: ModelConfig, x: torch.Tensor, *,
         if "bk" in params:
             k = k + params["bk"][:, None, None]
             v = v + params["bv"][:, None, None]
-        if cfg.n_kv_heads % m:
-            k = _kv_of_own_heads(axis.all_gather(k), cfg, m)
-            v = _kv_of_own_heads(axis.all_gather(v), cfg, m)
+        kv = "gather" if cfg.n_kv_heads % m else "own"
     else:
         k, v = matmul(h, wk), matmul(h, wv)
         if "bk" in params:
             k, v = k + params["bk"], v + params["bv"]
-        k = _kv_of_own_heads(axis.copy_in(k), cfg, m)
-        v = _kv_of_own_heads(axis.copy_in(v), cfg, m)
-    b, s = x.shape[:2]
-    q, k, v = (t.reshape(m * b, s, -1, hd) for t in (q, k, v))
-    pos = positions.repeat(m, 1)                     # the shards fold into b
+        kv = "whole"
+    return residual, q, k, v, kv
+
+
+def _tp_out(params, cfg: ModelConfig, out: torch.Tensor,
+            residual: torch.Tensor, axis) -> torch.Tensor:
+    """Each shard's heads (L, b, s, hq hd) through its rows of ``wo``,
+    the all-reduce, ``post_norm`` and the residual add."""
+    out = axis.all_reduce(_bmm(out, params["wo"]))
+    if cfg.post_block_norm:
+        out = rms_norm(out, params["post_norm"], cfg.norm_eps, plus_one=True)
+    return residual + out
+
+
+def _rope_heads(t: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor) -> torch.Tensor:
+    """(rows, s, heads x hd) -> (rows, s, heads, hd), rotated."""
+    t = t.reshape(tuple(t.shape[:2]) + (-1, cfg.resolved_head_dim))
     if cfg.pos_embedding == "rope":
-        q = rope(q, pos, cfg.rope_theta, cfg.rope_fraction)
-        k = rope(k, pos, cfg.rope_theta, cfg.rope_fraction)
+        t = rope(t, positions, cfg.rope_theta, cfg.rope_fraction)
+    return t
+
+
+def _attention_tp(params, cfg: ModelConfig, x: torch.Tensor, *,
+                  positions: torch.Tensor, layer_kind: str, axis):
+    """Megatron's attention: the input copied into the shards, each
+    shard's query heads from its block of ``wq`` (heads split whole,
+    GQA groups kept), its output through its rows of ``wo``, the partial
+    sums all-reduced before ``post_norm`` and the residual add. K / V:
+    from the shard's own block of ``wk`` / ``wv`` where it holds exactly
+    its query heads' KV heads (``n_kv_heads % M == 0``); otherwise every
+    shard gathers the whole K / V (split ``wk``: all-gathered from the
+    blocks; ``wk`` left whole: computed once, copied in) and takes its
+    query heads' KV heads."""
+    n = axis.local
+    residual, q, k, v, kv = _tp_project(params, cfg, x, axis)
+    if kv == "gather":
+        k = _kv_of_own_heads(axis.all_gather(k), cfg, axis)
+        v = _kv_of_own_heads(axis.all_gather(v), cfg, axis)
+    elif kv == "whole":
+        k = _kv_of_own_heads(axis.copy_in(k), cfg, axis)
+        v = _kv_of_own_heads(axis.copy_in(v), cfg, axis)
+    b, s = x.shape[:2]
+    pos = positions.repeat(n, 1)                     # the shards fold into b
+    q, k = (_rope_heads(t.reshape(n * b, s, -1), cfg, pos) for t in (q, k))
+    v = v.reshape(q.shape[:2] + (-1, cfg.resolved_head_dim))
     window = cfg.sliding_window if layer_kind == "attn_local" else None
     out = _attend(q, k, v, chunk_q=cfg.attn_chunk_q, q_positions=pos,
                   kv_positions=pos, causal=True, window=window,
                   softcap_val=cfg.attn_softcap, kv_valid_len=None)
-    out = axis.all_reduce(_bmm(out.reshape(m, b, s, -1), params["wo"]))
-    if cfg.post_block_norm:
-        out = rms_norm(out, params["post_norm"], cfg.norm_eps, plus_one=True)
-    return residual + out
+    return _tp_out(params, cfg, out.reshape(n, b, s, -1), residual, axis)
+
+
+# ---- with a dense cache (the serving steps) --------------------------------
+
+def _whole_kv(t: torch.Tensor, kv: str, axis) -> torch.Tensor:
+    """The new positions' K or V of every KV head, (b, s, kvh hd), from
+    ``_tp_project``'s: the shards' blocks all-gathered (one copy of the
+    replicated result), or the whole product as it is."""
+    return t if kv == "whole" else axis.all_gather(t)[0]
+
+
+def _attention_tp_cached(params, cfg: ModelConfig, x: torch.Tensor, *,
+                         positions: torch.Tensor, layer_kind: str,
+                         cache: KVCache, offset: int, axis,
+                         nodes: int = 1) -> torch.Tensor:
+    """Tensor-parallel attention of the serving steps over a dense cache
+    in its model-axis layout: this call's s positions are written at
+    ``offset`` and each query attends the cache's valid prefix, as the
+    plain path does.
+
+    A cache split by KV heads, (L, b, max_len, kvh / M, hd): each shard
+    writes and attends its own KV heads with its own query heads. A
+    whole cache, (b, max_len, kvh, hd), held once: the whole K / V
+    (all-gathered where ``wk`` is split) are written once and each shard
+    reads its query heads' KV heads from it. A cache split by positions,
+    (L, b, l, kvh, hd): ``_attention_seq_split``."""
+    window = cfg.sliding_window if layer_kind == "attn_local" else None
+    residual, q, k, v, kv = _tp_project(params, cfg, x, axis)
+    if cache.k.dim() == 5 and cache.k.shape[3] == cfg.n_kv_heads:
+        out = _attention_seq_split(cfg, q, k, v, kv, positions=positions,
+                                   cache=cache, offset=offset, axis=axis,
+                                   nodes=nodes, window=window)
+        return _tp_out(params, cfg, out, residual, axis)
+    n, hd = axis.local, cfg.resolved_head_dim
+    b, s = x.shape[:2]
+    pos = positions.repeat(n, 1)
+    if cache.k.dim() == 5:                            # split by KV heads
+        if kv != "own":
+            raise NotImplementedError(
+                "a cache split by KV heads needs wk split by whole heads "
+                "(ROADMAP Queue 1, item 5)")
+        new_k = _rope_heads(k.reshape(n * b, s, -1), cfg, pos)
+        cache.k[:, :, offset:offset + s] = new_k.reshape(
+            (n, b, s) + tuple(cache.k.shape[3:])).to(cache.k.dtype)
+        cache.v[:, :, offset:offset + s] = v.reshape(
+            (n, b, s) + tuple(cache.v.shape[3:])).to(cache.v.dtype)
+        ck, cv = (c.reshape((n * b,) + tuple(c.shape[2:]))
+                  for c in (cache.k, cache.v))
+    else:                                             # whole, held once
+        cache.k[:, offset:offset + s] = _rope_heads(
+            _whole_kv(k, kv, axis), cfg, positions).to(cache.k.dtype)
+        cache.v[:, offset:offset + s] = _whole_kv(v, kv, axis).reshape(
+            (b, s) + tuple(cache.v.shape[2:])).to(cache.v.dtype)
+        length = cache.k.shape[1]
+        ck, cv = (_kv_of_own_heads(
+            c.reshape(b, length, -1).unsqueeze(0).expand(
+                n, b, length, cfg.n_kv_heads * hd), cfg, axis).reshape(
+            n * b, length, -1, hd) for c in (cache.k, cache.v))
+    q = _rope_heads(q.reshape(n * b, s, -1), cfg, pos)
+    length = ck.shape[1]
+    kv_pos = torch.arange(length, device=x.device).expand(n * b, length)
+    valid = torch.full((n * b,), offset + s, device=x.device)
+    out = _attend(q, ck, cv, chunk_q=cfg.attn_chunk_q, q_positions=pos,
+                  kv_positions=kv_pos, causal=True, window=window,
+                  softcap_val=cfg.attn_softcap, kv_valid_len=valid)
+    return _tp_out(params, cfg, out.reshape(n, b, s, -1), residual, axis)
+
+
+def seq_split_positions(axis, local_len: int, nodes: int,
+                        device) -> torch.Tensor:
+    """The absolute positions, (L, local_len), of each local shard's
+    entries of a cache split by positions: shard i holds, in node order,
+    blocks d M + i of max_len / (nodes M) positions each, d over the
+    node blocks it holds (all ``nodes`` in a stack; node 0's alone on a
+    one-shard axis)."""
+    held = nodes if axis.local == axis.size else 1
+    blk = local_len // held
+    ids = axis.shard_ids(device)
+    j = torch.arange(local_len, device=device)
+    return ((j // blk) * axis.size + ids[:, None]) * blk + j % blk
+
+
+def _write_seq_split(c: torch.Tensor, t: torch.Tensor, offset: int, axis,
+                     nodes: int) -> None:
+    """Write this call's positions [offset, offset + s) of ``t``, (b, s,
+    kvh, hd), into the local shards that hold them, (L, b, l, kvh, hd):
+    host arithmetic on the Python int offset, one slice a block."""
+    s = t.shape[1]
+    held = nodes if axis.local == axis.size else 1
+    blk = c.shape[2] // held
+    p = offset
+    while p < offset + s:
+        g, r = divmod(p, blk)
+        d, i = divmod(g, axis.size)
+        end = min(offset + s, (g + 1) * blk)
+        if i in axis.held and d < held:
+            j = d * blk + r
+            c[axis.held.index(i), :, j:j + end - p] = \
+                t[:, p - offset:end - offset].to(c.dtype)
+        p = end
+
+
+def _attention_seq_split(cfg: ModelConfig, q, k, v, kv: str, *,
+                         positions: torch.Tensor, cache: KVCache,
+                         offset: int, axis, nodes: int,
+                         window: Optional[int]) -> torch.Tensor:
+    """Attention over a cache split by positions (flash decoding). The
+    query heads are all-gathered, so every shard holds all of them; the
+    new positions' K / V go into the shard that holds them; each shard
+    takes its partial softmax over its own positions for every head: the
+    max m, the sum l of exp(score - m) and the sum o of exp(score - m) v
+    (the probabilities rounded to V's dtype before the product, as the
+    plain path rounds its normalised ones). The partials merge by an
+    ``all_max`` of m and one ``all_reduce`` of l and o rescaled by
+    exp(m - max), packed together. A shard whose positions are all
+    masked (beyond the offset, outside the window) has m = ``NEG_INF``
+    and weight 0. Under ``shard_cache_seq`` the two collectives span
+    ("data", "model"), all N M partials: each is one collective and is
+    counted once, on the model axis (a stack merges its N node blocks
+    inside its own partial). Returns each shard's heads of the merged
+    output, (L, b, s, hq hd), in V's dtype."""
+    hd = cfg.resolved_head_dim
+    b, s = positions.shape
+    kvh = cfg.n_kv_heads
+    qf = _rope_heads(axis.all_gather(q)[0], cfg, positions)   # (b, s, h, hd)
+    kf = _rope_heads(_whole_kv(k, kv, axis), cfg, positions)
+    vf = _whole_kv(v, kv, axis).reshape(b, s, kvh, hd)
+    _write_seq_split(cache.k, kf, offset, axis, nodes)
+    _write_seq_split(cache.v, vf, offset, axis, nodes)
+    ck, cv = cache.k, cache.v                         # (L, b, l, kvh, hd)
+    kv_pos = seq_split_positions(axis, ck.shape[2], nodes, ck.device)
+    q5 = qf.reshape(b, s, kvh, -1, hd)
+    if q5.dtype != ck.dtype:
+        q5, ck = promote(q5, ck)
+    scores = torch.einsum("bqkgd,lbskd->lbkgqs", q5, ck) / math.sqrt(hd)
+    scores = softcap(scores.float(), cfg.attn_softcap)
+    kp = kv_pos[:, None, None, :]                     # (L, 1, 1, l)
+    qp = positions[None, :, :, None]                  # (1, b, s, 1)
+    mask = (kp <= qp) & (kp < offset + s)
+    if window is not None:
+        mask &= kp > qp - window
+    scores = torch.where(mask[:, :, None, None], scores, NEG_INF)
+    top = scores.amax(-1, keepdim=True)               # (L, b, kvh, g, s, 1)
+    p = torch.exp(scores - top)
+    total = p.sum(-1, keepdim=True)
+    o = torch.einsum("lbkgqs,lbskd->lbkgqd", p.to(cv.dtype), cv).float()
+    w = torch.exp(top - axis.all_max(top))
+    merged = axis.all_reduce(torch.cat([o * w, total * w], dim=-1))
+    out = (merged[..., :hd] / merged[..., hd:]).to(cv.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, axis.size, -1)
+    return out.index_select(2, axis.shard_ids(out.device)).movedim(2, 0)

@@ -304,13 +304,14 @@ def _cross(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
 
 def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
                positions: torch.Tensor, cache=None,
-               ctx: Optional[torch.Tensor] = None, model_axis=None):
+               ctx: Optional[torch.Tensor] = None, model_axis=None,
+               cache_nodes: int = 1):
     """One layer slot over a full sequence. ``cache``: an attention
     slot's ``KVCache`` to fill from position 0 (prefill), or an rwkv
     slot's initial state (zeros when None); ``ctx``: the encoded context
     of a cross-attention slot; ``model_axis``: a dense slot's tensor-
-    parallel forward. Returns (x, MoE aux or None, the recurrent slot's
-    final state or None)."""
+    parallel forward (the cache then in its model-axis layout). Returns
+    (x, MoE aux or None, the recurrent slot's final state or None)."""
     state = None
     if spec.mixer in ATTN:
         if cache is None:
@@ -320,7 +321,8 @@ def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
         else:
             x, _ = attention_apply(sp["attn"], cfg, x, positions=positions,
                                    layer_kind=spec.mixer, cache=cache,
-                                   cache_offset=0)
+                                   cache_offset=0, model_axis=model_axis,
+                                   cache_nodes=cache_nodes)
     elif spec.mixer == "mamba":
         x, state = mamba_mod.mamba_apply(sp["mamba"], cfg, x,
                                          return_state=True)
@@ -347,10 +349,10 @@ def _slot_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
 
 
 def _ffn_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
-              state):
+              state, model_axis=None):
     """A slot's feed-forward for one token: (x, the slot's state)."""
     if spec.ffn == "mlp":
-        return mlp_apply(sp["mlp"], cfg, x), state
+        return mlp_apply(sp["mlp"], cfg, x, model_axis), state
     if spec.ffn == "moe":
         return moe_mod.moe_apply(sp["moe"], cfg, x)[0], state
     if spec.ffn == "rwkv_ffn":
@@ -379,15 +381,15 @@ def _embed_tokens(params: Params, cfg: ModelConfig,
 
 def _embed_vocab_split(embed: torch.Tensor, tokens: torch.Tensor,
                        axis) -> torch.Tensor:
-    """The vocab-split embedding (M, V/M, d): each shard looks up the
+    """The vocab-split embedding (L, V/M, d): each shard looks up the
     tokens its block of rows holds (zeros for the others), then the
     all-reduce sums the one owner's row with zeros (exact)."""
-    m, rows = embed.shape[:2]
-    local = tokens.long()[None] - (torch.arange(
-        m, device=tokens.device) * rows).reshape((m,) + (1,) * tokens.dim())
+    n, rows = embed.shape[:2]
+    lead = (n,) + (1,) * tokens.dim()
+    local = tokens.long()[None] - (axis.shard_ids(tokens.device)
+                                   * rows).reshape(lead)
     own = (local >= 0) & (local < rows)
-    shard = torch.arange(m, device=tokens.device).reshape(
-        (m,) + (1,) * tokens.dim())
+    shard = torch.arange(n, device=tokens.device).reshape(lead)
     x = embed[shard, local.clamp(0, rows - 1)]
     x = torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
@@ -397,7 +399,7 @@ def _embed_vocab_split(embed: torch.Tensor, tokens: torch.Tensor,
 def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
             model_axis=None) -> torch.Tensor:
     """The (softcapped) logits; with ``model_axis`` and a vocab-split
-    head, each shard's block of the vocab: (M, ..., V/M)."""
+    head, each shard's block of the vocab: (L, ..., V/M)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     if model_axis is not None and _split(head, 2):
@@ -487,6 +489,15 @@ def check_tensor_parallel(cfg: ModelConfig) -> None:
             "(ROADMAP Queue 1, item 5)")
 
 
+def _tp_axis(cfg: ModelConfig, model_axis):
+    """``model_axis``, or None for none or a single shard; the families
+    other than the dense decoder raise under M > 1."""
+    if model_axis is None or model_axis.size == 1:
+        return None
+    check_tensor_parallel(cfg)
+    return model_axis
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             context: Optional[torch.Tensor] = None, model_axis=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -499,10 +510,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     decoder tensor-parallel over ``params`` in the model-axis layout
     (``convert.shard_params``); the logits then come vocab-split, (M, b,
     s, V/M), for ``lm_loss(..., model_axis=)``. Other families raise."""
-    if model_axis is not None and model_axis.size == 1:
-        model_axis = None
-    if model_axis is not None:
-        check_tensor_parallel(cfg)
+    model_axis = _tp_axis(cfg, model_axis)
     x, positions = _embed_prompt(params, cfg, tokens, model_axis)
     ctx = _encode_context(params, cfg, context)
     auxs = []
@@ -545,9 +553,9 @@ def _lm_loss_vocab_split(logits: torch.Tensor, labels: torch.Tensor,
     model-axis max and the all-reduced sum of exponentials, the label's
     logit from the shard whose block holds it (all-reduced with the
     others' zeros)."""
-    m, cols = logits.shape[0], logits.shape[-1]
-    lead = (m,) + (1,) * (logits.dim() - 2)
-    start = torch.arange(m, device=logits.device).reshape(lead) * cols
+    n, cols = logits.shape[0], logits.shape[-1]
+    lead = (n,) + (1,) * (logits.dim() - 2)
+    start = axis.shard_ids(logits.device).reshape(lead) * cols
     col = start[..., None] + torch.arange(cols, device=logits.device)
     logits = torch.where(col >= vocab_size,
                          torch.full((), -1e30, device=logits.device),
@@ -565,8 +573,8 @@ def _lm_loss_vocab_split(logits: torch.Tensor, labels: torch.Tensor,
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Cache, *, context: Optional[torch.Tensor] = None,
-            last_index: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Cache]:
+            last_index: Optional[torch.Tensor] = None, model_axis=None,
+            cache_nodes: int = 1) -> Tuple[torch.Tensor, Cache]:
     """Process a prompt. Attention slots fill ``cache`` in place; the
     recurrent slots' final states come back in the returned cache.
     Returns (last-token logits (b, V), cache).
@@ -577,9 +585,16 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     returned logits (right-padded unequal-length prompts; causal masking
     keeps their hidden states exact -- recurrent models need equal
     lengths, their state would consume the padding).
+
+    ``model_axis`` (M > 1 shards; the dense family): ``params`` and
+    ``cache`` in their model-axis layouts (``convert.shard_params``,
+    ``convert.shard_cache``); the logits come back vocab-split, (M, b,
+    V/M), as ``forward``'s do. ``cache_nodes``: the node blocks of a
+    cache split by positions over ("data", "model") (``shard_cache_seq``).
     """
     b, s = tokens.shape
-    x, positions = _embed_prompt(params, cfg, tokens)
+    model_axis = _tp_axis(cfg, model_axis)
+    x, positions = _embed_prompt(params, cfg, tokens, model_axis)
     ctx = _encode_context(params, cfg, context)
     states: Dict[str, List[Any]] = {}
     for i in range(cfg.n_periods):
@@ -587,30 +602,36 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             key = str(si)
             sp = period_params(params, key, i)
             x, _, st = _slot_full(cfg, spec, sp, x, positions,
-                                  cache=_at(cache.slots[key], i), ctx=ctx)
+                                  cache=_at(cache.slots[key], i), ctx=ctx,
+                                  model_axis=model_axis,
+                                  cache_nodes=cache_nodes)
             if st is not None:
                 states.setdefault(key, []).append(st)
     if last_index is None:
         x_last = x[:, -1:, :]
     else:
         x_last = x[torch.arange(b, device=x.device), last_index.long()][:, None]
-    logits = _logits(params, cfg, x_last)
-    return logits[:, 0, :], _with_states(cache, states, s)
+    logits = _logits(params, cfg, x_last, model_axis)
+    return logits[..., 0, :], _with_states(cache, states, s)
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Cache, *, context: Optional[torch.Tensor] = None,
-                offsets: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Cache]:
+                offsets: Optional[torch.Tensor] = None, model_axis=None,
+                cache_nodes: int = 1) -> Tuple[torch.Tensor, Cache]:
     """One greedy-decode step over a dense cache. token: (b,) -> (logits
     (b, V), cache). Ragged: with ``offsets`` (b,) each row writes at its
     own position, takes its own RoPE phase (or learned position) and
     attends only its own valid prefix; without it every row shares the
     scalar ``cache.offset``. ``context`` must be PRE-ENCODED
     (``encode_context``). Attention is the plain ``_sdpa`` (no kernel);
-    the recurrent slots' new states come back in the returned cache."""
+    the recurrent slots' new states come back in the returned cache.
+    ``model_axis`` / ``cache_nodes``: as ``prefill``'s (the cache split by
+    positions is the flash-decoding layout); ragged ``offsets`` raise
+    under it."""
     b = token.shape[0]
-    x = _embed_tokens(params, cfg, token[:, None])
+    model_axis = _tp_axis(cfg, model_axis)
+    x = _embed_tokens(params, cfg, token[:, None], model_axis)
     if offsets is not None:
         positions = offsets[:, None]
     else:
@@ -631,16 +652,18 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                                        layer_kind=spec.mixer,
                                        cache=_at(cache.slots[key], i),
                                        cache_offset=cache.offset,
-                                       cache_offsets=offsets)
+                                       cache_offsets=offsets,
+                                       model_axis=model_axis,
+                                       cache_nodes=cache_nodes)
                 x = _cross(cfg, spec, sp, x, positions, context)
-                x, _ = _ffn_step(cfg, spec, sp, x, None)
+                x, _ = _ffn_step(cfg, spec, sp, x, None, model_axis)
             else:
                 x, st = _slot_step(cfg, spec, sp, x,
                                    _at(cache.slots[key], i), positions,
                                    context)
                 states.setdefault(key, []).append(st)
-    logits = _logits(params, cfg, x)
-    return logits[:, 0, :], _with_states(cache, states, cache.offset + 1)
+    logits = _logits(params, cfg, x, model_axis)
+    return logits[..., 0, :], _with_states(cache, states, cache.offset + 1)
 
 
 def decode_step_paged(params: Params, cfg: ModelConfig, token: torch.Tensor,

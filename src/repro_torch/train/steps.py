@@ -11,6 +11,12 @@ JAX), the state templates and their split plan (``state_shape_dtype``,
 (``node_grads(model_axis=)``: ``convert.shard_params``, the
 tensor-parallel forward, the gradients back to whole leaves).
 
+The serving steps (``make_prefill_fn`` / ``make_decode_fn``) run
+``transformer.prefill`` / ``decode_step`` over a node's M model shards
+under ``serving_rules``: the cache split by KV heads for prefill, by
+positions for decode (flash decoding), by positions over ("data",
+"model") under ``shard_cache_seq``.
+
 Each edge node runs the registered method's per-node executor
 (``core/method.py``): per-node gradient -> coordinate clip -> Gaussian
 mask -> theta-mixing -> sparse differential exchange. The nodes a
@@ -41,7 +47,8 @@ __all__ = ["DistributedTrainConfig", "gossip_schedule",
            "init_distributed_state", "make_distributed_train",
            "node_batch", "node_grads", "INNER_RULES", "outer_rules",
            "serving_rules", "param_shard_dims", "plane_bucket_tree",
-           "bucket_ctx", "state_shape_dtype", "state_shardings"]
+           "bucket_ctx", "state_shape_dtype", "state_shardings",
+           "make_prefill_fn", "make_decode_fn"]
 
 PyTree = Any
 
@@ -66,8 +73,13 @@ def outer_rules(node_axes: Tuple[str, ...]) -> dict:
 
 def serving_rules(node_axes: Tuple[str, ...], *, shard_cache_seq: bool,
                   decode: bool = False) -> dict:
-    """The serving steps' rules (``make_prefill_fn`` / ``make_decode_fn``
-    are not ported: ROADMAP Queue 1, item 5)."""
+    """The rules of ``make_prefill_fn`` / ``make_decode_fn``: JAX's
+    ``outer_rules`` (the parameters split as ``INNER_RULES`` split them,
+    the batch over the node axes) with the cache's ``cache_seq`` over
+    ``model`` for decode (the flash-decoding layout: ``kv_heads``, first
+    in line otherwise, then stays whole, each mesh axis once a leaf) and
+    over ("data", "model") with the batch whole under
+    ``shard_cache_seq`` (a long context's one row)."""
     rules = outer_rules(node_axes)
     if decode:
         rules["cache_seq"] = "model"
@@ -110,6 +122,82 @@ def bucket_ctx(tc: "DistributedTrainConfig", model: int):
     ``model``: the executor, its state templates and the wire accounting
     all run under it."""
     return plane_mod.use_buckets(plane_bucket_tree(tc, model))
+
+
+def _serving_fn(cfg: ModelConfig, mesh, *, decode: bool,
+                shard_cache_seq: bool, rule_overrides, device, model_axis):
+    from repro_torch._device import resolve_device
+    from repro_torch.convert import node_blocks
+    from repro_torch.core.model_axis import StackModelAxis
+    from repro_torch.launch.mesh import parse_mesh
+
+    if rule_overrides:
+        raise ValueError(
+            f"rule_overrides {rule_overrides}: the port's tensor-parallel "
+            "serving steps split the parameters, the activations and the "
+            "cache by serving_rules alone; overrides are not ported "
+            "(ROADMAP Queue 1, item 5d)")
+    if isinstance(mesh, str):
+        mesh = parse_mesh(mesh)
+    rules_map = serving_rules(mesh.node_axes,
+                              shard_cache_seq=shard_cache_seq, decode=decode)
+    rules = MeshRules(mesh, rules_map)
+    dev = resolve_device(device, allow_meta=True)
+    if model_axis is None and mesh.model > 1:
+        model_axis = StackModelAxis(mesh.model, dev)
+    if model_axis is not None:
+        transformer.check_tensor_parallel(cfg)
+    nodes = node_blocks(rules, rules_map.get("cache_seq"))
+    run = transformer.decode_step if decode else transformer.prefill
+
+    def step(params, tokens, cache, context=None):
+        with torch.no_grad():
+            return run(params, cfg, tokens, cache, context=context,
+                       model_axis=model_axis, cache_nodes=nodes)
+
+    step.model_axis = model_axis
+    return step, rules
+
+
+def make_prefill_fn(cfg: ModelConfig, mesh, *, shard_cache_seq: bool = False,
+                    rule_overrides=None, device="cuda", model_axis=None):
+    """JAX's ``make_prefill_fn``: returns ``(prefill_step, rules)``.
+    ``prefill_step(params, tokens, cache, context=None) -> (logits,
+    cache)`` runs ``transformer.prefill`` over ``mesh``'s model axis
+    (``mesh``: a ``MeshSpec`` or a name): ``params`` and ``cache`` in
+    their model-axis layouts on ``device`` (``convert.shard_params``;
+    ``convert.shard_cache(cache, cfg, rules)``: the cache split by KV
+    heads where M divides them, else whole), the whole batch of every
+    node (the rows JAX splits over the node axes), logits vocab-split
+    (M, b, V/M). Its model axis is ``prefill_step.model_axis`` (a
+    ``StackModelAxis`` on ``device`` unless one is given; None at M =
+    1), whose counters ``core/model_axis.tp_serving_collectives``
+    predicts. ``device`` defaults to the card and raises without one; a
+    non-empty ``rule_overrides`` raises (item 5d of ROADMAP Queue 1).
+    Moving a cache from this layout to the decode step's
+    (``convert.unshard_cache`` then ``shard_cache``) lies outside both
+    steps, as JAX's jit boundary does, and is counted by neither."""
+    return _serving_fn(cfg, mesh, decode=False,
+                       shard_cache_seq=shard_cache_seq,
+                       rule_overrides=rule_overrides, device=device,
+                       model_axis=model_axis)
+
+
+def make_decode_fn(cfg: ModelConfig, mesh, *, shard_cache_seq: bool = False,
+                   rule_overrides=None, device="cuda", model_axis=None):
+    """JAX's ``make_decode_fn``: returns ``(decode_fn, rules)``.
+    ``decode_fn(params, token, cache, context=None) -> (logits, cache)``
+    is one ``transformer.decode_step`` over the model axis, as
+    ``make_prefill_fn``'s, with the cache split by positions (the
+    flash-decoding layout; by positions over ("data", "model"), N M
+    blocks, under ``shard_cache_seq``, where the merge's two collectives
+    span the node axis too: counted once each on the model axis,
+    ``layers._attention_seq_split``). The scalar ``cache.offset`` only:
+    JAX's ``make_decode_fn`` passes no ragged offsets."""
+    return _serving_fn(cfg, mesh, decode=True,
+                       shard_cache_seq=shard_cache_seq,
+                       rule_overrides=rule_overrides, device=device,
+                       model_axis=model_axis)
 
 
 def _model_of(model_axis) -> int:
@@ -241,13 +329,15 @@ def node_grads(cfg: ModelConfig, x_block: PyTree, tokens: torch.Tensor,
     node's work has the same shapes).
 
     ``model_axis`` (M > 1): each node's params go into the model-axis
-    layout (``convert.shard_params``), its gradient is taken through the
-    tensor-parallel forward over the shards, and comes back as whole
-    leaves (``convert.unshard_params``)."""
+    layout (``convert.shard_params``: the axis's held shards), its
+    gradient is taken through the tensor-parallel forward over the
+    shards, and comes back as whole leaves (``convert.unshard_params``)."""
     m = _model_of(model_axis)
     if m > 1:
         from repro_torch.convert import shard_params, unshard_params
         transformer.check_tensor_parallel(cfg)
+        # a one-shard axis (the dry-run's) holds shard ``index`` alone
+        index = getattr(model_axis, "index", None)
     axis = model_axis if m > 1 else None
     leaves, struct = tree_mod.flatten(x_block)
     grads = [torch.empty_like(v) for v in leaves]
@@ -257,7 +347,7 @@ def node_grads(cfg: ModelConfig, x_block: PyTree, tokens: torch.Tensor,
         mine = [v[i].detach() for v in leaves]
         if m > 1:
             mine = tree_mod.leaves(shard_params(
-                tree_mod.unflatten(struct, mine), cfg, m))
+                tree_mod.unflatten(struct, mine), cfg, m, index=index))
         for v in mine:
             v.requires_grad_(True)
         logits, aux = transformer.forward(
@@ -271,7 +361,7 @@ def node_grads(cfg: ModelConfig, x_block: PyTree, tokens: torch.Tensor,
         del mine
         if m > 1:
             g = tree_mod.leaves(unshard_params(
-                tree_mod.unflatten(struct, list(g)), cfg, m))
+                tree_mod.unflatten(struct, list(g)), cfg, m, index=index))
         for g_out, g_in in zip(grads, g):
             g_out[i].copy_(g_in)
         losses[i] = loss.detach()

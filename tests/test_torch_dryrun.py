@@ -137,14 +137,25 @@ for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
 out["skip"] = dryrun.build_case("phi3-medium-14b", "long_500k", "4",
                                 "sdm-dsgd", "fixedk_packed", "",
                                 verbose=False, probes=False)
+for mesh in TP_MESHES:
+    for shape in TP_SHAPES:
+        out[mesh + "/" + shape] = dryrun.build_case(
+            "gemma2-2b", shape, mesh, "sdm-dsgd", "fixedk_packed", "",
+            verbose=False, probes=False, smoke=True,
+            cfg_overrides={"name": "gemma2-2b"})
 print(json.dumps(out, default=str))
 """
+# the NxM meshes and cases held to JAX's records (4 faked devices each)
+TP_MESHES = ("1x4", "2x2")
+TP_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
 
 @pytest.fixture(scope="module")
 def jax_records():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", _JAX_CASES],
+    code = f"TP_MESHES, TP_SHAPES = {TP_MESHES!r}, {TP_SHAPES!r}\n" \
+        + _JAX_CASES
+    proc = subprocess.run([sys.executable, "-c", code],
                           capture_output=True, text=True, timeout=600,
                           env=env, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -161,6 +172,12 @@ def port_records(tmp_path_factory):
     recs["skip"] = dryrun.build_case("phi3-medium-14b", "long_500k", "4",
                                      "sdm-dsgd", "fixedk_packed", str(out),
                                      verbose=False)
+    for mesh in TP_MESHES:
+        for shape in TP_SHAPES:
+            recs[mesh + "/" + shape] = dryrun.build_case(
+                "gemma2-2b", shape, mesh, "sdm-dsgd", "fixedk_packed",
+                str(out), verbose=False, smoke=True,
+                cfg_overrides={"name": "gemma2-2b"})
     return recs, out
 
 
@@ -185,6 +202,8 @@ def test_dryrun_records_match_jax_keys_and_counts(jax_records, port_records):
     cfg = dataclasses.replace(configs.get_smoke_config("gemma2-2b"),
                               name="gemma2-2b")
     for shape, want in jax_records.items():
+        if "/" in shape:
+            continue                       # the NxM records: below
         got = recs[shape]
         assert got["status"] == want["status"], shape
         assert set(got) - {"trace_s", "kernel_calls"} == \
@@ -227,6 +246,100 @@ def test_dryrun_records_match_jax_keys_and_counts(jax_records, port_records):
     for shape in ("prefill_32k", "decode_32k", "long_500k"):
         assert recs[shape]["collective_ops"] == {}
         assert recs[shape]["collective_bytes"] == {"total": 0}
+
+
+def test_dryrun_nxm_records_match_jax(jax_records, port_records):
+    """``1x4`` and ``2x2``: one device's record (one shard of one node,
+    traced over a ``ShardModelAxis``) against JAX's ``build_case`` on 4
+    faked devices: status, keys and ``n_devices``; the prefill and
+    decode cases' per-device arguments byte for byte; the matmul flops
+    within 2 % of the analytic count over M (every weight of the smoke
+    config splits; attention: own heads, or all heads over 1/M of the
+    positions); the collectives: the model axis's under JAX's names
+    (``tp_serving_collectives`` / ``tp_collectives``, one device's calls)
+    and the node wire (``permutes_per_step``, one per bucket plane)."""
+    from repro_torch.core import gossip, method as method_mod, sdm_dsgd
+    from repro_torch.core.model_axis import (tp_collectives,
+                                             tp_serving_collectives)
+    from repro_torch.core.plane import ParamPlane
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.train import steps
+
+    recs, out = port_records
+    cfg = dataclasses.replace(configs.get_smoke_config("gemma2-2b"),
+                              name="gemma2-2b")
+    for mesh_name in TP_MESHES:
+        mesh = parse_mesh(mesh_name)
+        n, m = mesh.n_nodes, mesh.model
+        for shape in TP_SHAPES:
+            key = mesh_name + "/" + shape
+            got, want = recs[key], jax_records[key]
+            case = shapes.SHAPES[shape]
+            assert got["status"] == want["status"] == "ok", key
+            assert set(got) - {"trace_s", "kernel_calls"} == \
+                set(want) - {"lower_s", "compile_s"}, key
+            for k in ("n_devices", "n_nodes", "per_node_batch",
+                      "tokens_per_step", "algorithm"):
+                assert got[k] == want[k], (key, k)
+            assert got["n_devices"] == n * m == 4
+            rows = case.global_batch // n
+            analytic = _analytic_flops(cfg, case.kind, rows,
+                                       case.seq_len) / m
+            assert abs(got["flops"] - analytic) <= 0.02 * analytic, \
+                (key, got["flops"], analytic)
+            assert (out / mesh_name / "gemma2-2b" / f"{shape}.json").exists()
+            if case.kind == "train":
+                tp = tp_collectives(dataclasses.replace(cfg, remat=True), m,
+                                    rows, case.seq_len, torch.bfloat16)
+                meth = method_mod.get("sdm-dsgd")
+                mcfg = meth.coerce_config(sdm_dsgd.SDMConfig(
+                    mode="fixedk_packed", pack_block=1024))
+                seq = gossip.sequence_by_name("ring", n, self_weight=1 / 3,
+                                              placement=True)
+                tc = steps.DistributedTrainConfig(model=cfg, sdm=mcfg)
+                with steps.bucket_ctx(tc, m):
+                    buckets = ParamPlane.for_tree(transformer.unflatten({
+                        k: torch.empty(s, device="meta") for k, s in
+                        transformer.param_shapes(cfg).items()})).n_buckets
+                perms = wire_count.permutes_per_step(
+                    meth.name, wire_count.mode_of(meth.name, mcfg), seq, 0,
+                    n_buckets=buckets)
+                want_ops = {"collective-permute": perms} if perms else {}
+                assert buckets == 4
+            else:
+                want_ops = {}
+                tp = tp_serving_collectives(cfg, m, rows, case.seq_len
+                                            if case.kind == "prefill" else 1,
+                                            case.kind, torch.bfloat16)
+                assert got["memory"]["argument_size_in_bytes"] == \
+                    want["memory"]["argument_size_in_bytes"], key
+            for op, name in dryrun.HLO_NAMES.items():
+                if tp[op]["calls"]:
+                    want_ops[name] = want_ops.get(name, 0) + tp[op]["calls"]
+            assert got["collective_ops"] == want_ops, key
+            stack_bytes = sum(v["bytes"] for v in tp.values())
+            model_bytes = sum(v for k, v in got["collective_bytes"].items()
+                              if k not in ("total", "collective-permute"))
+            assert model_bytes * m == stack_bytes, key
+
+
+def test_pod_meshes_parse_in_the_dryrun_alone():
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import parse_mesh
+
+    assert parse_mesh("16x16", pods=True).shape == {"data": 16, "model": 16}
+    assert parse_mesh("multi_pod", pods=True).shape == {
+        "pod": 2, "data": 16, "model": 16}
+    rec = dryrun.build_case("gemma2-2b", "decode_32k", "16x16", "sdm-dsgd",
+                            "fixedk_packed", "", verbose=False, smoke=True,
+                            cfg_overrides={"n_heads": 16, "n_kv_heads": 16})
+    assert rec["status"] == "ok" and rec["n_devices"] == 256
+    assert rec["collective_ops"]["all-gather"] > 0
+    with pytest.raises(ValueError, match="pod mesh"):
+        train_mod.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+                        "--mesh", "16x16", "--steps", "1"])
+    with pytest.raises(ValueError, match="pod mesh"):
+        parse_mesh("2x16x16")
 
 
 def test_collective_bytes_are_the_transports(monkeypatch):
@@ -308,13 +421,14 @@ def test_dryrun_cli_runs_a_case_and_the_roofline_reads_it(tmp_path, capsys):
     rows = roofline.run(str(out))
     assert [r["shape"] for r in rows] == ["decode_32k"]   # long_500k skips
     assert "roofline/gemma2-2b/decode_32k/4," in capsys.readouterr().out
-    with pytest.raises(ValueError, match="model axis"):
-        dryrun.build_case("gemma2-2b", "train_4k", "4x2", "sdm-dsgd",
-                          "fixedk_packed", "", smoke=True)
     with pytest.raises(ValueError, match="tensor-parallel"):
         dryrun.build_case("gemma2-2b", "train_4k", "4", "sdm-dsgd",
                           "fixedk_packed", "", smoke=True,
                           rule_overrides={"mlp": ("model",)})
+    with pytest.raises(ValueError, match="5d"):
+        dryrun.build_case("gemma2-2b", "prefill_32k", "1x2", "sdm-dsgd",
+                          "fixedk_packed", "", smoke=True,
+                          rule_overrides={"kv_heads": None})
 
 
 # ---------------------------------------------------------------------------
