@@ -175,6 +175,28 @@ Phases (any failure exits non-zero):
      above each gate; prints the greedy tokens that agree,
      the mean decode step for M = 1, 2 and 4, the phase's seconds and
      peak memory.
+  27. the MoE experts and the mamba mixer over the ``model`` axis
+     (granite-moe-1b-a400m, qwen3-moe-30b-a3b, jamba-v0.1-52b; no kernel
+     of its own): (a) the forward at full width in f32 over 2 and 4
+     shards against unsharded (granite-moe x 4 layers, qwen3-moe x 2,
+     jamba's first 4 slots), each logit within 1e-4 of the logits' scale
+     with the routing free and no token's top-k set differing, counters
+     equal ``tp_serving_collectives``; (b) phase 20g's granite-moe x 4
+     layers cell on ``2x2`` through ``launch.train.train`` (phase 25's
+     checks: buckets, wire, counters against ``tp_collectives``, step
+     1's loss against phase 20g's, the bf16 gradients with the routing
+     teacher-forced within 4e-2, the gather-pack kernel against plain at
+     every bucket plane); (c) the serving steps at full width on ``1x2``
+     and ``1x4`` (granite-moe x 24 and qwen3-moe x 16 in bf16 at 2^-5 a
+     row, the MoE routing teacher-forced: the unsharded run replays the
+     sharded run's top-k, the free reading printed beside it; jamba's 4
+     slots in f32 at 1e-4 with the routing free, then in bf16 at 2^-3),
+     4 rows of 512 tokens into 1024 positions, 16 decode steps on the
+     unsharded run's greedy tokens, decode step ms at M = 1, 2, 4; (d)
+     fault controls at 2 shards, each to read above the gate of its run
+     in (a) and (c): granite-moe with the last shard's expert partials
+     dropped from the combine's all-reduce, jamba with the last shard's
+     ``w_out`` partials dropped from the mixer's.
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -3094,6 +3116,390 @@ def dryrun_phase(torch, card):
         raise AssertionError(f"phase 23 failed: {failures}")
 
 
+# ---- slice 15: the MoE experts and the mamba mixer over the model axis
+# (phase 27) -----------------------------------------------------------------
+
+TPF_ARCHS = ("granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "jamba-v0.1-52b")
+TPF_MODELS = (2, 4)
+# 27a: f32 at full width, depth cut so that the weights and their sharded
+# copy fit the card: granite-moe x 4 layers (0.27 B parameters), qwen3-moe
+# x 2 (1.56 B), jamba's first 4 slots (mamba + MLP, mamba + MoE, mamba +
+# MLP, attention + MoE; 6.62 B, 26.5 GB, its whole 8-slot period 52 GB)
+TPF_F32_CUT = {"granite-moe-1b-a400m": 4, "qwen3-moe-30b-a3b": 2,
+               "jamba-v0.1-52b": 4}
+TPF_F32_ROWS, TPF_F32_SEQ = 2, 512
+# f32, logits max |TP - unsharded| / max |unsharded|: phase 26a's gate
+TPF_F32_RTOL = 1e-4
+# 27c: full width, granite-moe at full depth (24 layers), qwen3-moe 16 of
+# 48 (10.3 B, 20.6 GB in bf16; with its sharded copy 41 GB), jamba 27a's 4
+# slots (26.5 GB in f32, 53 GB with its sharded copy); 4 rows of 512
+# prompt tokens into 1024 positions, 16 decode steps. bf16 gate: phase
+# 26b's 2^-5 a row. jamba is served in f32 first (gate 1e-4); its
+# unsharded bf16 serve sits 8.561e-02 of a row's scale from its own f32
+# serve (the mamba scan's bf16 inputs; H100 80GB HBM3 at 700 W, PERF.md
+# §6, its TP readings 7.7e-02 to 9.8e-02), so its bf16 gate is 2^-3,
+# and the mixer's fault control (27d) must read above it
+TPF_SERVE_LAYERS = {"granite-moe-1b-a400m": 24, "qwen3-moe-30b-a3b": 16,
+                    "jamba-v0.1-52b": 4}
+TPF_SERVE_F32 = ("jamba-v0.1-52b",)
+TPF_BF16_RTOL = {"jamba-v0.1-52b": 2 ** -3}
+# 27d: the fault planted in each family's sharded path (_partials_dropped)
+TPF_FAULTS = {"granite-moe-1b-a400m": "moe", "jamba-v0.1-52b": "mamba"}
+TPF_ROWS, TPF_PROMPT, TPF_MAX_LEN, TPF_STEPS = 4, 512, 1024, 16
+# 27b: granite-moe x 4 layers (phase 20g's cell) on LM_NODES x TP_MODEL
+TPF_TRAIN_STEPS = 3
+
+
+@contextlib.contextmanager
+def _routing(tape, replay=False):
+    """Record each ``moe_apply``'s expert order (its sort of the router
+    probabilities, one (tokens, experts) index tensor a call) into
+    ``tape``, or with ``replay`` feed the recorded orders back, call by
+    call, each with the gate values of the run's own probabilities (so
+    the gradient flows as in a free run): the routing teacher-forced,
+    as decode steps are fed recorded tokens."""
+    from repro_torch.models import moe
+
+    real = moe.torch
+    left = list(tape)
+
+    class Routed:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def sort(probs, *args, **kw):
+            if replay:
+                ids = left.pop(0)
+                if ids.shape != probs.shape:
+                    raise AssertionError("routing tape out of step: a sort "
+                                         f"of {tuple(probs.shape)} replays "
+                                         f"{tuple(ids.shape)}")
+                return real.gather(probs, -1, ids), ids
+            vals, ids = real.sort(probs, *args, **kw)
+            tape.append(ids)
+            return vals, ids
+
+    moe.torch = Routed()
+    try:
+        yield
+    finally:
+        moe.torch = real
+    if replay and left:
+        raise AssertionError(f"{len(left)} recorded routings not replayed")
+
+
+def _routing_flips(a, b, k):
+    """(tokens whose top-k expert set differs, tokens) over two tapes."""
+    diff = total = 0
+    for x, y in zip(a, b, strict=True):
+        sx, sy = x[:, :k].sort(-1).values, y[:, :k].sort(-1).values
+        diff += int((sx != sy).any(-1).sum())
+        total += x.shape[0]
+    return diff, total
+
+
+def _tpf_cfg(arch, layers):
+    """``arch`` at full width, its depth cut to ``layers`` (jamba: the
+    first ``layers`` slots of its period, as one period)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    if layers < len(cfg.period):
+        return dataclasses.replace(cfg, period=cfg.period[:layers],
+                                   n_layers=layers)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+class _LastShardDropped:
+    """A model axis whose all-reduce drops the last shard's partials
+    (those ``width`` wide, or every one)."""
+
+    def __init__(self, axis, width=None):
+        self.axis, self.width = axis, width
+
+    def __getattr__(self, name):
+        return getattr(self.axis, name)
+
+    def all_reduce(self, x):
+        if self.width is None or x.shape[-1] == self.width:
+            x = x.clone()
+            x[-1] = 0
+        return self.axis.all_reduce(x)
+
+
+@contextlib.contextmanager
+def _partials_dropped(family):
+    """The faults of 27d: the last shard's partials zeroed before a *g*:
+    ``moe``, the experts' combine; ``mamba``, the mixer's ``w_out`` (its
+    all-reduces of d_model-wide partials, in prefill and decode; the
+    ``w_x_dbc`` partials are narrower and go through)."""
+    from repro_torch.models import mamba, moe
+
+    if family == "moe":
+        mod, name = moe, "_experts"
+        real = moe._experts
+
+        def patched(params, cfg, xt, tok, gate, axis=None):
+            return real(params, cfg, xt, tok, gate,
+                        None if axis is None else _LastShardDropped(axis))
+    else:
+        mod, name = mamba, "_channels"
+        real = mamba._channels
+
+        def patched(params, cfg, x, model_axis):
+            axis, *rest = real(params, cfg, x, model_axis)
+            if axis is not None:
+                axis = _LastShardDropped(axis, cfg.d_model)
+            return (axis, *rest)
+    setattr(mod, name, patched)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def _rel_err(torch, got, ref):
+    """max |got - ref| / max |ref| over the whole logits."""
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def tpf_forward_f32(torch, arch, dev="cuda"):
+    """27a for one arch: the forward at full width in f32 over 2 and 4
+    shards against unsharded, with the routing free and no token's top-k
+    set allowed to differ; the counters against ``tp_serving_collectives``
+    (a forward without a cache makes a prefill's collectives); for an
+    arch of TPF_FAULTS also 27d's f32 reading. Returns (failures, {m:
+    error}, (what, the fault's reading, its gate) or None)."""
+    from repro_torch.convert import shard_params
+    from repro_torch.core.model_axis import (StackModelAxis,
+                                             tp_serving_collectives)
+    from repro_torch.models import transformer
+
+    cfg = _tpf_cfg(arch, TPF_F32_CUT[arch])
+    t0 = time.monotonic()
+    params = transformer.init_params(cfg, seed=27, dtype=torch.float32,
+                                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    tokens = torch.randint(0, cfg.vocab_size, (TPF_F32_ROWS, TPF_F32_SEQ),
+                           generator=gen, device=dev)
+    ref_tape = []
+    with torch.no_grad(), _routing(ref_tape):
+        ref, aux = transformer.forward(params, cfg, tokens)
+    failures, errs, fault = [], {}, None
+    for m in TPF_MODELS:
+        axis = StackModelAxis(m, dev)
+        shards = shard_params(params, cfg, m)
+        tape = []
+        with torch.no_grad(), _routing(tape):
+            got, taux = transformer.forward(shards, cfg, tokens,
+                                            model_axis=axis)
+            got = torch.cat(list(got), -1)
+        errs[m] = _rel_err(torch, got, ref)
+        flips = _routing_flips(ref_tape, tape, cfg.top_k)
+        aux_err = abs(float(taux) - float(aux)) / abs(float(aux))
+        want = tp_serving_collectives(cfg, m, TPF_F32_ROWS, TPF_F32_SEQ,
+                                      "prefill", torch.float32)
+        ok = all(axis.calls[op] == v["calls"] and axis.bytes[op] == v["bytes"]
+                 for op, v in want.items())
+        finite = bool(torch.isfinite(got).all())
+        on_card = {t.device.type for t in (got, shards["embed"])} == {"cuda"}
+        if m == 2 and arch in TPF_FAULTS:
+            with _partials_dropped(TPF_FAULTS[arch]), torch.no_grad():
+                bad, _ = transformer.forward(shards, cfg, tokens,
+                                             model_axis=StackModelAxis(m,
+                                                                       dev))
+            fault = (f"{arch} f32", _rel_err(torch, torch.cat(list(bad), -1),
+                                             ref), TPF_F32_RTOL)
+            del bad
+        del shards, got
+        log(f"phase 27a {cfg.name} x{cfg.n_layers} layers f32 at full "
+            f"width, {TPF_F32_ROWS} x {TPF_F32_SEQ} "
+            f"tokens, {m} shards: logits max |TP - unsharded| / max "
+            f"|unsharded| {errs[m]:.3e} (rtol {TPF_F32_RTOL}), the routing "
+            f"free: {flips[0]} of {flips[1]} token-layer routings differ "
+            f"(must be 0); aux relative "
+            f"{aux_err:.2e}; finite {finite}; model-axis calls "
+            f"{axis.calls} == tp_serving_collectives(prefill): {ok}")
+        if not (errs[m] <= TPF_F32_RTOL and aux_err <= TPF_F32_RTOL and ok
+                and finite and on_card and flips[0] == 0):
+            failures.append(f"27a {arch} f32 at {m} shards")
+    del params, ref
+    torch.cuda.empty_cache()
+    log(f"phase 27a {cfg.name}: {time.monotonic() - t0:.1f} s")
+    return failures, errs, fault
+
+
+def _tpf_serve_runs(torch, np, cfg, params, tokens, feed, gate, label,
+                    dev, ref_tape=None):
+    """The unsharded serve (fed ``feed``, or greedy itself; its routing
+    recorded, or replayed from ``ref_tape``) and, at each M, the sharded
+    serve fed the same tokens, held to ``gate``: in f32 against the
+    unsharded serve, no token's top-k set allowed to differ; in bf16
+    against an unsharded serve with the sharded run's MoE routing
+    teacher-forced (the free reading beside it). Returns (the unsharded
+    logits, its greedy tokens, its routing, {m: error}, decode ms by M,
+    failures)."""
+    kw = dict(steps=TPF_STEPS, max_len=TPF_MAX_LEN)
+    tape = [] if ref_tape is None else ref_tape
+    with _routing(tape, replay=ref_tape is not None):
+        ref, greedy, ms1, pre1, _, _ = _tps_serve(torch, cfg, params, tokens,
+                                                  feed, 1, dev, **kw)
+    feed = greedy[:-1] if feed is None else feed
+    failures, errs, step_ms, prefill_ms = [], {}, {1: float(np.mean(ms1))}, \
+        {1: pre1}
+    dtype = params["embed"].dtype
+    free_gate = dtype == torch.float32
+    for m in TPF_MODELS:
+        tp_tape = []
+        with _routing(tp_tape):
+            got, tg, ms, pre, counts, devs = _tps_serve(
+                torch, cfg, params, tokens, feed, m, dev, **kw)
+        free = errs[m] = _tps_compare(torch, ref, got)
+        flips = _routing_flips(tape, tp_tape, cfg.top_k)
+        if not free_gate:
+            with _routing(tp_tape, replay=True):
+                forced = _tps_serve(torch, cfg, params, tokens, feed, 1, dev,
+                                    **kw)[0]
+            errs[m] = _tps_compare(torch, forced, got)
+            del forced
+        agree = sum(int((x == y).sum()) for x, y in zip(tg, greedy))
+        total = sum(int(y.numel()) for y in greedy)
+        ok = _tps_counts_ok(cfg, m, counts, dtype, TPF_ROWS, TPF_PROMPT)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        step_ms[m], prefill_ms[m] = float(np.mean(ms)), pre
+        per = counts[1] if len(counts) > 1 else ("", {}, {})
+        log(f"phase 27c {cfg.name} x{cfg.n_layers} {label} at full width, "
+            f"1x{m}: prefill {TPF_ROWS} x {TPF_PROMPT} tokens into "
+            f"{TPF_MAX_LEN} positions, {TPF_STEPS} decode steps teacher-"
+            f"forced on the unsharded run's greedy tokens: logits max row "
+            f"|TP - unsharded| / max |unsharded| {errs[m]:.3e} "
+            + (f"(rtol {gate:.5g}), the routing free: {flips[0]} of "
+               f"{flips[1]} token-layer routings differ (must be 0)"
+               if free_gate else
+               f"with the routing teacher-forced (rtol {gate:.5g}), "
+               f"{free:.3e} free ({flips[0]} of {flips[1]} token-layer "
+               f"routings differ)")
+            + f"; greedy "
+            f"tokens agree {agree} of {total}; finite {finite}; model-axis "
+            f"counters == tp_serving_collectives: {ok} (a decode step: "
+            f"{per[1]} calls, {per[2]} bytes); devices {sorted(devs)}")
+        if not (errs[m] <= gate and ok and finite and devs == {"cuda"}
+                and (flips[0] == 0 or not free_gate)):
+            failures.append(f"27c {cfg.name} {label} serving at 1x{m}")
+        del got
+    log(f"phase 27c {cfg.name} {label}: mean decode step ms ({TPF_ROWS} "
+        f"rows, {TPF_MAX_LEN}-position cache, host wall, synchronised) "
+        + ", ".join(f"M {m} {v:.3f}" for m, v in step_ms.items())
+        + "; prefill ms "
+        + ", ".join(f"M {m} {v:.1f}" for m, v in prefill_ms.items()))
+    return ref, greedy, tape, errs, step_ms, failures
+
+
+def tpf_serve(torch, np, arch, dev="cuda"):
+    """27c for one arch: ``make_prefill_fn`` / ``make_decode_fn`` at full
+    width on 1x2 and 1x4 against the unsharded steps, bf16 at 2^-5 or the
+    arch's TPF_BF16_RTOL (an arch of TPF_SERVE_F32 first in f32 at 1e-4,
+    with its unsharded bf16 run's distance from the f32 one read); for an
+    arch of TPF_FAULTS also 27d's bf16 reading. Returns (failures, bf16
+    decode ms by M, (what, the fault's reading, its gate) or None)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import transformer
+
+    cfg = _tpf_cfg(arch, TPF_SERVE_LAYERS[arch])
+    t0 = time.monotonic()
+    f32 = arch in TPF_SERVE_F32
+    params = transformer.init_params(
+        cfg, seed=27, dtype=torch.float32 if f32 else torch.bfloat16,
+        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    tokens = torch.randint(0, cfg.vocab_size, (TPF_ROWS, TPF_PROMPT),
+                           generator=gen, device=dev)
+    failures, feed, ref_tape = [], None, None
+    gate = TPF_BF16_RTOL.get(arch, TPS_BF16_ROW_RTOL)
+    if f32:
+        ref32, greedy, ref_tape, _, _, failures = _tpf_serve_runs(
+            torch, np, cfg, params, tokens, None, TPF_F32_RTOL, "f32", dev)
+        feed = greedy[:-1]
+        params = tree_mod.tree_map(lambda v: v.to(torch.bfloat16), params)
+        torch.cuda.empty_cache()
+    # the bf16 unsharded run's own distance from f32 (routing replayed from
+    # the f32 run): the basis of an f32-held arch's bf16 gate
+    if f32:
+        kw = dict(steps=TPF_STEPS, max_len=TPF_MAX_LEN)
+        with _routing(ref_tape, replay=True):
+            ref16 = _tps_serve(torch, cfg, params, tokens, feed, 1, dev,
+                               **kw)[0]
+        rounding = _tps_compare(torch, ref32, ref16)
+        log(f"phase 27c {cfg.name} x{cfg.n_layers}: the unsharded bf16 "
+            f"serve sits {rounding:.3e} from the f32 one (routing "
+            f"teacher-forced); bf16 gate {gate:.5g}")
+        del ref16, ref32
+    ref, greedy, _, _, step_ms, more = _tpf_serve_runs(
+        torch, np, cfg, params, tokens, feed, gate, "bf16", dev)
+    failures += more
+    fault = None
+    if arch in TPF_FAULTS:
+        with _partials_dropped(TPF_FAULTS[arch]):
+            bad = _tps_serve(torch, cfg, params, tokens, greedy[:-1], 2, dev,
+                             steps=TPF_STEPS, max_len=TPF_MAX_LEN)[0]
+        fault = (f"{arch} bf16", _tps_compare(torch, ref, bad), gate)
+        del bad
+    del params, ref
+    torch.cuda.empty_cache()
+    log(f"phase 27c {cfg.name}: {time.monotonic() - t0:.1f} s")
+    return failures, step_ms, fault
+
+
+def tp_families_phase(torch, np, card, dev="cuda"):
+    """Phase 27 (see the module docstring). Returns (the gather-pack
+    launches of 27b, timing extras for the kernels line)."""
+    t_phase = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    failures, faults = [], []
+    for arch in TPF_ARCHS:                                     # 27a
+        more, _, fault = tpf_forward_f32(torch, arch, dev)
+        failures += more
+        faults += [fault] if fault else []
+    peak_a = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _tpf_cfg(TPF_ARCHS[0], MOE_LM_LAYERS)                # 27b
+    launches, extra, more = tp_train_cell(torch, np, card, cfg,
+                                          TPF_TRAIN_STEPS, "phase 27b", dev)
+    failures += more
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    decode_ms = {}
+    for arch in TPF_ARCHS:                                     # 27c
+        more, decode_ms[arch], fault = tpf_serve(torch, np, arch, dev)
+        failures += more
+        faults += [fault] if fault else []
+    peak_c = torch.cuda.max_memory_allocated()
+    if len(faults) != 2 * len(TPF_FAULTS):
+        failures.append(f"27d read {len(faults)} faults")
+    for what, got, gate in faults:                             # 27d
+        planted = {"moe": "expert partials dropped from the combine's",
+                   "mamba": "w_out partials dropped from the mixer's"}[
+            TPF_FAULTS[what.split()[0]]]
+        log(f"phase 27d fault control, {what} at 2 shards with the last "
+            f"shard's {planted} all-reduce: {got:.3e} (must exceed the rtol "
+            f"{gate:.5g})")
+        if not got > gate:
+            failures.append(f"27d: the {what} gate does not see the fault")
+    secs = time.monotonic() - t_phase
+    log(f"phase 27 on {card}: {secs:.1f} s; peak memory 27a "
+        f"{peak_a / 1e9:.3f} GB, 27c {peak_c / 1e9:.3f} GB; decode step ms "
+        + "; ".join(f"{a}: " + ", ".join(f"M {m} {v:.3f}"
+                                         for m, v in d.items())
+                    for a, d in decode_ms.items()))
+    if failures:
+        raise AssertionError(f"phase 27 failed: {failures}")
+    return launches, dict(extra, seconds=secs, decode_ms=decode_ms)
+
+
 # ---- slice 14: the serving steps over the model axis (phase 26) -----------
 
 # phase 26's serving shape: 4 equal rows whose prompts pass the local
@@ -3113,13 +3519,15 @@ TPS_F32_RTOL = 1e-4
 TPS_F32_LAYERS, TPS_F32_STEPS = 2, 4
 
 
-def _tps_serve(torch, cfg, params, tokens, feed, m, dev, *, steps):
-    """Prefill ``tokens`` then ``steps`` decode steps fed ``feed`` (the
-    unsharded run's greedy tokens; None: greedy itself), through
-    ``make_prefill_fn`` / ``make_decode_fn`` on a ``1xM`` mesh (``1``: no
-    model axis). Returns (per-step whole logits in f32, the greedy
-    tokens, decode step ms, prefill ms, the model axes' counters per
-    step, the cache's and parameters' devices)."""
+def _tps_serve(torch, cfg, params, tokens, feed, m, dev, *, steps,
+               max_len=TPS_MAX_LEN):
+    """Prefill ``tokens`` (rows x prompt) into a ``max_len``-position cache
+    then ``steps`` decode steps fed ``feed`` (the unsharded run's greedy
+    tokens; None: greedy itself), through ``make_prefill_fn`` /
+    ``make_decode_fn`` on a ``1xM`` mesh (``1``: no model axis). Returns
+    (per-step whole logits in f32, the greedy tokens, decode step ms,
+    prefill ms, the model axes' counters per step, the cache's and
+    parameters' devices)."""
     from repro_torch import tree as tree_mod
     from repro_torch.convert import shard_cache, shard_params, unshard_cache
     from repro_torch.launch.mesh import parse_mesh
@@ -3130,12 +3538,12 @@ def _tps_serve(torch, cfg, params, tokens, feed, m, dev, *, steps):
     pf, prules = steps_mod.make_prefill_fn(cfg, mesh, device=dev)
     df, drules = steps_mod.make_decode_fn(cfg, mesh, device=dev)
     p = shard_params(params, cfg, m) if m > 1 else params
-    cache = transformer.init_cache(cfg, TPS_ROWS, TPS_MAX_LEN,
+    cache = transformer.init_cache(cfg, tokens.shape[0], max_len,
                                    params["embed"].dtype, dev)
     if m > 1:
         cache = shard_cache(cache, cfg, prules)
     devices = {t.device.type for t in tree_mod.leaves(p)}
-    devices |= {t.device.type for kv in cache.slots.values() for t in kv}
+    devices |= {t.device.type for st in cache.slots.values() for t in st}
     whole = lambda lg: torch.cat(list(lg), -1) if m > 1 else lg
     counts = []
     torch.cuda.synchronize()
@@ -3147,7 +3555,8 @@ def _tps_serve(torch, cfg, params, tokens, feed, m, dev, *, steps):
         counts.append(("prefill", dict(pf.model_axis.calls),
                        dict(pf.model_axis.bytes)))
         cache = shard_cache(unshard_cache(cache, cfg, prules), cfg, drules)
-        devices |= {t.device.type for kv in cache.slots.values() for t in kv}
+        devices |= {t.device.type for st in cache.slots.values()
+                    for t in st}
         devices.add(df.model_axis.device.type)
     outs = [whole(logits).float()]
     greedy = [outs[0].argmax(-1)]
@@ -3207,12 +3616,12 @@ def _tps_compare(torch, ref, got):
     return worst
 
 
-def _tps_counts_ok(cfg, m, counts, dtype):
+def _tps_counts_ok(cfg, m, counts, dtype, rows=TPS_ROWS, prompt=TPS_PROMPT):
     from repro_torch.core.model_axis import tp_serving_collectives
 
     for kind, calls, nbytes in counts:
-        seq = TPS_PROMPT if kind == "prefill" else 1
-        want = tp_serving_collectives(cfg, m, TPS_ROWS, seq, kind, dtype)
+        seq = prompt if kind == "prefill" else 1
+        want = tp_serving_collectives(cfg, m, rows, seq, kind, dtype)
         if calls != {op: v["calls"] for op, v in want.items()} or \
                 nbytes != {op: v["bytes"] for op, v in want.items()}:
             return False
@@ -3447,7 +3856,33 @@ def tp_phase(torch, np, card, dev="cuda"):
     launches of the run, timing extras for the kernels line)."""
     import dataclasses
 
-    from repro_torch import configs, prng, tree as tree_mod
+    from repro_torch import configs
+
+    t_phase = time.monotonic()
+    failures = tp_forward_check(torch, dev)
+    cfg = dataclasses.replace(configs.get_config("gemma2-2b"),
+                              n_layers=LM_LAYERS)
+    failures += tp_full_width_f32(torch, cfg, TP_MODEL, dev)
+    launches, extra, more = tp_train_cell(torch, np, card, cfg, LM_STEPS,
+                                          "phase 25", dev)
+    log(f"phase 25 in all: {time.monotonic() - t_phase:.1f} s")
+    if failures + more:
+        raise AssertionError(f"phase 25 failed: {failures + more}")
+    return launches, extra
+
+
+def tp_train_cell(torch, np, card, cfg, steps, phase, dev="cuda"):
+    """``cfg`` (full width, its depth cut) on LM_NODES x TP_MODEL through
+    ``launch.train.train(model_axis=StackModelAxis(TP_MODEL))`` for
+    ``steps`` steps, phase 10's wire (the cell of phase 25, and of 27b):
+    the buckets, the wire and the model-axis counters against their
+    accounting, step 1's loss against the unsharded cell's
+    (``LM_CELLS[cfg.name]``), both nodes' bf16 gradients over the shards
+    against unsharded (timed, P C C P), the exchange over the buckets
+    alone, and the gather-pack kernel against its plain version at every
+    bucket's shape. Returns (the run's gather-pack launches, timing
+    extras, failures)."""
+    from repro_torch import prng, tree as tree_mod
     from repro_torch.core import (SDMConfig, gossip, sdm_dsgd, sparsifier,
                                   transport as tr, wire_count)
     from repro_torch.core.model_axis import StackModelAxis, tp_collectives
@@ -3462,12 +3897,8 @@ def tp_phase(torch, np, card, dev="cuda"):
     from repro_torch.models import transformer
     from repro_torch.train import steps as steps_mod
 
-    t_phase = time.monotonic()
-    failures = tp_forward_check(torch, dev)
-    base = configs.get_config("gemma2-2b")
-    cfg = dataclasses.replace(base, n_layers=LM_LAYERS)
+    failures = []
     n, m = LM_NODES, TP_MODEL
-    failures += tp_full_width_f32(torch, cfg, m, dev)
     mesh = parse_mesh(f"{n}x{m}")
     sdm = SDMConfig(p=0.2, theta=0.5, gamma=1e-3, sigma=1.0, clip_c=1e-4,
                     compressor="fixedk:128")        # phase 10's
@@ -3484,17 +3915,19 @@ def tp_phase(torch, np, card, dev="cuda"):
         bits = sdm_dsgd.transmitted_bits_per_step(template, mcfg, seq=seq)
     flat = ParamPlane.for_tree(template)
     dims = steps_mod.param_shard_dims(cfg, m)
-    log(f"phase 25: {cfg.name} widths (d_model {cfg.d_model}, heads "
+    log(f"{phase}: {cfg.name} widths (d_model {cfg.d_model}, heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.resolved_head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), n_layers {base.n_layers}"
-        f" -> {LM_LAYERS}; mesh {mesh.shape}: {n} nodes x {m} model shards "
-        f"stacked on the card; {sum(d is not None for d in dims.values())} "
-        f"of {len(dims)} leaves split over the model axis; "
-        f"{spec.n_buckets} wire-plane buckets: "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k} d_ff_expert "
+           f"{cfg.d_ff_expert}" if cfg.n_experts else "")
+        + f"), n_layers {cfg.n_layers}; mesh {mesh.shape}: {n} nodes x {m} "
+        f"model shards stacked on the card; "
+        f"{sum(d is not None for d in dims.values())} of {len(dims)} leaves "
+        f"split over the model axis; {spec.n_buckets} wire-plane buckets: "
         + "; ".join(f"{i}: key {b.key} lane {b.lane} rows {b.rows} "
                     f"({len(b.leaves)} leaves)"
                     for i, b in enumerate(spec.buckets))
-        + f" (phase 10: one flat plane {flat.buckets[0].shape}; padded "
+        + f" (unsharded: one flat plane {flat.buckets[0].shape}; padded "
         f"{spec.padded_size} vs {flat.padded_size} elements)")
 
     transport = tr.StackTransport(n, dev)
@@ -3504,47 +3937,49 @@ def tp_phase(torch, np, card, dev="cuda"):
                                              model_axis=axis)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    log(f"phase 25 init {time.monotonic() - t0:.1f} s")
+    log(f"{phase} init {time.monotonic() - t0:.1f} s")
     per_step = []
 
     def on_step(t, loss, sec):
         per_step.append((dict(axis.calls), dict(axis.bytes)))
         axis.reset_counters()
-        log(f"  {cfg.name} 2x2 step {t} loss {loss:.5f} ({sec * 1e3:.1f} ms)")
+        log(f"  {cfg.name} {n}x{m} step {t} loss {loss:.5f} "
+            f"({sec * 1e3:.1f} ms)")
 
     fixedk_gather_pack.launches = 0
-    run = train(tc, transport, steps=LM_STEPS, global_batch=n * LM_BATCH,
+    run = train(tc, transport, steps=steps, global_batch=n * LM_BATCH,
                 seq_len=LM_SEQ, seed=0, state=state, on_step=on_step,
                 model_axis=axis)
     launches = fixedk_gather_pack.launches
     peak = torch.cuda.max_memory_allocated()
     ms = np.asarray(run.step_s) * 1e3
     mode = wire_count.mode_of(meth.name, mcfg)
-    calls = LM_STEPS * wire_count.permutes_per_step(
+    calls = steps * wire_count.permutes_per_step(
         meth.name, mode, seq, 0, n_buckets=spec.n_buckets)
     with steps_mod.bucket_ctx(tc, m):
         want_bytes = wire_count.expected_bytes_sent(meth, template, mcfg,
-                                                    seq, LM_STEPS)
+                                                    seq, steps)
     formula = tp_collectives(cfg, m, LM_BATCH, LM_SEQ, tc.param_dtype)
     want_calls = {op: n * v["calls"] for op, v in formula.items()}
     want_b = {op: n * v["bytes"] for op, v in formula.items()}
     axis_ok = all(c == want_calls and b == want_b for c, b in per_step)
-    ref = LM_CELLS.get("gemma2-2b", {})
+    ref = LM_CELLS.get(cfg.name, {})
     ref_loss = (ref.get("losses") or [float("nan")])[0]
     dloss = abs(run.losses[0] - ref_loss)
     tok_s = run.tokens_per_step / (ms[1:].mean() / 1e3)
-    log(f"phase 25 train {cfg.name} x{LM_LAYERS} layers bf16 on 2x2, "
+    log(f"{phase} train {cfg.name} x{cfg.n_layers} layers bf16 on {n}x{m}, "
         f"sdm-dsgd {seq.name} fixedk:128 sigma 1.0 clip_c 1e-4, seq "
-        f"{LM_SEQ}, batch {LM_BATCH}/node, {LM_STEPS} steps on {card}: step "
+        f"{LM_SEQ}, batch {LM_BATCH}/node, {steps} steps on {card}: step "
         f"ms mean {ms.mean():.3f} p50 {np.percentile(ms, 50):.3f} (first "
-        f"{ms[0]:.3f}; steps 2.. mean {ms[1:].mean():.3f}; phase 10 "
-        f"unsharded {ref.get('step_ms', float('nan')):.3f}); {tok_s:.1f} "
-        f"tokens/s; peak memory {peak / 1e9:.3f} GB (phase 10 "
+        f"{ms[0]:.3f}; steps 2.. mean {ms[1:].mean():.3f}; unsharded "
+        f"{ref.get('step_ms', float('nan')):.3f}); {tok_s:.1f} "
+        f"tokens/s; peak memory {peak / 1e9:.3f} GB (unsharded "
         f"{ref.get('peak_bytes', 0) / 1e9:.3f}); losses "
         f"{[round(v, 5) for v in run.losses]}; step 1 loss "
-        f"{run.losses[0]:.6f} vs phase 10's {ref_loss:.6f}: |diff| "
-        f"{dloss:.3e} (atol {TP_LOSS_ATOL}); ppermutes {transport.permutes} "
-        f"== {LM_STEPS} x {calls // LM_STEPS} ({spec.n_buckets} buckets x "
+        f"{run.losses[0]:.6f} vs the unsharded cell's {ref_loss:.6f}: "
+        f"|diff| {dloss:.3e} (atol {TP_LOSS_ATOL}); ppermutes "
+        f"{transport.permutes} == {steps} x {calls // steps} "
+        f"({spec.n_buckets} buckets x "
         f"{wire_count.expected_permutes(meth.name, mode, seq)} rounds x "
         f"payload tensors); wire bits per node per step {bits} (bytes sent "
         f"{sorted(set(transport.bytes_sent.values()))} == accounting: "
@@ -3552,17 +3987,17 @@ def tp_phase(torch, np, card, dev="cuda"):
         f"step ({n} nodes' gradients) {per_step[0][0]} calls, "
         f"{per_step[0][1]} bytes == tp_collectives x {n} in every step: "
         f"{axis_ok}; fixedk_gather_pack launches {launches} == steps x "
-        f"buckets {LM_STEPS * spec.n_buckets}")
+        f"buckets {steps * spec.n_buckets}")
     if not all(math.isfinite(v) for v in run.losses):
         failures.append("non-finite loss")
     if not dloss <= TP_LOSS_ATOL:
-        failures.append(f"step 1 loss {run.losses[0]} vs phase 10's "
-                        f"{ref_loss}")
+        failures.append(f"step 1 loss {run.losses[0]} vs the unsharded "
+                        f"cell's {ref_loss}")
     if transport.permutes != calls or transport.bytes_sent != want_bytes:
         failures.append("wire counters disagree with the accounting")
     if not axis_ok or want_calls["all_reduce"] == 0:
         failures.append("model-axis collectives disagree with the formula")
-    if launches != LM_STEPS * spec.n_buckets:
+    if launches != steps * spec.n_buckets:
         failures.append(f"fixedk_gather_pack launched {launches} times")
 
     # ---- what the model axis and the buckets cost ----------------------
@@ -3573,15 +4008,16 @@ def tp_phase(torch, np, card, dev="cuda"):
         TokenStream(vocab_size=cfg.vocab_size, batch=n * LM_BATCH,
                     seq_len=LM_SEQ, seed=0).batch_at(0)[0], device=dev),
         transport)
-    grad_ms = {"unsharded": [], "2 shards": []}
+    shards = f"{m} shards"
+    grad_ms = {"unsharded": [], shards: []}
     kept = {}
-    with phase_clock(torch, "phase 25 gradients timed (P C C P)", card):
-        for label in ("unsharded", "2 shards", "2 shards", "unsharded"):
+    with phase_clock(torch, f"{phase} gradients timed (P C C P)", card):
+        for label in ("unsharded", shards, shards, "unsharded"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             g, _ = steps_mod.node_grads(
                 cfg, st.x, tok, tok,
-                model_axis=axis if label == "2 shards" else None)
+                model_axis=axis if label == shards else None)
             torch.cuda.synchronize()
             grad_ms[label].append((time.perf_counter() - t0) * 1e3)
             kept.setdefault(label, g)
@@ -3596,26 +4032,49 @@ def tp_phase(torch, np, card, dev="cuda"):
                 sdm_dsgd.distributed_advance(st, **kw)
                 torch.cuda.synchronize()
                 adv.append((time.perf_counter() - t0) * 1e3)
-    gerr = {}
-    for key, want in tree_mod.flatten_with_paths(kept["unsharded"]).items():
-        got = tree_mod.flatten_with_paths(kept["2 shards"])[key]
-        gerr[key] = float((got.float() - want.float()).abs().max()
-                          / want.float().abs().max().clamp_min(1e-30))
+    def leaf_errors(a, b):
+        fa, fb = tree_mod.flatten_with_paths(a), tree_mod.flatten_with_paths(b)
+        return {k: float((fb[k].float() - w.float()).abs().max()
+                         / w.float().abs().max().clamp_min(1e-30))
+                for k, w in fa.items()}
+
+    gerr = leaf_errors(kept["unsharded"], kept[shards])
     del kept
     worst = max(gerr, key=gerr.get)
-    log(f"phase 25 bf16 gradients at the trained state, both nodes, 2 "
-        f"shards vs unsharded, max |diff| / scale per leaf: worst {worst} "
-        f"{gerr[worst]:.3e} (tol {TP_GRAD_BF16_TOL}); "
-        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(gerr.items())))
-    if not gerr[worst] <= TP_GRAD_BF16_TOL:
-        failures.append(f"bf16 tp gradient {worst} off by {gerr[worst]}")
-    log(f"phase 25 parts on {card}: both nodes' gradients (forward + "
+    gate = gerr
+    if cfg.n_experts:
+        # the routing teacher-forced: the unsharded gradient takes the
+        # sharded run's expert choices (the free runs above differ where
+        # a rounding flips a token's top-k, by O(1) of the leaves it feeds)
+        ref_tape, tp_tape = [], []
+        with _routing(ref_tape):
+            steps_mod.node_grads(cfg, st.x, tok, tok)
+        with _routing(tp_tape):
+            g_tp, _ = steps_mod.node_grads(cfg, st.x, tok, tok,
+                                           model_axis=axis)
+        with _routing(tp_tape, replay=True):
+            g_ref, _ = steps_mod.node_grads(cfg, st.x, tok, tok)
+        gate = leaf_errors(g_ref, g_tp)
+        del g_tp, g_ref
+        flips = _routing_flips(ref_tape, tp_tape, cfg.top_k)
+        log(f"{phase} free routing: worst leaf {worst} {gerr[worst]:.3e}; "
+            f"{flips[0]} of {flips[1]} token-layer routings differ between "
+            f"the unsharded and the sharded gradient")
+        worst = max(gate, key=gate.get)
+    log(f"{phase} bf16 gradients at the trained state, both nodes, {m} "
+        f"shards vs unsharded"
+        + (" (routing teacher-forced)" if cfg.n_experts else "")
+        + f", max |diff| / scale per leaf: worst {worst} "
+        f"{gate[worst]:.3e} (tol {TP_GRAD_BF16_TOL}); "
+        + ", ".join(f"{k} {v:.2e}" for k, v in sorted(gate.items())))
+    if not gate[worst] <= TP_GRAD_BF16_TOL:
+        failures.append(f"bf16 tp gradient {worst} off by {gate[worst]}")
+    log(f"{phase} parts on {card}: both nodes' gradients (forward + "
         f"backward, host wall, synchronised) unsharded "
-        f"{[round(v, 3) for v in grad_ms['unsharded']]} ms, over 2 shards "
-        f"{[round(v, 3) for v in grad_ms['2 shards']]} ms; "
+        f"{[round(v, 3) for v in grad_ms['unsharded']]} ms, over {m} "
+        f"shards {[round(v, 3) for v in grad_ms[shards]]} ms; "
         f"distributed_advance over the {spec.n_buckets} buckets "
-        f"{[round(v, 3) for v in adv]} ms (phase 10, one flat plane: see "
-        f"its breakdown)")
+        f"{[round(v, 3) for v in adv]} ms")
     extra = dict(grad_ms=grad_ms, advance_ms=adv)
 
     # ---- the kernel at every bucket's shape ----------------------------
@@ -3658,11 +4117,8 @@ def tp_phase(torch, np, card, dev="cuda"):
             f"{bound_ms * 1e3:.2f} us (bytes) on {card}")
         if not same:
             failures.append(f"fixedk_gather_pack disagrees at bucket {b}")
-    log(f"phase 25 in all: {time.monotonic() - t_phase:.1f} s")
-    if failures:
-        raise AssertionError(f"phase 25 failed: {failures}")
     return launches, dict(buckets=rows, step_ms=float(ms[1:].mean()),
-                          peak_bytes=peak, **extra)
+                          peak_bytes=peak, **extra), failures
 
 
 LINT_BUDGET_S = 60.0
@@ -4147,6 +4603,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp_serving_phase(torch, np, card)
+
+    # ---- 27. the MoE experts and the mamba mixer over the model axis ------
+    log(f"-- phase 27 at {time.monotonic() - T_MAIN:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, timing["fixedk_gather_pack"]["phase27"] = tp_families_phase(
+        torch, np, card)
+    launches["fixedk_gather_pack"] += n
 
     # ---- results -----------------------------------------------------------
     log(f"-- phase results at {time.monotonic() - T_MAIN:.1f} s")

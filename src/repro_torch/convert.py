@@ -21,7 +21,7 @@ stay whole. With ``index`` they give or take one shard alone, (1,) +
 its block (``core/model_axis.ShardModelAxis``, the dry-run's one
 device).
 
-``shard_cache`` / ``unshard_cache`` do the same for a dense KV cache
+``shard_cache`` / ``unshard_cache`` do the same for a dense cache
 (``transformer.init_cache``), by ``transformer.cache_logical_axes``
 under a serving step's rules (``train/steps.serving_rules``): prefill
 splits ``kv_heads`` (shard i holds KV heads [i kvh/M, (i+1) kvh/M) of
@@ -31,8 +31,11 @@ every position), decode splits ``cache_seq`` (shard i holds positions
 N M blocks, block d M + i on device (d, i) as JAX lays it out; shard i
 then holds its N blocks in node order, (layers, M, b, N L/(N M), kvh,
 hd). A dimension the rules leave whole (the divisibility fallback)
-keeps the cache whole. The batch stays whole: the port holds every
-node's rows on one device.
+keeps the cache whole. A mamba slot's state splits by channel (``mlp``)
+in either layout: shard i holds channels [i di/M, (i+1) di/M) of the
+conv state (layers, M, b, d_conv - 1, di/M) and of the ssm state
+(layers, M, b, di/M, d_state). The batch stays whole: the port holds
+every node's rows on one device.
 """
 from __future__ import annotations
 
@@ -45,7 +48,9 @@ from repro_torch import tree as tree_mod
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.npz import as_float_array
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import KVCache
 from repro_torch.models.transformer import (Cache, Params,
+                                            cache_logical_axes,
                                             check_tensor_parallel,
                                             flat_specs, unflatten)
 
@@ -163,14 +168,29 @@ def node_blocks(rules, part) -> int:
 
 def shard_cache(cache: Cache, cfg: ModelConfig, rules,
                 index: Optional[int] = None) -> Cache:
-    """A whole dense cache -> its model-axis layout under ``rules``
-    (copies; a whole leaf is kept as it is). With ``index``, shard
-    ``index`` alone, (layers, 1, ...) (node 0's block under
-    ``shard_cache_seq``): one device's cache."""
-    check_tensor_parallel(cfg)          # attention slots only
+    """A whole cache -> its model-axis layout under ``rules`` (copies; a
+    whole leaf is kept as it is). With ``index``, shard ``index`` alone,
+    (layers, 1, ...) (node 0's block under ``shard_cache_seq``): one
+    device's cache."""
+    check_tensor_parallel(cfg)          # attention and mamba slots only
     m = rules.sizes.get("model", 1)
+    axes = cache_logical_axes(cfg).slots
     slots = {}
     for slot, kv in cache.slots.items():
+        if not isinstance(kv, KVCache):             # a mamba state
+
+            def split_state(t, ax):
+                k = rules.split_dim(ax, t.shape)
+                if k is None or m == 1:
+                    return t
+                parts = t.chunk(m, dim=k)
+                if index is not None:
+                    return parts[index].unsqueeze(1).clone()
+                return torch.stack(parts, dim=1)
+
+            slots[slot] = type(kv)(*(split_state(t, ax)
+                                     for t, ax in zip(kv, axes[slot])))
+            continue
         dim, nodes = cache_split(cfg, rules, kv.k.shape[1], kv.k.shape[2])
 
         def split(t):
@@ -194,12 +214,27 @@ def shard_cache(cache: Cache, cfg: ModelConfig, rules,
 
 
 def unshard_cache(cache: Cache, cfg: ModelConfig, rules) -> Cache:
-    """The model-axis layout of a dense cache under ``rules`` -> whole
-    leaves (copies)."""
+    """The model-axis layout of a cache under ``rules`` -> whole leaves
+    (copies)."""
     check_tensor_parallel(cfg)
     m = rules.sizes.get("model", 1)
+    axes = cache_logical_axes(cfg).slots
     slots = {}
     for slot, kv in cache.slots.items():
+        if not isinstance(kv, KVCache):             # a mamba state
+
+            def join_state(t, ax):
+                if t.dim() == len(ax):              # whole
+                    return t
+                whole = torch.cat(t.unbind(1), dim=ax.index("mlp"))
+                if rules.split_dim(ax, whole.shape) != ax.index("mlp"):
+                    raise ValueError(f"a state split over 'model' that "
+                                     f"the rules leave whole: {ax}")
+                return whole
+
+            slots[slot] = type(kv)(*(join_state(t, ax)
+                                     for t, ax in zip(kv, axes[slot])))
+            continue
         whole = kv.k.dim() == 5
         b = kv.k.shape[1] if whole else kv.k.shape[2]
         length = kv.k.shape[2] if whole else (

@@ -212,65 +212,106 @@ class ShardModelAxis(_AxisBase):
         return g.chunk(self.size, dim=dim)[self.index].unsqueeze(0)
 
 
+def _slot_splits(cfg, m: int):
+    """Per layer slot of the period, {sublayer/leaf: split over the model
+    axis}; and whether the embedding is split."""
+    from repro_torch.train.steps import param_shard_dims
+
+    dims = param_shard_dims(cfg, m)
+    return [{k[len(f"blocks/{si}/"):]: dims[k] is not None for k in dims
+             if k.startswith(f"blocks/{si}/")}
+            for si in range(len(cfg.period))], dims["embed"] is not None
+
+
+def _elt(dtype: torch.dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
 def tp_collectives(cfg, m: int, batch: int, seq: int,
                    dtype: torch.dtype) -> Dict[str, Dict[str, int]]:
     """The model-axis collectives of one node's train-step gradient (the
-    forward, ``lm_loss`` and the backward) of the dense decoder on an
-    M-shard axis, from its layer list: {op: {"calls", "bytes"}}. Per
-    attention layer with sharded query heads: the input's *f* (backward)
-    and the output's *g* (forward); K and V all-gathered (forward) and
-    reduce-scattered (backward) where a shard's query heads need KV
-    heads outside its own block, or copied in from a replicated K / V;
-    per MLP layer with a sharded ``w_up``: *f* and *g*; a vocab-split
-    embedding's *g*, the logits' *f* and the loss's max, sum of
-    exponentials and label logit (f32). ``cfg.remat`` recomputes each
-    period's forward collectives in the backward."""
-    from repro_torch.train.steps import param_shard_dims
+    forward, ``lm_loss`` and the backward) on an M-shard axis, from the
+    layer list: {op: {"calls", "bytes"}}. Per attention layer with
+    sharded query heads: the input's *f* (backward) and the output's *g*
+    (forward); K and V all-gathered (forward) and reduce-scattered
+    (backward) where a shard's query heads need KV heads outside its own
+    block, or copied in from a replicated K / V. Per MLP layer with a
+    sharded ``w_up``: *f* and *g*. Per MoE layer with sharded experts
+    (by experts, or by ``mlp`` in the fallback): the rows' *f*, the
+    slot gates' *f* (an (M, e, capacity) f32 stack) and the combine's
+    *g*. Per mamba layer with a split ``w_in``: the input's *f*, the
+    blocks of its product all-gathered (reduce-scattered backward); with
+    split channels also the ``w_x_dbc`` partials' all-reduce and its *f*
+    (backward), the output's *g*. A vocab-split embedding's *g*, the
+    logits' *f* and the loss's max, sum of exponentials and label logit
+    (f32).
+    ``cfg.remat`` recomputes each period's forward collectives in the
+    backward, up to the last tensor the backward saved (a period's last
+    *g* runs again only under a post-norm)."""
+    from repro_torch.models.moe import capacity
 
     out = {op: {"calls": 0, "bytes": 0} for op in OPS}
     if m <= 1:
         return out
-    dims = param_shard_dims(cfg, m)
-    split = {k.rsplit("/", 1)[-1]: dims[k] is not None for k in dims
-             if k.startswith("blocks/0/") or "/" not in k}
-    elt = torch.tensor([], dtype=dtype).element_size()
-    act = m * batch * seq * cfg.d_model * elt        # an (M, b, s, d) stack
-    row = m * batch * seq * 4                        # an (M, b, s) f32 stack
+    slots, embed = _slot_splits(cfg, m)
+    elt = _elt(dtype)
+    tokens = batch * seq
+    act = m * tokens * cfg.d_model * elt             # an (M, b, s, d) stack
+    row = m * tokens * 4                             # an (M, b, s) f32 stack
 
     def add(op, nbytes, calls=1):
-        out[op]["calls"] += calls
-        out[op]["bytes"] += calls * nbytes
+        out[op]["calls"] += calls * cfg.n_periods
+        out[op]["bytes"] += calls * cfg.n_periods * nbytes
 
     fwd = 2 if cfg.remat else 1
-    n_attn = sum(s.mixer in ("attn", "attn_local") for s in cfg.period) \
-        * cfg.n_periods
-    n_mlp = sum(s.ffn == "mlp" for s in cfg.period) * cfg.n_periods
-    if split.get("wq"):
-        add("all_reduce", act, n_attn)               # f backward
-        add("all_reduce", act, n_attn * fwd)         # g forward
-        kvc = cfg.n_kv_heads * cfg.resolved_head_dim * elt * batch * seq
-        if split["wk"] and cfg.n_kv_heads % m:
-            add("all_gather", kvc, 2 * n_attn * fwd)
-            add("reduce_scatter", m * kvc, 2 * n_attn)
-        elif not split["wk"]:
-            add("all_reduce", m * kvc, 2 * n_attn)   # f backward, K and V
-    if split.get("w_up"):
-        add("all_reduce", act, 2 * n_mlp)            # f backward, g forward
-        if cfg.remat:
-            add("all_reduce", act, n_mlp)
-    if split["embed"]:
-        add("all_reduce", act)                       # the embedding's g
-        add("all_reduce", act)                       # the logits' f
-        add("all_max", row)
-        add("all_reduce", row, 2)                    # sum of exp, label logit
+    for split in slots:
+        if split.get("attn/wq"):
+            add("all_reduce", act)                   # f backward
+            add("all_reduce", act, fwd)              # g forward
+            kvc = cfg.n_kv_heads * cfg.resolved_head_dim * elt * tokens
+            if split["attn/wk"] and cfg.n_kv_heads % m:
+                add("all_gather", kvc, 2 * fwd)
+                add("reduce_scatter", m * kvc, 2)
+            elif not split["attn/wk"]:
+                add("all_reduce", m * kvc, 2)        # f backward, K and V
+        if split.get("mamba/w_in"):
+            xz = tokens * 2 * cfg.mamba_d_inner * elt
+            add("all_reduce", act)                   # f backward
+            add("all_gather", xz, fwd)               # each shard's block
+            add("reduce_scatter", m * xz)
+        if split.get("mamba/conv_w"):
+            dbc = m * tokens * (cfg.mamba_dt_rank + 2 * cfg.mamba_d_state) \
+                * elt
+            add("all_reduce", dbc, fwd)              # the partials
+            add("all_reduce", dbc)                   # their f backward
+            add("all_reduce", act, fwd)              # g forward
+        if split.get("mlp/w_up"):
+            add("all_reduce", act, 1 + fwd)          # f backward, g forward
+        if split.get("moe/w_up"):
+            gates = m * cfg.n_experts * capacity(cfg, tokens) * 4
+            add("all_reduce", act)                   # the rows' f backward
+            add("all_reduce", gates)                 # the gates' f backward
+            add("all_reduce", act, fwd)              # g forward
+    last = slots[-1]
+    if cfg.remat and not cfg.post_block_norm and (
+            last.get("mlp/w_up") or last.get("moe/w_up")):
+        # the recomputation stops at the last tensor the backward saved:
+        # a period ending in its feed-forward's g (no post-norm after it)
+        # does not run that g again
+        add("all_reduce", act, -1)
+    if embed:
+        for op, nbytes, calls in (("all_reduce", act, 2), ("all_max", row, 1),
+                                  ("all_reduce", row, 2)):
+            out[op]["calls"] += calls     # the embedding's g, the logits'
+            out[op]["bytes"] += calls * nbytes  # f; the loss's three
     return out
 
 
 def tp_serving_collectives(cfg, m: int, batch: int, seq: int, kind: str,
                            dtype: torch.dtype = torch.bfloat16
                            ) -> Dict[str, Dict[str, int]]:
-    """The model-axis collectives of one serving step of the dense
-    decoder over an M-shard stack, ``batch`` rows of ``seq`` new tokens
+    """The model-axis collectives of one serving step over an M-shard
+    stack, ``batch`` rows of ``seq`` new tokens
     (``train/steps.make_prefill_fn`` / ``make_decode_fn``): {op:
     {"calls", "bytes"}}, from the layer list. ``kind`` names the cache's
     layout: "prefill" (split by KV heads where M divides them, else
@@ -282,41 +323,47 @@ def tp_serving_collectives(cfg, m: int, batch: int, seq: int, kind: str,
     positions, the query heads and (where ``wk`` is split) K and V are
     all-gathered, then the partials' max (f32) and one all-reduce of
     their sums and weighted sums (f32, head_dim + 1 a head). Per MLP
-    layer with a sharded ``w_up``: the all-reduce; a vocab-split
-    embedding's all-reduce. No gradient: *f* counts nothing."""
-    from repro_torch.train.steps import param_shard_dims
-
+    layer with a sharded ``w_up`` and per MoE layer with sharded
+    experts: the all-reduce. Per mamba layer with a split ``w_in``: the
+    all-gather of its product's blocks; with split channels (the state
+    split by channel in either layout) also the ``w_x_dbc`` partials'
+    and the output's all-reduces.
+    A vocab-split embedding's all-reduce. No gradient: *f* counts
+    nothing."""
     out = {op: {"calls": 0, "bytes": 0} for op in OPS}
     if m <= 1:
         return out
     if kind not in ("prefill", "decode"):
         raise ValueError(f"kind {kind!r}: expected 'prefill' or 'decode'")
-    dims = param_shard_dims(cfg, m)
-    split = {k.rsplit("/", 1)[-1]: dims[k] is not None for k in dims
-             if k.startswith("blocks/0/") or "/" not in k}
-    elt = torch.tensor([], dtype=dtype).element_size()
+    slots, embed = _slot_splits(cfg, m)
+    elt = _elt(dtype)
     hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     tokens = batch * seq
     act = m * tokens * cfg.d_model * elt            # an (M, b, s, d) stack
 
     def add(op, nbytes, calls=1):
-        out[op]["calls"] += calls
-        out[op]["bytes"] += calls * nbytes
+        out[op]["calls"] += calls * cfg.n_periods
+        out[op]["bytes"] += calls * cfg.n_periods * nbytes
 
-    n_attn = sum(s.mixer in ("attn", "attn_local") for s in cfg.period) \
-        * cfg.n_periods
-    n_mlp = sum(s.ffn == "mlp" for s in cfg.period) * cfg.n_periods
-    if split.get("wq"):
-        add("all_reduce", act, n_attn)               # g of wo
-        kv_gather = split["wk"] and (kind == "decode" or kvh % m)
-        if kv_gather:
-            add("all_gather", tokens * kvh * hd * elt, 2 * n_attn)
-        if kind == "decode":
-            add("all_gather", tokens * h * hd * elt, n_attn)
-            add("all_max", m * tokens * h * 4, n_attn)
-            add("all_reduce", m * tokens * h * (hd + 1) * 4, n_attn)
-    if split.get("w_up"):
-        add("all_reduce", act, n_mlp)
-    if split["embed"]:
-        add("all_reduce", act)
+    for split in slots:
+        if split.get("attn/wq"):
+            add("all_reduce", act)                   # g of wo
+            kv_gather = split["attn/wk"] and (kind == "decode" or kvh % m)
+            if kv_gather:
+                add("all_gather", tokens * kvh * hd * elt, 2)
+            if kind == "decode":
+                add("all_gather", tokens * h * hd * elt)
+                add("all_max", m * tokens * h * 4)
+                add("all_reduce", m * tokens * h * (hd + 1) * 4)
+        if split.get("mamba/w_in"):
+            add("all_gather", tokens * 2 * cfg.mamba_d_inner * elt)
+        if split.get("mamba/conv_w"):
+            add("all_reduce", m * tokens * (cfg.mamba_dt_rank
+                                            + 2 * cfg.mamba_d_state) * elt)
+            add("all_reduce", act)
+        if split.get("mlp/w_up") or split.get("moe/w_up"):
+            add("all_reduce", act)
+    if embed:
+        out["all_reduce"]["calls"] += 1
+        out["all_reduce"]["bytes"] += act
     return out

@@ -8,8 +8,8 @@ The counterpart of ``repro.launch.train``, with the same flags plus
 versions of the kernels). ``--mesh N`` simulates N edge nodes, all held
 on the one device as one node block; ``--mesh NxM`` splits each node's
 model over a ``model`` axis of M shards, held as a stack on the same
-device (``core/model_axis``: the dense decoder family; the wire planes
-take JAX's tensor-parallel buckets):
+device (``core/model_axis``: the dense decoder, MoE and hybrid families;
+the wire planes take JAX's tensor-parallel buckets):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
       --smoke --mesh 2x2 --steps 3 --compressor fixedk:8 --device cpu
@@ -211,7 +211,8 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", default="2",
                     help="N or NxM: N simulated edge nodes, each node's "
                          "model split over a model axis of M shards "
-                         "(tensor parallelism, the dense family)")
+                         "(tensor parallelism: the dense, MoE and "
+                         "hybrid families)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--global-batch", type=int, default=None)
     ap.add_argument("--seq-len", type=int, default=None)

@@ -283,7 +283,7 @@ def _ffn_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
     if spec.ffn == "mlp":
         return mlp_apply(sp["mlp"], cfg, x, model_axis), None, state
     if spec.ffn == "moe":
-        x, aux = moe_mod.moe_apply(sp["moe"], cfg, x)
+        x, aux = moe_mod.moe_apply(sp["moe"], cfg, x, model_axis)
         return x, aux, state
     if spec.ffn == "rwkv_ffn":
         x, state = rwkv_mod.rwkv_channel_mix(sp["channel_mix"], cfg, x, state)
@@ -309,8 +309,9 @@ def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
     """One layer slot over a full sequence. ``cache``: an attention
     slot's ``KVCache`` to fill from position 0 (prefill), or an rwkv
     slot's initial state (zeros when None); ``ctx``: the encoded context
-    of a cross-attention slot; ``model_axis``: a dense slot's tensor-
-    parallel forward (the cache then in its model-axis layout). Returns
+    of a cross-attention slot; ``model_axis``: the slot's tensor-
+    parallel forward (attention, mamba, MLP or MoE; the cache then in its
+    model-axis layout, a mamba state split by channel). Returns
     (x, MoE aux or None, the recurrent slot's final state or None)."""
     state = None
     if spec.mixer in ATTN:
@@ -325,7 +326,8 @@ def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
                                    cache_nodes=cache_nodes)
     elif spec.mixer == "mamba":
         x, state = mamba_mod.mamba_apply(sp["mamba"], cfg, x,
-                                         return_state=True)
+                                         return_state=True,
+                                         model_axis=model_axis)
     else:
         if cache is None:
             cache = rwkv_mod.init_rwkv_state(cfg, x.shape[0], x.dtype,
@@ -336,16 +338,18 @@ def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
 
 
 def _slot_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
-               state, positions: torch.Tensor, ctx: Optional[torch.Tensor]):
+               state, positions: torch.Tensor, ctx: Optional[torch.Tensor],
+               model_axis=None):
     """A recurrent slot (mamba / rwkv mixer, its cross-attention, then
     its feed-forward) for one token. Returns (x, the slot's new
     state)."""
     if spec.mixer == "mamba":
-        x, state = mamba_mod.mamba_decode_step(sp["mamba"], cfg, x, state)
+        x, state = mamba_mod.mamba_decode_step(sp["mamba"], cfg, x, state,
+                                               model_axis)
     else:
         x, state = rwkv_mod.rwkv_time_mix_step(sp["time_mix"], cfg, x, state)
     x = _cross(cfg, spec, sp, x, positions, ctx)
-    return _ffn_step(cfg, spec, sp, x, state)
+    return _ffn_step(cfg, spec, sp, x, state, model_axis)
 
 
 def _ffn_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
@@ -354,7 +358,7 @@ def _ffn_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
     if spec.ffn == "mlp":
         return mlp_apply(sp["mlp"], cfg, x, model_axis), state
     if spec.ffn == "moe":
-        return moe_mod.moe_apply(sp["moe"], cfg, x)[0], state
+        return moe_mod.moe_apply(sp["moe"], cfg, x, model_axis)[0], state
     if spec.ffn == "rwkv_ffn":
         return rwkv_mod.rwkv_channel_mix_step(sp["channel_mix"], cfg, x,
                                               state)
@@ -476,22 +480,29 @@ def _period(params: Params, cfg: ModelConfig, i: int, x: torch.Tensor,
     return x, aux
 
 
+TP_MIXERS = ATTN + ("mamba",)
+TP_FFNS = ("mlp", "moe")
+
+
 def check_tensor_parallel(cfg: ModelConfig) -> None:
-    """Raises unless ``cfg`` is a dense decoder (attention + MLP slots):
-    the only family whose forward runs over a model axis."""
-    bad = [s for s in cfg.period
-           if s.mixer not in ATTN or s.ffn != "mlp" or s.cross_attn]
+    """Raises unless every slot of ``cfg`` is an attention or mamba mixer
+    with an MLP or MoE feed-forward, without cross-attention, an encoder
+    or learned positions: the families whose forward runs over a model
+    axis (the dense decoders, the MoE and the hybrid)."""
+    bad = [s for s in cfg.period if s.mixer not in TP_MIXERS
+           or s.ffn not in TP_FFNS or s.cross_attn]
     if bad or cfg.has_encoder or cfg.pos_embedding == "learned":
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a model axis runs the "
-            "dense decoder family only; the MoE experts, the mamba / rwkv "
-            "mixers, cross-attention and the encoder are not ported "
-            "(ROADMAP Queue 1, item 5)")
+            "dense decoder, MoE and hybrid families (attention and mamba "
+            "mixers, MLP and MoE feed-forwards); the rwkv mixer, "
+            "cross-attention, the encoder and learned positions are not "
+            "ported (ROADMAP Queue 1, item 5)")
 
 
 def _tp_axis(cfg: ModelConfig, model_axis):
     """``model_axis``, or None for none or a single shard; the families
-    other than the dense decoder raise under M > 1."""
+    ``check_tensor_parallel`` refuses raise under M > 1."""
     if model_axis is None or model_axis.size == 1:
         return None
     check_tensor_parallel(cfg)
@@ -506,10 +517,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     without MoE). ``context``: the raw (b, s_ctx, d) context, encoded
     here.
 
-    ``model_axis`` (``core/model_axis``, M > 1 shards) runs the dense
-    decoder tensor-parallel over ``params`` in the model-axis layout
+    ``model_axis`` (``core/model_axis``, M > 1 shards) runs the model
+    tensor-parallel over ``params`` in the model-axis layout
     (``convert.shard_params``); the logits then come vocab-split, (M, b,
-    s, V/M), for ``lm_loss(..., model_axis=)``. Other families raise."""
+    s, V/M), for ``lm_loss(..., model_axis=)``. The families
+    ``check_tensor_parallel`` refuses raise."""
     model_axis = _tp_axis(cfg, model_axis)
     x, positions = _embed_prompt(params, cfg, tokens, model_axis)
     ctx = _encode_context(params, cfg, context)
@@ -586,8 +598,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     keeps their hidden states exact -- recurrent models need equal
     lengths, their state would consume the padding).
 
-    ``model_axis`` (M > 1 shards; the dense family): ``params`` and
-    ``cache`` in their model-axis layouts (``convert.shard_params``,
+    ``model_axis`` (M > 1 shards; the families of
+    ``check_tensor_parallel``): ``params`` and ``cache`` in their
+    model-axis layouts (``convert.shard_params``,
     ``convert.shard_cache``); the logits come back vocab-split, (M, b,
     V/M), as ``forward``'s do. ``cache_nodes``: the node blocks of a
     cache split by positions over ("data", "model") (``shard_cache_seq``).
@@ -660,7 +673,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
             else:
                 x, st = _slot_step(cfg, spec, sp, x,
                                    _at(cache.slots[key], i), positions,
-                                   context)
+                                   context, model_axis)
                 states.setdefault(key, []).append(st)
     logits = _logits(params, cfg, x, model_axis)
     return logits[..., 0, :], _with_states(cache, states, cache.offset + 1)

@@ -329,7 +329,7 @@ def _drops(cfg, probs: np.ndarray) -> int:
     t = probs.shape[0]
     ids = np.argsort(-probs, axis=-1, kind="stable")[:, :cfg.top_k]
     counts = np.bincount(ids.reshape(-1), minlength=cfg.n_experts)
-    return int(np.maximum(counts - moe._capacity(cfg, t), 0).sum())
+    return int(np.maximum(counts - moe.capacity(cfg, t), 0).sum())
 
 
 @pytest.mark.parametrize("router", ["seeded", "zeros"])
@@ -369,10 +369,10 @@ def test_moe_apply_drops_tokens_like_jax(router):
     h = rms_norm(_t(x), _t(p["norm"]), cfg.norm_eps).reshape(-1, d)
     probs = torch.softmax(h @ _t(p["router"]), -1).numpy()
     t = x.shape[0] * x.shape[1]
-    assert moe._capacity(cfg, t) == int(2 * t * 1.25 / e) < t
+    assert moe.capacity(cfg, t) == int(2 * t * 1.25 / e) < t
     assert _drops(cfg, probs) > 0
     if router == "zeros":
-        assert _drops(cfg, probs) == 2 * (t - moe._capacity(cfg, t))
+        assert _drops(cfg, probs) == 2 * (t - moe.capacity(cfg, t))
 
 
 @pytest.mark.parametrize("n_tokens,want", [(1, 2), (8, 5), (80, 50),
@@ -382,12 +382,12 @@ def test_moe_capacity_is_jax_expression(n_tokens, want):
     slots (jamba: top-2 of 16) an expert takes 2 tokens a step."""
     cfg = dataclasses.replace(configs.get_smoke_config("jamba-v0.1-52b"),
                               capacity_factor=1.25)
-    assert moe._capacity(cfg, n_tokens) == \
+    assert moe.capacity(cfg, n_tokens) == \
         jax_moe._capacity(dataclasses.replace(
             jax_configs.get_smoke_config("jamba-v0.1-52b"),
             capacity_factor=1.25), n_tokens) == want
     full = configs.get_config("jamba-v0.1-52b")
-    assert moe._capacity(full, 8) == 2
+    assert moe.capacity(full, 8) == 2
 
 
 # ---------------------------------------------------------------------------

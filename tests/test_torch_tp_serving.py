@@ -365,7 +365,7 @@ def test_serving_steps_refuse():
                              rule_overrides={"batch": "model"})
     with pytest.raises(ValueError, match="pod mesh"):
         steps.make_decode_fn(cfg, "16x16", device="cpu")
-    for arch in ("granite-moe-1b-a400m", "rwkv6-3b", "whisper-large-v3"):
+    for arch in ("rwkv6-3b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             steps.make_decode_fn(configs.get_smoke_config(arch),
                                  parse_mesh("1x2"), device="cpu")
