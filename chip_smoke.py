@@ -197,6 +197,30 @@ Phases (any failure exits non-zero):
      in (a) and (c): granite-moe with the last shard's expert partials
      dropped from the combine's all-reduce, jamba with the last shard's
      ``w_out`` partials dropped from the mixer's.
+  28. the rwkv mixers, whisper's encoder and cross-attention over the
+     ``model`` axis (rwkv6-3b, whisper-large-v3, llama-3.2-vision-11b; no
+     kernel of its own): (a) the forward, ``lm_loss`` and every gradient
+     leaf at full width in f32 over 2 and 4 shards against unsharded
+     (rwkv6 x 4 layers, whisper x 4 + 4 on a seeded 1500-frame context,
+     llama-vision's first period on 1024 image tokens; one row of 128
+     tokens), each within 1e-4 of its scale, counters equal
+     ``tp_collectives``; (b) phase 21f's whisper x 4 + 4 cell on ``2x2``
+     through ``launch.train.train`` (phase 25's checks, seq 448, step 1's
+     loss against phase 21f's, the bf16 gradients on a seeded context);
+     (c) the serving steps at full width and
+     depth on ``1x2`` and ``1x4`` in bf16 against unsharded, 4 rows, 16
+     decode steps on the unsharded run's greedy tokens (rwkv6 x 4 and x
+     32, 256 prompt tokens, in f32 first; whisper 32 + 32, 128 tokens on
+     1500 frames; llama-vision x 40, 512 tokens on 1024 image tokens), a
+     row's logits within 2^-5 (rwkv6's seeded weights amplify rounding
+     with depth: its gates ``TPE_RWKV_GATES``, each run's witness, the
+     same function summed in another order, read within them), greedy
+     agreement, decode and prefill ms at M = 1, 2, 4, peak memory; (d)
+     fault controls at 2 shards in (a) and every run of (c), each to
+     read above its gate: rwkv6 with the last shard's
+     ``w_out`` partial dropped from the time mix's all-reduce, whisper
+     and llama-vision with the last shard's cross-attention K / V block
+     zeroed.
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -3500,6 +3524,390 @@ def tp_families_phase(torch, np, card, dev="cuda"):
     return launches, dict(extra, seconds=secs, decode_ms=decode_ms)
 
 
+# ---- slice 16: the rwkv mixers, the encoder and cross-attention over the
+# model axis (phase 28) -------------------------------------------------------
+
+TPE_ARCHS = ("rwkv6-3b", "whisper-large-v3", "llama-3.2-vision-11b")
+TPE_MODELS = (2, 4)
+# 28a: f32 at full width, depth cut: rwkv6 x 4 layers (0.70 B params),
+# whisper 4 encoder + 4 decoder layers on a 1500-frame context (0.33 B),
+# llama-vision's first period (5 layers, its cross slot first; 2.15 B) on
+# 1024 image tokens; one row of TPE_F32_SEQ tokens (rwkv's WKV loop keeps
+# a (b, s, h, N, N) f32 outer product a layer: 655 KB a token at h 40)
+TPE_F32_CUT = {"rwkv6-3b": (4, None), "whisper-large-v3": (4, 4),
+               "llama-3.2-vision-11b": (5, None)}
+TPE_F32_ROWS, TPE_F32_SEQ = 1, 128
+# f32 logits and each gradient leaf, max |TP - unsharded| / max
+# |unsharded|: phase 27a's gate
+TPE_F32_RTOL = 1e-4
+# 28c: full width and depth, bf16: 4 rows into TPE_MAX_LEN positions,
+# TPE_STEPS decode steps on the unsharded run's greedy tokens. whisper's
+# decoder holds 448 positions (its prompt 128); rwkv's prompt is its
+# in-order loop's length (32 layers x 256 steps)
+TPE_ROWS, TPE_STEPS = 4, 16
+TPE_PROMPT = {"rwkv6-3b": 256, "whisper-large-v3": 128,
+              "llama-3.2-vision-11b": 512}
+TPE_MAX_LEN = {"rwkv6-3b": 512, "whisper-large-v3": 448,
+               "llama-3.2-vision-11b": 1024}
+# rwkv6 is served in f32, then in bf16, at 28a's 4 layers and at its full
+# 32; the others in bf16 at full depth at phase 26's 2^-5 a row. Seeded
+# rwkv6 amplifies rounding with depth. A witness, the unsharded serve
+# against itself with its heads and d_ff reversed (the same function,
+# summed in another order), read on the H100 (700 W) f32 4.472e-06 at 4
+# layers, 8.541e-05 at 32 (TP 2.0-2.4x that at every depth), bf16
+# 2.162e-02 / 3.595e-01; the unsharded bf16 serve sits 5.547e-02 /
+# 6.990e-01 from f32. Gates (f32, bf16) by depth, constants from those
+# readings (PERF.md §6): 4 layers 28a's 1e-4 and 2^-3 (jamba's, over
+# twice the bf16 distance); 32 layers 1e-3 and 2^0. Each run's witness
+# must read within its gate and its fault above it; at 32 layers in bf16
+# the gate tells only a gross fault from rounding (the fault reads ~1.7)
+TPE_RWKV_GATES = {4: (1e-4, 2 ** -3), 32: (1e-3, 1.0)}
+# 28b: whisper x 4 + 4 (phase 21f's cell) on LM_NODES x TP_MODEL
+TPE_TRAIN_STEPS = 3
+
+
+def _tpe_cfg(arch, layers, enc_layers=None):
+    """``arch`` at full width with ``layers`` decoder layers (and
+    ``enc_layers`` encoder layers)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+    if enc_layers is not None:
+        cfg = dataclasses.replace(cfg, n_encoder_layers=enc_layers)
+    return cfg
+
+
+def _tpe_context(torch, cfg, rows, dtype, dev, seed=28):
+    """A seeded stub context of distinct rows (None for a text model)."""
+    from repro_torch.models.transformer import context_len
+
+    n = context_len(cfg)
+    if not n:
+        return None
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((rows, n, cfg.d_model), generator=gen, device=dev,
+                       dtype=torch.float32).to(dtype)
+
+
+@contextlib.contextmanager
+def _tpe_fault(arch):
+    """The faults of 28d: rwkv6, the last shard's ``w_out`` partial
+    dropped from the time mix's all-reduce; the encoder families, the
+    last shard's block of the cross-attention K / V zeroed."""
+    from repro_torch.models import layers, rwkv
+
+    if arch == "rwkv6-3b":
+        mod, name = rwkv, "rwkv_time_mix"
+        real = rwkv.rwkv_time_mix
+
+        def patched(p, c, x, state, model_axis=None):
+            return real(p, c, x, state, None if model_axis is None
+                        else _LastShardDropped(model_axis))
+    else:
+        mod, name = layers, "_tp_project"
+        real = layers._tp_project
+
+        def patched(params, cfg, x, axis, kv_source=None):
+            residual, q, k, v, kv = real(params, cfg, x, axis, kv_source)
+            if kv_source is not None and kv != "whole":
+                k, v = (t.clone() for t in (k, v))
+                k[-1] = 0
+                v[-1] = 0
+            return residual, q, k, v, kv
+    setattr(mod, name, patched)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+TPE_FAULT_TEXT = {"rwkv6-3b": "w_out partial dropped from the time mix's "
+                  "all-reduce",
+                  "whisper-large-v3": "cross-attention K / V block zeroed",
+                  "llama-3.2-vision-11b": "cross-attention K / V block "
+                  "zeroed"}
+
+
+def tpe_grads_f32(torch, arch, dev="cuda"):
+    """28a for one arch: the forward, ``lm_loss`` and the gradients at
+    full width in f32 over 2 and 4 shards against unsharded (logits,
+    loss and each gradient leaf within TPE_F32_RTOL of its scale), the
+    counters against ``tp_collectives``; 28d's f32 reading at 2 shards.
+    Returns (failures, {m: worst error}, (what, reading, gate))."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.convert import shard_params, unshard_params
+    from repro_torch.core.model_axis import StackModelAxis, tp_collectives
+    from repro_torch.models import transformer
+
+    cfg = _tpe_cfg(arch, *TPE_F32_CUT[arch])
+    t0 = time.monotonic()
+    params = transformer.init_params(cfg, seed=28, dtype=torch.float32,
+                                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    tokens = torch.randint(0, cfg.vocab_size, (TPE_F32_ROWS, TPE_F32_SEQ),
+                           generator=gen, device=dev)
+    ctx = _tpe_context(torch, cfg, TPE_F32_ROWS, torch.float32, dev)
+
+    def run(p, axis):
+        leaves, struct = tree_mod.flatten(p)
+        mine = [v.detach().requires_grad_(True) for v in leaves]
+        logits, aux = transformer.forward(tree_mod.unflatten(struct, mine),
+                                          cfg, tokens, context=ctx,
+                                          model_axis=axis)
+        loss = transformer.lm_loss(logits, tokens, cfg.vocab_size, aux,
+                                   model_axis=axis)
+        grads = torch.autograd.grad(loss, mine)
+        logits = logits.detach()
+        if axis is not None:
+            logits = torch.cat(list(logits), -1)
+        return logits, float(loss), tree_mod.unflatten(struct, list(grads))
+
+    ref, ref_loss, ref_g = run(params, None)
+    ref_g = tree_mod.flatten_with_paths(ref_g)
+    failures, errs, fault = [], {}, None
+    for m in TPE_MODELS:
+        axis = StackModelAxis(m, dev)
+        shards = shard_params(params, cfg, m)
+        got, loss, g = run(shards, axis)
+        g = tree_mod.flatten_with_paths(unshard_params(g, cfg, m))
+        logit_err = _rel_err(torch, got, ref)
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        gerr = {k: float((g[k] - w).abs().max()
+                         / w.abs().max().clamp_min(1e-30))
+                for k, w in ref_g.items()}
+        worst = max(gerr, key=gerr.get)
+        errs[m] = max(logit_err, loss_err, gerr[worst])
+        want = tp_collectives(cfg, m, TPE_F32_ROWS, TPE_F32_SEQ,
+                              torch.float32)
+        ok = all(axis.calls[op] == v["calls"] and axis.bytes[op] == v["bytes"]
+                 for op, v in want.items())
+        finite = bool(torch.isfinite(got).all())
+        on_card = {t.device.type for t in (got, shards["embed"])} == {"cuda"}
+        del g, got
+        if m == 2:
+            with _tpe_fault(arch), torch.no_grad():
+                bad, _ = transformer.forward(shards, cfg, tokens, context=ctx,
+                                             model_axis=StackModelAxis(m,
+                                                                       dev))
+            fault = (f"{arch} f32", _rel_err(torch, torch.cat(list(bad), -1),
+                                             ref), TPE_F32_RTOL)
+            del bad
+        del shards
+        log(f"phase 28a {cfg.name} x{cfg.n_layers}"
+            + (f" + {cfg.n_encoder_layers} encoder" if cfg.has_encoder
+               else "")
+            + f" layers f32 at full width, {TPE_F32_ROWS} x {TPE_F32_SEQ} "
+            f"tokens" + (f" on a {ctx.shape[1]}-row context"
+                         if ctx is not None else "")
+            + f", {m} shards: logits max |TP - unsharded| / max |unsharded| "
+            f"{logit_err:.3e}, loss relative {loss_err:.3e}, gradients "
+            f"worst leaf {worst} {gerr[worst]:.3e} (rtol {TPE_F32_RTOL}); "
+            f"finite {finite}; model-axis calls {axis.calls} == "
+            f"tp_collectives: {ok}")
+        if not (errs[m] <= TPE_F32_RTOL and ok and finite and on_card):
+            failures.append(f"28a {arch} f32 at {m} shards")
+    del params, ref, ref_g
+    torch.cuda.empty_cache()
+    log(f"phase 28a {cfg.name}: {time.monotonic() - t0:.1f} s")
+    return failures, errs, fault
+
+
+def _tpe_serve_runs(torch, np, arch, cfg, params, tokens, ctx, feed, gate,
+                    label, dev):
+    """The unsharded serve (fed ``feed``, or greedy itself) and the
+    sharded serve at each M fed the same tokens, each row's logits held
+    to ``gate``. Returns (the unsharded logits, its greedy tokens, {m:
+    error}, decode ms by M, prefill ms by M, failures)."""
+    kw = dict(steps=TPE_STEPS, max_len=TPE_MAX_LEN[arch], context=ctx)
+    ref, greedy, ms1, pre1, _, _ = _tps_serve(torch, cfg, params, tokens,
+                                              feed, 1, dev, **kw)
+    feed = greedy[:-1] if feed is None else feed
+    failures, errs = [], {}
+    step_ms, prefill_ms = {1: float(np.mean(ms1))}, {1: pre1}
+    dtype = params["embed"].dtype
+    for m in TPE_MODELS:
+        got, tg, ms, pre, counts, devs = _tps_serve(
+            torch, cfg, params, tokens, feed, m, dev, **kw)
+        errs[m] = _tps_compare(torch, ref, got)
+        agree = sum(int((x == y).sum()) for x, y in zip(tg, greedy))
+        total = sum(int(y.numel()) for y in greedy)
+        ok = _tps_counts_ok(cfg, m, counts, dtype, TPE_ROWS,
+                            TPE_PROMPT[arch])
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        step_ms[m], prefill_ms[m] = float(np.mean(ms)), pre
+        per = counts[1] if len(counts) > 1 else ("", {}, {})
+        log(f"phase 28c {cfg.name} x{cfg.n_layers} {label} at full width, "
+            f"1x{m}: prefill {TPE_ROWS} x {TPE_PROMPT[arch]} tokens into "
+            f"{TPE_MAX_LEN[arch]} positions"
+            + (f" on a {ctx.shape[1]}-row context" if ctx is not None
+               else "")
+            + f", {TPE_STEPS} decode steps teacher-forced on the unsharded "
+            f"run's greedy tokens: logits max row |TP - unsharded| / max "
+            f"|unsharded| {errs[m]:.3e} (rtol {gate:.5g}); greedy tokens "
+            f"agree {agree} of {total}; finite {finite}; model-axis counters "
+            f"== tp_serving_collectives: {ok} (a decode step: {per[1]} "
+            f"calls, {per[2]} bytes); devices {sorted(devs)}")
+        if not (errs[m] <= gate and ok and finite and devs == {"cuda"}):
+            failures.append(f"28c {cfg.name} {label} serving at 1x{m}")
+        del got
+    log(f"phase 28c {cfg.name} {label}: mean decode step ms ({TPE_ROWS} "
+        f"rows, {TPE_MAX_LEN[arch]}-position cache, host wall, "
+        f"synchronised) "
+        + ", ".join(f"M {m} {v:.3f}" for m, v in step_ms.items())
+        + "; prefill ms "
+        + ", ".join(f"M {m} {v:.1f}" for m, v in prefill_ms.items()))
+    return ref, greedy, errs, step_ms, prefill_ms, failures
+
+
+def _reversed_order(torch, params, cfg):
+    """rwkv6's parameters with the heads and the channel mix's d_ff
+    reversed: the same function, whose time-mix ``w_out`` and
+    channel-mix ``w_v`` products sum in another order."""
+    from repro_torch import tree as tree_mod
+
+    h, n = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    dev = params["embed"].device
+    heads = torch.arange(h * n, device=dev).view(h, n).flip(0).reshape(-1)
+    flat = dict(tree_mod.flatten_with_paths(params))
+    for k, v in flat.items():
+        name = k.rsplit("/", 1)[-1]
+        if "/time_mix/" in k and name in ("w_r", "w_k", "w_v", "w_decay",
+                                          "w_g"):
+            flat[k] = v[..., heads].contiguous()
+        elif "/time_mix/" in k and name in ("decay_bias", "bonus_u"):
+            flat[k] = v.flip(-2).contiguous()
+        elif "/time_mix/" in k and name == "w_out":
+            flat[k] = v[..., heads, :].contiguous()
+        elif "/channel_mix/" in k and name in ("w_k", "w_v"):
+            flat[k] = v.flip(-1 if name == "w_k" else -2).contiguous()
+    return tree_mod.from_flat(flat)
+
+
+def tpe_serve(torch, np, arch, layers=None, dev="cuda"):
+    """28c for one arch at full width, ``layers`` deep (None: full depth):
+    ``make_prefill_fn`` / ``make_decode_fn`` on 1x2 and 1x4 against the
+    unsharded steps in bf16 (rwkv6 first in f32, each dtype at its
+    ``TPE_RWKV_GATES``, with its witness read, and its unsharded bf16
+    serve's distance from the f32 one), then 28d's reading of each run
+    at 2 shards.
+    Returns (failures, bf16 decode ms by M, bf16 prefill ms by M, peak
+    bytes, [(what, reading, gate)])."""
+    from repro_torch import configs, tree as tree_mod
+    from repro_torch.models import transformer
+
+    cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = _tpe_cfg(arch, layers)
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    rwkv = arch == "rwkv6-3b"
+    if rwkv:
+        f32_gate, bf16_gate = TPE_RWKV_GATES[cfg.n_layers]
+        passes = (("f32", torch.float32, f32_gate),
+                  ("bf16", torch.bfloat16, bf16_gate))
+    else:
+        passes = (("bf16", torch.bfloat16, TPS_BF16_ROW_RTOL),)
+    params = transformer.init_params(cfg, seed=28, dtype=passes[0][1],
+                                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    tokens = torch.randint(0, cfg.vocab_size, (TPE_ROWS, TPE_PROMPT[arch]),
+                           generator=gen, device=dev)
+    ctx = _tpe_context(torch, cfg, TPE_ROWS, torch.float32, dev)
+    kw = dict(steps=TPE_STEPS, max_len=TPE_MAX_LEN[arch])
+    failures, faults, feed, ref32 = [], [], None, None
+    for label, dtype, gate in passes:
+        if params["embed"].dtype != dtype:
+            params = tree_mod.tree_map(lambda v: v.to(dtype), params)
+            torch.cuda.empty_cache()
+        c = None if ctx is None else ctx.to(dtype)
+        ref, greedy, _, step_ms, prefill_ms, more = _tpe_serve_runs(
+            torch, np, arch, cfg, params, tokens, c, feed, gate, label, dev)
+        failures += more
+        feed = greedy[:-1] if feed is None else feed
+        if ref32 is not None:
+            log(f"phase 28c {cfg.name} x{cfg.n_layers}: the unsharded bf16 "
+                f"serve sits {_tps_compare(torch, ref32, ref):.3e} from the "
+                f"f32 one; bf16 gate {gate:.5g}")
+        if rwkv:
+            wit = _tps_compare(torch, ref, _tps_serve(
+                torch, cfg, _reversed_order(torch, params, cfg), tokens,
+                feed, 1, dev, **kw)[0])
+            log(f"phase 28c {cfg.name} x{cfg.n_layers} {label} witness: the "
+                f"unsharded serve with heads and d_ff reversed (the same "
+                f"function, another summation order) reads {wit:.3e} "
+                f"(must be within the rtol {gate:.5g})")
+            if not wit <= gate:
+                failures.append(f"28c {cfg.name} x{cfg.n_layers} {label}: "
+                                f"the witness exceeds its gate")
+        with _tpe_fault(arch):
+            bad = _tps_serve(torch, cfg, params, tokens, feed, 2, dev,
+                             context=c, **kw)[0]
+        faults.append((f"{arch} x{cfg.n_layers} {label}",
+                       _tps_compare(torch, ref, bad), gate))
+        ref32 = ref
+        del bad
+    del params, ref, ref32
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    log(f"phase 28c {cfg.name} x{cfg.n_layers}: {time.monotonic() - t0:.1f} "
+        f"s, peak {peak / 1e9:.3f} GB")
+    return failures, step_ms, prefill_ms, peak, faults
+
+
+def tp_encoder_families_phase(torch, np, card, dev="cuda"):
+    """Phase 28 (see the module docstring). Returns (the gather-pack
+    launches of 28b, timing extras for the kernels line)."""
+    t_phase = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    failures, faults = [], []
+    for arch in TPE_ARCHS:                                     # 28a
+        more, _, fault = tpe_grads_f32(torch, arch, dev)
+        failures += more
+        faults.append(fault)
+    peak_a = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _tpe_cfg("whisper-large-v3", WHISPER_LM_LAYERS,      # 28b
+                   WHISPER_LM_ENC_LAYERS)
+    launches, extra, more = tp_train_cell(torch, np, card, cfg,
+                                          TPE_TRAIN_STEPS, "phase 28b", dev,
+                                          seq_len=WHISPER_LM_SEQ)
+    failures += more
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_ms, prefill_ms, peak_c = {}, {}, {}
+    for arch in TPE_ARCHS:                                     # 28c
+        cuts = (4, None) if arch == "rwkv6-3b" else (None,)
+        for layers in cuts:            # the full depth's readings are kept
+            more, decode_ms[arch], prefill_ms[arch], peak_c[arch], more_f = \
+                tpe_serve(torch, np, arch, layers, dev)
+            failures += more
+            faults += more_f
+            gc.collect()
+    for what, got, gate in faults:                             # 28d
+        log(f"phase 28d fault control, {what} at 2 shards with the last "
+            f"shard's {TPE_FAULT_TEXT[what.split()[0]]}: {got:.3e} (must "
+            f"exceed the rtol {gate:.5g})")
+        if not got > gate:
+            failures.append(f"28d: the {what} gate does not see the fault")
+    secs = time.monotonic() - t_phase
+    log(f"phase 28 on {card}: {secs:.1f} s; peak memory 28a "
+        f"{peak_a / 1e9:.3f} GB, 28c "
+        + ", ".join(f"{a} {v / 1e9:.3f} GB" for a, v in peak_c.items())
+        + "; decode step ms "
+        + "; ".join(f"{a}: " + ", ".join(f"M {m} {v:.3f}"
+                                         for m, v in d.items())
+                    for a, d in decode_ms.items()))
+    if failures:
+        raise AssertionError(f"phase 28 failed: {failures}")
+    return launches, dict(extra, seconds=secs, decode_ms=decode_ms,
+                          prefill_ms=prefill_ms)
+
+
 # ---- slice 14: the serving steps over the model axis (phase 26) -----------
 
 # phase 26's serving shape: 4 equal rows whose prompts pass the local
@@ -3520,16 +3928,20 @@ TPS_F32_LAYERS, TPS_F32_STEPS = 2, 4
 
 
 def _tps_serve(torch, cfg, params, tokens, feed, m, dev, *, steps,
-               max_len=TPS_MAX_LEN):
+               max_len=TPS_MAX_LEN, context=None):
     """Prefill ``tokens`` (rows x prompt) into a ``max_len``-position cache
     then ``steps`` decode steps fed ``feed`` (the unsharded run's greedy
     tokens; None: greedy itself), through ``make_prefill_fn`` /
-    ``make_decode_fn`` on a ``1xM`` mesh (``1``: no model axis). Returns
-    (per-step whole logits in f32, the greedy tokens, decode step ms,
-    prefill ms, the model axes' counters per step, the cache's and
-    parameters' devices)."""
+    ``make_decode_fn`` on a ``1xM`` mesh (``1``: no model axis);
+    ``context``: the audio / vlm families' raw context, which prefill
+    encodes and decode takes encoded over the same axis
+    (``transformer.encode_context``, between the steps, not timed).
+    Returns (per-step whole logits in f32, the greedy tokens, decode
+    step ms, prefill ms, the model axes' counters per step, the cache's
+    and parameters' devices)."""
     from repro_torch import tree as tree_mod
     from repro_torch.convert import shard_cache, shard_params, unshard_cache
+    from repro_torch.core.model_axis import StackModelAxis
     from repro_torch.launch.mesh import parse_mesh
     from repro_torch.models import transformer
     from repro_torch.train import steps as steps_mod
@@ -3548,9 +3960,15 @@ def _tps_serve(torch, cfg, params, tokens, feed, m, dev, *, steps,
     counts = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = pf(p, tokens, cache)
+    logits, cache = pf(p, tokens, cache, context)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    enc = None
+    if context is not None:
+        with torch.no_grad():
+            enc = transformer.encode_context(
+                p, cfg, context,
+                model_axis=StackModelAxis(m, dev) if m > 1 else None)
     if m > 1:
         counts.append(("prefill", dict(pf.model_axis.calls),
                        dict(pf.model_axis.bytes)))
@@ -3567,7 +3985,7 @@ def _tps_serve(torch, cfg, params, tokens, feed, m, dev, *, steps,
             df.model_axis.reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = df(p, nxt, cache)
+        logits, cache = df(p, nxt, cache, enc)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if m > 1:
@@ -3575,7 +3993,7 @@ def _tps_serve(torch, cfg, params, tokens, feed, m, dev, *, steps,
                            dict(df.model_axis.bytes)))
         outs.append(whole(logits).float())
         greedy.append(outs[-1].argmax(-1))
-    del p, cache
+    del p, cache, enc
     return outs, greedy, step_ms, prefill_ms, counts, devices
 
 
@@ -3617,6 +4035,8 @@ def _tps_compare(torch, ref, got):
 
 
 def _tps_counts_ok(cfg, m, counts, dtype, rows=TPS_ROWS, prompt=TPS_PROMPT):
+    """Each step's model-axis counters against ``tp_serving_collectives``
+    (the audio / vlm families on their configs' context rows)."""
     from repro_torch.core.model_axis import tp_serving_collectives
 
     for kind, calls, nbytes in counts:
@@ -3871,10 +4291,14 @@ def tp_phase(torch, np, card, dev="cuda"):
     return launches, extra
 
 
-def tp_train_cell(torch, np, card, cfg, steps, phase, dev="cuda"):
+def tp_train_cell(torch, np, card, cfg, steps, phase, dev="cuda",
+                  seq_len=LM_SEQ):
     """``cfg`` (full width, its depth cut) on LM_NODES x TP_MODEL through
     ``launch.train.train(model_axis=StackModelAxis(TP_MODEL))`` for
-    ``steps`` steps, phase 10's wire (the cell of phase 25, and of 27b):
+    ``steps`` steps of ``seq_len`` tokens, phase 10's wire (the cell of
+    phase 25, of 27b and of 28b; the audio / vlm families train on the
+    launcher's stub context and take their gradients timed here on a
+    seeded one):
     the buckets, the wire and the model-axis counters against their
     accounting, step 1's loss against the unsharded cell's
     (``LM_CELLS[cfg.name]``), both nodes' bf16 gradients over the shards
@@ -3948,7 +4372,7 @@ def tp_train_cell(torch, np, card, cfg, steps, phase, dev="cuda"):
 
     fixedk_gather_pack.launches = 0
     run = train(tc, transport, steps=steps, global_batch=n * LM_BATCH,
-                seq_len=LM_SEQ, seed=0, state=state, on_step=on_step,
+                seq_len=seq_len, seed=0, state=state, on_step=on_step,
                 model_axis=axis)
     launches = fixedk_gather_pack.launches
     peak = torch.cuda.max_memory_allocated()
@@ -3959,7 +4383,7 @@ def tp_train_cell(torch, np, card, cfg, steps, phase, dev="cuda"):
     with steps_mod.bucket_ctx(tc, m):
         want_bytes = wire_count.expected_bytes_sent(meth, template, mcfg,
                                                     seq, steps)
-    formula = tp_collectives(cfg, m, LM_BATCH, LM_SEQ, tc.param_dtype)
+    formula = tp_collectives(cfg, m, LM_BATCH, seq_len, tc.param_dtype)
     want_calls = {op: n * v["calls"] for op, v in formula.items()}
     want_b = {op: n * v["bytes"] for op, v in formula.items()}
     axis_ok = all(c == want_calls and b == want_b for c, b in per_step)
@@ -3969,7 +4393,7 @@ def tp_train_cell(torch, np, card, cfg, steps, phase, dev="cuda"):
     tok_s = run.tokens_per_step / (ms[1:].mean() / 1e3)
     log(f"{phase} train {cfg.name} x{cfg.n_layers} layers bf16 on {n}x{m}, "
         f"sdm-dsgd {seq.name} fixedk:128 sigma 1.0 clip_c 1e-4, seq "
-        f"{LM_SEQ}, batch {LM_BATCH}/node, {steps} steps on {card}: step "
+        f"{seq_len}, batch {LM_BATCH}/node, {steps} steps on {card}: step "
         f"ms mean {ms.mean():.3f} p50 {np.percentile(ms, 50):.3f} (first "
         f"{ms[0]:.3f}; steps 2.. mean {ms[1:].mean():.3f}; unsharded "
         f"{ref.get('step_ms', float('nan')):.3f}); {tok_s:.1f} "
@@ -4006,8 +4430,15 @@ def tp_train_cell(torch, np, card, cfg, steps, phase, dev="cuda"):
     st = run.state
     tok = steps_mod.node_batch(torch.as_tensor(
         TokenStream(vocab_size=cfg.vocab_size, batch=n * LM_BATCH,
-                    seq_len=LM_SEQ, seed=0).batch_at(0)[0], device=dev),
+                    seq_len=seq_len, seed=0).batch_at(0)[0], device=dev),
         transport)
+    # the gradients on a seeded context of distinct rows: under the stub
+    # context's equal rows every key of a context is the same, so the
+    # encoder's and the cross-attention's query and key gradients vanish
+    # in exact arithmetic and read as rounding noise
+    ctx = _tpe_context(torch, cfg, n * LM_BATCH, torch.bfloat16, dev)
+    if ctx is not None:
+        ctx = steps_mod.node_batch(ctx, transport)
     shards = f"{m} shards"
     grad_ms = {"unsharded": [], shards: []}
     kept = {}
@@ -4016,7 +4447,7 @@ def tp_train_cell(torch, np, card, cfg, steps, phase, dev="cuda"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             g, _ = steps_mod.node_grads(
-                cfg, st.x, tok, tok,
+                cfg, st.x, tok, tok, ctx,
                 model_axis=axis if label == shards else None)
             torch.cuda.synchronize()
             grad_ms[label].append((time.perf_counter() - t0) * 1e3)
@@ -4609,6 +5040,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     n, timing["fixedk_gather_pack"]["phase27"] = tp_families_phase(
+        torch, np, card)
+    launches["fixedk_gather_pack"] += n
+
+    # ---- 28. the rwkv mixers, the encoder and cross-attention over the
+    # model axis ----------------------------------------------------------
+    log(f"-- phase 28 at {time.monotonic() - T_MAIN:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, timing["fixedk_gather_pack"]["phase28"] = tp_encoder_families_phase(
         torch, np, card)
     launches["fixedk_gather_pack"] += n
 

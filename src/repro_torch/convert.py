@@ -34,8 +34,10 @@ hd). A dimension the rules leave whole (the divisibility fallback)
 keeps the cache whole. A mamba slot's state splits by channel (``mlp``)
 in either layout: shard i holds channels [i di/M, (i+1) di/M) of the
 conv state (layers, M, b, d_conv - 1, di/M) and of the ssm state
-(layers, M, b, di/M, d_state). The batch stays whole: the port holds
-every node's rows on one device.
+(layers, M, b, di/M, d_state). An rwkv slot's WKV state splits by
+``heads``, (layers, M, b, h/M, N, N), and its two token-shift states
+stay whole. The batch stays whole: the port holds every node's rows on
+one device.
 """
 from __future__ import annotations
 
@@ -172,12 +174,12 @@ def shard_cache(cache: Cache, cfg: ModelConfig, rules,
     whole leaf is kept as it is). With ``index``, shard ``index`` alone,
     (layers, 1, ...) (node 0's block under ``shard_cache_seq``): one
     device's cache."""
-    check_tensor_parallel(cfg)          # attention and mamba slots only
     m = rules.sizes.get("model", 1)
+    check_tensor_parallel(cfg, m)
     axes = cache_logical_axes(cfg).slots
     slots = {}
     for slot, kv in cache.slots.items():
-        if not isinstance(kv, KVCache):             # a mamba state
+        if not isinstance(kv, KVCache):             # a recurrent state
 
             def split_state(t, ax):
                 k = rules.split_dim(ax, t.shape)
@@ -216,18 +218,20 @@ def shard_cache(cache: Cache, cfg: ModelConfig, rules,
 def unshard_cache(cache: Cache, cfg: ModelConfig, rules) -> Cache:
     """The model-axis layout of a cache under ``rules`` -> whole leaves
     (copies)."""
-    check_tensor_parallel(cfg)
     m = rules.sizes.get("model", 1)
+    check_tensor_parallel(cfg, m)
     axes = cache_logical_axes(cfg).slots
     slots = {}
     for slot, kv in cache.slots.items():
-        if not isinstance(kv, KVCache):             # a mamba state
+        if not isinstance(kv, KVCache):             # a recurrent state
 
             def join_state(t, ax):
                 if t.dim() == len(ax):              # whole
                     return t
-                whole = torch.cat(t.unbind(1), dim=ax.index("mlp"))
-                if rules.split_dim(ax, whole.shape) != ax.index("mlp"):
+                k = next(i for i, a in enumerate(ax)
+                         if rules.mapping.get(a) == "model")
+                whole = torch.cat(t.unbind(1), dim=k)
+                if rules.split_dim(ax, whole.shape) != k:
                     raise ValueError(f"a state split over 'model' that "
                                      f"the rules leave whole: {ax}")
                 return whole

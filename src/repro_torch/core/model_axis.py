@@ -214,13 +214,19 @@ class ShardModelAxis(_AxisBase):
 
 def _slot_splits(cfg, m: int):
     """Per layer slot of the period, {sublayer/leaf: split over the model
-    axis}; and whether the embedding is split."""
+    axis}; whether the embedding is split; the same map of an encoder
+    layer ({} without an encoder)."""
     from repro_torch.train.steps import param_shard_dims
 
     dims = param_shard_dims(cfg, m)
-    return [{k[len(f"blocks/{si}/"):]: dims[k] is not None for k in dims
-             if k.startswith(f"blocks/{si}/")}
-            for si in range(len(cfg.period))], dims["embed"] is not None
+
+    def under(prefix):
+        return {k[len(prefix):]: dims[k] is not None for k in dims
+                if k.startswith(prefix)}
+
+    return ([under(f"blocks/{si}/") for si in range(len(cfg.period))],
+            dims["embed"] is not None, under("encoder/layers/"))
+
 
 
 def _elt(dtype: torch.dtype) -> int:
@@ -242,38 +248,69 @@ def tp_collectives(cfg, m: int, batch: int, seq: int,
     *g*. Per mamba layer with a split ``w_in``: the input's *f*, the
     blocks of its product all-gathered (reduce-scattered backward); with
     split channels also the ``w_x_dbc`` partials' all-reduce and its *f*
-    (backward), the output's *g*. A vocab-split embedding's *g*, the
-    logits' *f* and the loss's max, sum of exponentials and label logit
-    (f32).
+    (backward), the output's *g*. Per rwkv time mix with split heads: the
+    normed input's *f* (backward) and ``w_out``'s *g*. Per rwkv channel
+    mix with a split weight: the input's *f* (backward); with a split
+    ``w_k`` the ``w_v`` partials' *g*; with a split ``w_r`` its product
+    all-gathered (reduce-scattered backward). Per cross-attention layer
+    with split query heads (``transformer.context_len(cfg)`` context rows
+    a sample): the queries' *f* (backward) and
+    the output's *g*; with a split ``wk`` the context's *f* (backward,
+    only where the context has a gradient: whisper's encoder output)
+    and, where M does not divide the KV heads, K and V all-gathered
+    (reduce-scattered backward); with ``wk`` whole, K's and V's *f*
+    (backward). Per encoder
+    layer, over the context's rows and not recomputed: its attention as
+    a non-causal self-attention layer and its MLP. A vocab-split
+    embedding's *g*, the logits' *f* and the loss's max, sum of
+    exponentials and label logit (f32).
     ``cfg.remat`` recomputes each period's forward collectives in the
     backward, up to the last tensor the backward saved (a period's last
     *g* runs again only under a post-norm)."""
     from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import context_len
 
     out = {op: {"calls": 0, "bytes": 0} for op in OPS}
     if m <= 1:
         return out
-    slots, embed = _slot_splits(cfg, m)
+    slots, embed, enc = _slot_splits(cfg, m)
     elt = _elt(dtype)
     tokens = batch * seq
+    ctx_tokens = batch * context_len(cfg)
     act = m * tokens * cfg.d_model * elt             # an (M, b, s, d) stack
     row = m * tokens * 4                             # an (M, b, s) f32 stack
+    kv_row = cfg.n_kv_heads * cfg.resolved_head_dim * elt
 
-    def add(op, nbytes, calls=1):
-        out[op]["calls"] += calls * cfg.n_periods
-        out[op]["bytes"] += calls * cfg.n_periods * nbytes
+    def add(op, nbytes, calls=1, layers=cfg.n_periods):
+        out[op]["calls"] += calls * layers
+        out[op]["bytes"] += calls * layers * nbytes
 
+    def attention(wk_split, act, kvc, fwd, layers=cfg.n_periods):
+        add("all_reduce", act, 1, layers)            # f backward
+        add("all_reduce", act, fwd, layers)          # g forward
+        if wk_split and cfg.n_kv_heads % m:
+            add("all_gather", kvc, 2 * fwd, layers)
+            add("reduce_scatter", m * kvc, 2, layers)
+        elif not wk_split:
+            add("all_reduce", m * kvc, 2, layers)    # f backward, K and V
+
+    if enc.get("attn/wq") and ctx_tokens:
+        e_act = m * ctx_tokens * cfg.d_model * elt
+        attention(enc["attn/wk"], e_act, ctx_tokens * kv_row, 1,
+                  cfg.n_encoder_layers)
+        if enc.get("mlp/w_up"):                      # f backward, g forward
+            add("all_reduce", e_act, 2, cfg.n_encoder_layers)
     fwd = 2 if cfg.remat else 1
     for split in slots:
         if split.get("attn/wq"):
+            attention(split["attn/wk"], act, tokens * kv_row, fwd)
+        if split.get("time_mix/w_r"):
             add("all_reduce", act)                   # f backward
             add("all_reduce", act, fwd)              # g forward
-            kvc = cfg.n_kv_heads * cfg.resolved_head_dim * elt * tokens
-            if split["attn/wk"] and cfg.n_kv_heads % m:
-                add("all_gather", kvc, 2 * fwd)
-                add("reduce_scatter", m * kvc, 2)
-            elif not split["attn/wk"]:
-                add("all_reduce", m * kvc, 2)        # f backward, K and V
+        if split.get("cross/wq") and ctx_tokens:
+            attention(split["cross/wk"], act, ctx_tokens * kv_row, fwd)
+            if split["cross/wk"] and cfg.has_encoder:  # the context's f
+                add("all_reduce", m * ctx_tokens * cfg.d_model * elt)
         if split.get("mamba/w_in"):
             xz = tokens * 2 * cfg.mamba_d_inner * elt
             add("all_reduce", act)                   # f backward
@@ -287,6 +324,14 @@ def tp_collectives(cfg, m: int, batch: int, seq: int,
             add("all_reduce", act, fwd)              # g forward
         if split.get("mlp/w_up"):
             add("all_reduce", act, 1 + fwd)          # f backward, g forward
+        if split.get("channel_mix/w_k") or split.get("channel_mix/w_r"):
+            add("all_reduce", act)                   # f backward
+        if split.get("channel_mix/w_k"):
+            add("all_reduce", act, fwd)              # g forward
+        if split.get("channel_mix/w_r"):
+            rd = tokens * cfg.d_model * elt
+            add("all_gather", rd, fwd)               # each shard's block
+            add("reduce_scatter", m * rd)
         if split.get("moe/w_up"):
             gates = m * cfg.n_experts * capacity(cfg, tokens) * 4
             add("all_reduce", act)                   # the rows' f backward
@@ -327,25 +372,55 @@ def tp_serving_collectives(cfg, m: int, batch: int, seq: int, kind: str,
     experts: the all-reduce. Per mamba layer with a split ``w_in``: the
     all-gather of its product's blocks; with split channels (the state
     split by channel in either layout) also the ``w_x_dbc`` partials'
-    and the output's all-reduces.
-    A vocab-split embedding's all-reduce. No gradient: *f* counts
-    nothing."""
+    and the output's all-reduces. Per rwkv time mix with split heads:
+    ``w_out``'s all-reduce; per channel mix the ``w_v`` partials' all-
+    reduce (split ``w_k``) and ``w_r``'s product all-gathered (split
+    ``w_r``). Per cross-attention layer (``transformer.context_len(cfg)``
+    context rows a sample; decode recomputes its K / V every step, as
+    JAX does): the output's
+    all-reduce, and K and V
+    all-gathered where ``wk`` is split and M does not divide the KV
+    heads. Prefill also runs the encoder over the context's rows: per
+    layer its attention's and its MLP's all-reduce, with the same K / V
+    all-gathers (decode takes the context encoded). A vocab-split
+    embedding's all-reduce. No gradient: *f* counts nothing."""
+    from repro_torch.models.transformer import context_len
+
     out = {op: {"calls": 0, "bytes": 0} for op in OPS}
     if m <= 1:
         return out
     if kind not in ("prefill", "decode"):
         raise ValueError(f"kind {kind!r}: expected 'prefill' or 'decode'")
-    slots, embed = _slot_splits(cfg, m)
+    slots, embed, enc = _slot_splits(cfg, m)
     elt = _elt(dtype)
     hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     tokens = batch * seq
+    ctx_tokens = batch * context_len(cfg)
     act = m * tokens * cfg.d_model * elt            # an (M, b, s, d) stack
 
-    def add(op, nbytes, calls=1):
-        out[op]["calls"] += calls * cfg.n_periods
-        out[op]["bytes"] += calls * cfg.n_periods * nbytes
+    def add(op, nbytes, calls=1, layers=cfg.n_periods):
+        out[op]["calls"] += calls * layers
+        out[op]["bytes"] += calls * layers * nbytes
 
+    def unmasked(wk_split, act, rows, layers=cfg.n_periods):
+        add("all_reduce", act, 1, layers)            # g of wo
+        if wk_split and kvh % m:
+            add("all_gather", rows * kvh * hd * elt, 2, layers)
+
+    if kind == "prefill" and enc.get("attn/wq") and ctx_tokens:
+        e_act = m * ctx_tokens * cfg.d_model * elt
+        unmasked(enc["attn/wk"], e_act, ctx_tokens, cfg.n_encoder_layers)
+        if enc.get("mlp/w_up"):
+            add("all_reduce", e_act, 1, cfg.n_encoder_layers)
     for split in slots:
+        if split.get("cross/wq") and ctx_tokens:
+            unmasked(split["cross/wk"], act, ctx_tokens)
+        if split.get("time_mix/w_r"):
+            add("all_reduce", act)
+        if split.get("channel_mix/w_k"):
+            add("all_reduce", act)
+        if split.get("channel_mix/w_r"):
+            add("all_gather", tokens * cfg.d_model * elt)
         if split.get("attn/wq"):
             add("all_reduce", act)                   # g of wo
             kv_gather = split["attn/wk"] and (kind == "decode" or kvh % m)

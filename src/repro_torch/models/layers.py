@@ -264,33 +264,35 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
 
     ``model_axis`` (``core/model_axis``) with ``params`` in the
     model-axis layout (``convert.shard_params``): the tensor-parallel
-    causal self-attention, without a cache (a training forward) or with
-    one at ``cache_offset`` (the serving steps), the cache in its
-    model-axis layout (``convert.shard_cache``): split by KV heads, by
-    positions (``cache_nodes`` node blocks a shard under
+    attention. Without a cache: causal self-attention (a training
+    forward), the encoder's (``causal=False, use_rope=False``) or
+    cross-attention (``kv_source``, replicated: K / V from each shard's
+    block of ``wk`` / ``wv`` applied to it). With a cache at
+    ``cache_offset`` (the serving steps' self-attention), the cache in
+    its model-axis layout (``convert.shard_cache``): split by KV heads,
+    by positions (``cache_nodes`` node blocks a shard under
     ``shard_cache_seq``) or whole. A block whose ``wq`` the divisibility
     fallback left whole runs as without the axis (with a whole cache).
+    Ragged offsets, and a model-axis cache beside a whole ``wq``, raise
+    (ROADMAP Queue 1: ragged offsets under a model axis).
     """
     if model_axis is not None and (_split(params["wq"], 2)
                                    or (cache is not None
                                        and cache.k.dim() == 5)):
-        if kv_source is not None or not causal or not use_rope:
-            raise NotImplementedError(
-                "tensor-parallel attention runs causal self-attention "
-                "only; cross-attention and the encoder are not ported "
-                "(ROADMAP Queue 1, item 5)")
-        if cache is None:
+        if cache is None or kv_source is not None:
             return _attention_tp(params, cfg, x, positions=positions,
-                                 layer_kind=layer_kind, axis=model_axis), None
+                                 layer_kind=layer_kind, axis=model_axis,
+                                 kv_source=kv_source, causal=causal,
+                                 use_rope=use_rope), None
         if cache_offsets is not None:
             raise NotImplementedError(
                 "ragged offsets over a model axis are not ported (ROADMAP "
-                "Queue 1, item 5): the serving steps share the scalar "
-                "offset")
+                "Queue 1, ragged offsets under a model axis): the serving "
+                "steps share the scalar offset")
         if not _split(params["wq"], 2):
             raise NotImplementedError(
                 "a model-axis cache beside a whole wq is not ported "
-                "(ROADMAP Queue 1, item 5)")
+                "(ROADMAP Queue 1, the split inside a head)")
         return _attention_tp_cached(
             params, cfg, x, positions=positions, layer_kind=layer_kind,
             cache=cache, offset=int(cache_offset), axis=model_axis,
@@ -468,21 +470,23 @@ def _kv_of_own_heads(t: torch.Tensor, cfg: ModelConfig,
     return torch.gather(t, 3, idx).reshape(tuple(t.shape[:3]) + (hq * hd,))
 
 
-def _tp_project(params, cfg: ModelConfig, x: torch.Tensor, axis):
+def _tp_project(params, cfg: ModelConfig, x: torch.Tensor, axis,
+                kv_source: Optional[torch.Tensor] = None):
     """The shards' shared pre-attention stage: the norm, *f*, each
     shard's query heads from its block of ``wq``, (L, b, s, hq hd); K / V
     from each shard's block of ``wk`` / ``wv``, (L, b, s, c), where they
     are split (``kv`` "own": the block is exactly its query heads' KV
     heads, ``n_kv_heads % M == 0``; "gather": columns that cut a head),
     or once from the replicated norm, (b, s, kvh hd), where the
-    divisibility fallback left them whole ("whole"). Returns (residual,
-    q, k, v, kv)."""
+    divisibility fallback left them whole ("whole"). Cross-attention
+    takes K / V from the replicated ``kv_source`` instead (through its
+    own *f* where ``wk`` is split). Returns (residual, q, k, v, kv)."""
     m = axis.size
     if cfg.n_heads % m:
         raise NotImplementedError(
             f"{cfg.n_heads} query heads do not split whole over a model "
-            f"axis of {m} (JAX's GSPMD splits inside a head): not ported "
-            "(ROADMAP Queue 1, item 5)")
+            f"axis of {m} (JAX's GSPMD splits inside a head): the split "
+            "inside a head, not ported (ROADMAP Queue 1)")
     residual = x
     h = rms_norm(x, params["norm"], cfg.norm_eps,
                  plus_one=cfg.post_block_norm)
@@ -491,14 +495,16 @@ def _tp_project(params, cfg: ModelConfig, x: torch.Tensor, axis):
     if "bq" in params:
         q = q + params["bq"][:, None, None]
     wk, wv = params["wk"], params["wv"]
+    src = h if kv_source is None else kv_source
     if _split(wk, 2):
-        k, v = _bmm(hs, wk), _bmm(hs, wv)
+        srcs = hs if kv_source is None else axis.copy_in(kv_source)
+        k, v = _bmm(srcs, wk), _bmm(srcs, wv)
         if "bk" in params:
             k = k + params["bk"][:, None, None]
             v = v + params["bv"][:, None, None]
         kv = "gather" if cfg.n_kv_heads % m else "own"
     else:
-        k, v = matmul(h, wk), matmul(h, wv)
+        k, v = matmul(src, wk), matmul(src, wv)
         if "bk" in params:
             k, v = k + params["bk"], v + params["bv"]
         kv = "whole"
@@ -525,7 +531,9 @@ def _rope_heads(t: torch.Tensor, cfg: ModelConfig,
 
 
 def _attention_tp(params, cfg: ModelConfig, x: torch.Tensor, *,
-                  positions: torch.Tensor, layer_kind: str, axis):
+                  positions: torch.Tensor, layer_kind: str, axis,
+                  kv_source: Optional[torch.Tensor] = None,
+                  causal: bool = True, use_rope: bool = True):
     """Megatron's attention: the input copied into the shards, each
     shard's query heads from its block of ``wq`` (heads split whole,
     GQA groups kept), its output through its rows of ``wo``, the partial
@@ -534,9 +542,11 @@ def _attention_tp(params, cfg: ModelConfig, x: torch.Tensor, *,
     its query heads' KV heads (``n_kv_heads % M == 0``); otherwise every
     shard gathers the whole K / V (split ``wk``: all-gathered from the
     blocks; ``wk`` left whole: computed once, copied in) and takes its
-    query heads' KV heads."""
+    query heads' KV heads. Cross-attention (``kv_source``, the
+    replicated context) and the encoder (``causal=False,
+    use_rope=False``) rotate nothing; cross-attention masks nothing."""
     n = axis.local
-    residual, q, k, v, kv = _tp_project(params, cfg, x, axis)
+    residual, q, k, v, kv = _tp_project(params, cfg, x, axis, kv_source)
     if kv == "gather":
         k = _kv_of_own_heads(axis.all_gather(k), cfg, axis)
         v = _kv_of_own_heads(axis.all_gather(v), cfg, axis)
@@ -544,12 +554,23 @@ def _attention_tp(params, cfg: ModelConfig, x: torch.Tensor, *,
         k = _kv_of_own_heads(axis.copy_in(k), cfg, axis)
         v = _kv_of_own_heads(axis.copy_in(v), cfg, axis)
     b, s = x.shape[:2]
+    skv = k.shape[2]
     pos = positions.repeat(n, 1)                     # the shards fold into b
-    q, k = (_rope_heads(t.reshape(n * b, s, -1), cfg, pos) for t in (q, k))
-    v = v.reshape(q.shape[:2] + (-1, cfg.resolved_head_dim))
-    window = cfg.sliding_window if layer_kind == "attn_local" else None
+    if use_rope and kv_source is None:
+        q, k = (_rope_heads(t.reshape(n * b, -1, t.shape[-1]), cfg, pos)
+                for t in (q, k))
+    else:
+        q, k = (t.reshape((n * b, t.shape[2], -1, cfg.resolved_head_dim))
+                for t in (q, k))
+    v = v.reshape(k.shape)
+    kv_pos = pos
+    if kv_source is not None:
+        kv_pos = torch.arange(skv, device=x.device).expand(n * b, skv)
+        causal = False
+    window = cfg.sliding_window if layer_kind == "attn_local" \
+        and kv_source is None else None
     out = _attend(q, k, v, chunk_q=cfg.attn_chunk_q, q_positions=pos,
-                  kv_positions=pos, causal=True, window=window,
+                  kv_positions=kv_pos, causal=causal, window=window,
                   softcap_val=cfg.attn_softcap, kv_valid_len=None)
     return _tp_out(params, cfg, out.reshape(n, b, s, -1), residual, axis)
 
@@ -592,7 +613,7 @@ def _attention_tp_cached(params, cfg: ModelConfig, x: torch.Tensor, *,
         if kv != "own":
             raise NotImplementedError(
                 "a cache split by KV heads needs wk split by whole heads "
-                "(ROADMAP Queue 1, item 5)")
+                "(ROADMAP Queue 1, the split inside a head)")
         new_k = _rope_heads(k.reshape(n * b, s, -1), cfg, pos)
         cache.k[:, :, offset:offset + s] = new_k.reshape(
             (n, b, s) + tuple(cache.k.shape[3:])).to(cache.k.dtype)

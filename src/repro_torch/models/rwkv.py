@@ -14,7 +14,24 @@ so the same numbers), leaving four launches a step. Decode carries
 (shift, state) with O(1) work a token.
 
 As in the JAX package: token shift is a plain lerp with learned mix
-vectors, and the output gate is SiLU.
+vectors, and the output gate is SiLU. A decode step is the full-sequence
+mix at s = 1 (the same operations).
+
+Over a model axis (``model_axis``, ``params`` in the model-axis layout of
+``convert.shard_params``) the mixers split as ``INNER_RULES`` splits
+them. Time mix: shard i holds heads [i h/M, (i+1) h/M), the columns of
+``w_r``, ``w_k``, ``w_v``, ``w_decay`` (``heads_flat``) and ``w_g``
+(``mlp``: with h n = d its block covers the same heads, so ``o * g`` is
+local), the rows of ``decay_bias`` / ``bonus_u`` (``heads``) and of
+``w_out`` (``mlp``), whose partial products end in *g*; the norm and
+the ``mix_*`` vectors are replicated. The normed input enters the shards
+through *f* and each shard forms the token shift and the lerps from it
+alike; the WKV loop runs over the shard's heads with a state of (L, b,
+h/M, N, N). Channel mix: ``w_k`` split by columns and ``w_v`` by rows
+(partials all-reduced), ``w_r`` (``embed``, ``mlp``) by columns, its
+product all-gathered before ``r * kv``, as GSPMD reshards it; a weight
+the divisibility fallback leaves whole multiplies one copy of the
+replicated lerp. The token-shift states stay whole.
 """
 from __future__ import annotations
 
@@ -24,11 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamSpec, rms_norm
+from repro_torch.models.layers import ParamSpec, _bmm, _split, rms_norm
 
 __all__ = ["RWKVState", "rwkv_time_mix_specs", "rwkv_channel_mix_specs",
-           "rwkv_time_mix", "rwkv_channel_mix", "init_rwkv_state",
-           "rwkv_time_mix_step", "rwkv_channel_mix_step"]
+           "rwkv_time_mix", "rwkv_channel_mix", "init_rwkv_state"]
 
 
 class RWKVState(NamedTuple):
@@ -73,37 +89,73 @@ def rwkv_channel_mix_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-                    device) -> RWKVState:
+                    device, model_axis=None) -> RWKVState:
+    """Zeros; over ``model_axis`` the WKV state split by heads, (L, b,
+    h/M, N, N)."""
     d, h, n = cfg.d_model, cfg.rwkv_n_heads, cfg.rwkv_head_size
+    wkv = (batch, h, n, n)
+    if model_axis is not None:
+        wkv = (model_axis.local, batch, _local_heads(cfg, model_axis), n, n)
     return RWKVState(
         att_shift=torch.zeros((batch, d), dtype=dtype, device=device),
         ffn_shift=torch.zeros((batch, d), dtype=dtype, device=device),
-        wkv=torch.zeros((batch, h, n, n), dtype=torch.float32, device=device))
+        wkv=torch.zeros(wkv, dtype=torch.float32, device=device))
+
+
+def _local_heads(cfg: ModelConfig, axis) -> int:
+    h, m = cfg.rwkv_n_heads, axis.size
+    if h % m:
+        raise NotImplementedError(
+            f"{h} rwkv heads do not split whole over a model axis of {m} "
+            "(JAX's GSPMD splits inside a head): the split inside a head, "
+            "not ported (ROADMAP Queue 1)")
+    return h // m
 
 
 def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
-    """Token shift: the x_{t-1} sequence (prev fills t=0). x: (b, s, d)."""
-    return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
+    """Token shift: the x_{t-1} sequence (prev fills t=0). x: (..., s, d),
+    prev (..., d)."""
+    return torch.cat([prev[..., None, :], x[..., :-1, :]], dim=-2)
 
 
 def _lerp(mix, a, b):
     return a + (b - a) * mix
 
 
-def _time_mix_projections(params, cfg: ModelConfig, x, x_prev):
-    b, s, _ = x.shape
-    h, n = cfg.rwkv_n_heads, cfg.rwkv_head_size
+def _tp(axis, w: torch.Tensor):
+    """``axis`` where ``w`` (a 2-D weight a layer) is split over it."""
+    return axis if axis is not None and _split(w, 2) else None
+
+
+def _stacked_input(h: torch.Tensor, prev: torch.Tensor, axis):
+    """(h, x_{t-1}) as the shards see them: the replicated normed input
+    through *f* and the token shift formed on every shard alike."""
+    if axis is None:
+        return h, _shift(h, prev)
+    hs = axis.copy_in(h)
+    return hs, _shift(hs, prev.expand((hs.shape[0],) + tuple(prev.shape)))
+
+
+def _time_mix_projections(params, cfg: ModelConfig, x, x_prev, axis=None):
+    """(r, k, v, g, w): r, k, v, w (..., s, heads, N) over the shard's
+    heads, g (..., s, d) (the shard's block over ``axis``)."""
+    n = cfg.rwkv_head_size
+    mm = torch.matmul if axis is None else _bmm
+    lead = tuple(x.shape[:-1])
     xr = _lerp(params["mix_r"], x, x_prev)
     xk = _lerp(params["mix_k"], x, x_prev)
     xv = _lerp(params["mix_v"], x, x_prev)
     xw = _lerp(params["mix_w"], x, x_prev)
     xg = _lerp(params["mix_g"], x, x_prev)
-    r = (xr @ params["w_r"]).reshape(b, s, h, n)
-    k = (xk @ params["w_k"]).reshape(b, s, h, n)
-    v = (xv @ params["w_v"]).reshape(b, s, h, n)
-    g = F.silu(xg @ params["w_g"])
+    r = mm(xr, params["w_r"]).reshape(lead + (-1, n))
+    k = mm(xk, params["w_k"]).reshape(lead + (-1, n))
+    v = mm(xv, params["w_v"]).reshape(lead + (-1, n))
+    g = F.silu(mm(xg, params["w_g"]))
+    bias = params["decay_bias"]
+    if axis is not None:
+        bias = bias[:, None, None]
     # Finch data-dependent decay in (0, 1): exp(-exp(.)) of a projection.
-    wlog = (xw @ params["w_decay"]).reshape(b, s, h, n) + params["decay_bias"]
+    wlog = mm(xw, params["w_decay"]).reshape(lead + (-1, n)) + bias
     w = torch.exp(-torch.exp(wlog.float()))
     return r, k, v, g, w
 
@@ -115,72 +167,70 @@ def _outer(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _readout(r: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """o = r M per head: (b, h, k) x (b, h, k, v) -> (b, h, v)."""
+    """o = r M per head: (..., h, k) x (..., h, k, v) -> (..., h, v)."""
     return torch.matmul(r[..., None, :], m)[..., 0, :]
 
 
 def rwkv_time_mix(params: Dict[str, torch.Tensor], cfg: ModelConfig,
-                  x: torch.Tensor, state: RWKVState
+                  x: torch.Tensor, state: RWKVState, model_axis=None
                   ) -> Tuple[torch.Tensor, RWKVState]:
-    """Full-sequence time-mix. x: (b, s, d)."""
-    b, s, d = x.shape
+    """Full-sequence time-mix. x: (b, s, d). Over ``model_axis`` (module
+    docstring) x and the output stay replicated and ``state.wkv`` is
+    split by heads, (L, b, h/M, N, N)."""
+    s = x.shape[1]
+    axis = _tp(model_axis, params["w_r"])
+    if axis is not None:
+        _local_heads(cfg, axis)
     residual = x
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    x_prev = _shift(h, state.att_shift)
-    r, k, v, g, w = _time_mix_projections(params, cfg, h, x_prev)
+    hx, x_prev = _stacked_input(h, state.att_shift, axis)
+    r, k, v, g, w = _time_mix_projections(params, cfg, hx, x_prev, axis)
     u = params["bonus_u"].float()
+    if axis is not None:
+        u = u[:, None, None]                     # (L, 1, 1, h/M, N)
 
-    kv = _outer(k, v)                                   # (b, s, h, N, N)
-    ukv = u[:, :, None] * kv
+    kv = _outer(k, v)                            # (..., s, h, N, N)
+    ukv = u[..., None] * kv
     r32 = r.float()
     w32 = w.float()[..., None]
     S = state.wkv
     outs = []
     for t in range(s):
-        outs.append(_readout(r32[:, t], S + ukv[:, t]))
-        S = w32[:, t] * S + kv[:, t]
-    o = torch.stack(outs, dim=1).reshape(b, s, d).to(x.dtype)
-    o = o * g
-    out = o @ params["w_out"]
+        outs.append(_readout(r32[..., t, :, :], S + ukv[..., t, :, :, :]))
+        S = w32[..., t, :, :, :] * S + kv[..., t, :, :, :]
+    o = torch.stack(outs, dim=-3).flatten(-2).to(x.dtype) * g
+    if axis is None:
+        out = o @ params["w_out"]
+    else:
+        out = axis.all_reduce(_bmm(o, params["w_out"]))
     new_state = state._replace(att_shift=h[:, -1, :], wkv=S)
     return residual + out, new_state
 
 
-def rwkv_time_mix_step(params, cfg: ModelConfig, x: torch.Tensor,
-                       state: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
-    """One-token decode step; O(1) state update. x: (b, 1, d)."""
-    residual = x
-    h = rms_norm(x, params["norm"], cfg.norm_eps)
-    x_prev = state.att_shift[:, None, :]
-    r, k, v, g, w = _time_mix_projections(params, cfg, h, x_prev)
-    u = params["bonus_u"].float()
-    r1, k1, v1, w1 = (a[:, 0] for a in (r, k, v, w))
-    kv = _outer(k1, v1)
-    o = _readout(r1.float(), state.wkv + u[:, :, None] * kv)
-    S = w1.float()[..., None] * state.wkv + kv
-    o = o.reshape(x.shape[0], 1, -1).to(x.dtype) * g
-    out = o @ params["w_out"]
-    new_state = state._replace(att_shift=h[:, 0, :], wkv=S)
-    return residual + out, new_state
-
-
-def _channel_mix(params, h: torch.Tensor, x_prev: torch.Tensor):
-    xk = _lerp(params["mix_k"], h, x_prev)
-    xr = _lerp(params["mix_r"], h, x_prev)
-    k = torch.square(F.relu(xk @ params["w_k"]))
-    kv = k @ params["w_v"]
-    return torch.sigmoid(xr @ params["w_r"]) * kv
-
-
 def rwkv_channel_mix(params, cfg: ModelConfig, x: torch.Tensor,
-                     state: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
+                     state: RWKVState, model_axis=None
+                     ) -> Tuple[torch.Tensor, RWKVState]:
+    """The channel mix over a full sequence, x: (b, s, d); over
+    ``model_axis`` as the module docstring says."""
     h = rms_norm(x, params["norm"], cfg.norm_eps)
-    out = _channel_mix(params, h, _shift(h, state.ffn_shift))
-    return x + out, state._replace(ffn_shift=h[:, -1, :])
+    tk = _tp(model_axis, params["w_k"])
+    tr = _tp(model_axis, params["w_r"])
+    axis = tk or tr
+    hx, x_prev = _stacked_input(h, state.ffn_shift, axis)
+    xk = _lerp(params["mix_k"], hx, x_prev)
+    xr = _lerp(params["mix_r"], hx, x_prev)
+    if axis is not None and tk is None:
+        xk = xk[0]
+    if axis is not None and tr is None:
+        xr = xr[0]
+    if tk is None:
+        kv = torch.square(F.relu(xk @ params["w_k"])) @ params["w_v"]
+    else:
+        kv = tk.all_reduce(_bmm(torch.square(F.relu(_bmm(xk, params["w_k"]))),
+                                params["w_v"]))
+    if tr is None:
+        r = xr @ params["w_r"]
+    else:
+        r = tr.all_gather(_bmm(xr, params["w_r"]))[0]
+    return x + torch.sigmoid(r) * kv, state._replace(ffn_shift=h[:, -1, :])
 
-
-def rwkv_channel_mix_step(params, cfg: ModelConfig, x: torch.Tensor,
-                          state: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
-    h = rms_norm(x, params["norm"], cfg.norm_eps)
-    out = _channel_mix(params, h, state.ffn_shift[:, None, :])
-    return x + out, state._replace(ffn_shift=h[:, 0, :])

@@ -48,7 +48,8 @@ from repro_torch.models.layers import (KVCache, ParamSpec, _bmm, _split,
 __all__ = ["model_specs", "param_shapes", "param_axes", "cache_logical_axes",
            "check_tensor_parallel", "flat_specs", "init_params",
            "forward", "lm_loss", "init_cache", "prefill", "decode_step",
-           "decode_step_paged", "encode_context", "stub_context", "Cache",
+           "decode_step_paged", "encode_context", "stub_context",
+           "context_len", "Cache",
            "period_params"]
 
 Params = Dict[str, Any]
@@ -286,19 +287,20 @@ def _ffn_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
         x, aux = moe_mod.moe_apply(sp["moe"], cfg, x, model_axis)
         return x, aux, state
     if spec.ffn == "rwkv_ffn":
-        x, state = rwkv_mod.rwkv_channel_mix(sp["channel_mix"], cfg, x, state)
+        x, state = rwkv_mod.rwkv_channel_mix(sp["channel_mix"], cfg, x, state,
+                                             model_axis)
     return x, None, state
 
 
 def _cross(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
-           positions: torch.Tensor, ctx: Optional[torch.Tensor]
-           ) -> torch.Tensor:
+           positions: torch.Tensor, ctx: Optional[torch.Tensor],
+           model_axis=None) -> torch.Tensor:
     """A slot's cross-attention sub-block over the encoded context
     ``ctx`` (after the mixer, before the feed-forward); skipped without
-    one, as in JAX."""
+    one, as in JAX. Over ``model_axis`` the context stays replicated."""
     if spec.cross_attn and ctx is not None:
         x, _ = attention_apply(sp["cross"], cfg, x, positions=positions,
-                               kv_source=ctx)
+                               kv_source=ctx, model_axis=model_axis)
     return x
 
 
@@ -310,8 +312,9 @@ def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
     slot's ``KVCache`` to fill from position 0 (prefill), or an rwkv
     slot's initial state (zeros when None); ``ctx``: the encoded context
     of a cross-attention slot; ``model_axis``: the slot's tensor-
-    parallel forward (attention, mamba, MLP or MoE; the cache then in its
-    model-axis layout, a mamba state split by channel). Returns
+    parallel forward (every mixer, cross-attention and feed-forward; the
+    cache then in its model-axis layout, a mamba state split by channel,
+    an rwkv state's WKV by heads). Returns
     (x, MoE aux or None, the recurrent slot's final state or None)."""
     state = None
     if spec.mixer in ATTN:
@@ -330,10 +333,14 @@ def _slot_full(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
                                          model_axis=model_axis)
     else:
         if cache is None:
-            cache = rwkv_mod.init_rwkv_state(cfg, x.shape[0], x.dtype,
-                                             x.device)
-        x, state = rwkv_mod.rwkv_time_mix(sp["time_mix"], cfg, x, cache)
-    x = _cross(cfg, spec, sp, x, positions, ctx)
+            split = model_axis is not None and _split(sp["time_mix"]["w_r"],
+                                                      2)
+            cache = rwkv_mod.init_rwkv_state(
+                cfg, x.shape[0], x.dtype, x.device,
+                model_axis if split else None)
+        x, state = rwkv_mod.rwkv_time_mix(sp["time_mix"], cfg, x, cache,
+                                          model_axis)
+    x = _cross(cfg, spec, sp, x, positions, ctx, model_axis)
     return _ffn_full(cfg, spec, sp, x, state, model_axis)
 
 
@@ -347,8 +354,9 @@ def _slot_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
         x, state = mamba_mod.mamba_decode_step(sp["mamba"], cfg, x, state,
                                                model_axis)
     else:
-        x, state = rwkv_mod.rwkv_time_mix_step(sp["time_mix"], cfg, x, state)
-    x = _cross(cfg, spec, sp, x, positions, ctx)
+        x, state = rwkv_mod.rwkv_time_mix(sp["time_mix"], cfg, x, state,
+                                          model_axis)
+    x = _cross(cfg, spec, sp, x, positions, ctx, model_axis)
     return _ffn_step(cfg, spec, sp, x, state, model_axis)
 
 
@@ -360,8 +368,8 @@ def _ffn_step(cfg: ModelConfig, spec: LayerSpec, sp, x: torch.Tensor,
     if spec.ffn == "moe":
         return moe_mod.moe_apply(sp["moe"], cfg, x, model_axis)[0], state
     if spec.ffn == "rwkv_ffn":
-        return rwkv_mod.rwkv_channel_mix_step(sp["channel_mix"], cfg, x,
-                                              state)
+        return rwkv_mod.rwkv_channel_mix(sp["channel_mix"], cfg, x, state,
+                                         model_axis)
     return x, state
 
 
@@ -413,32 +421,48 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return softcap(matmul(x, head), cfg.logit_softcap)
 
 
+def context_len(cfg: ModelConfig) -> int:
+    """The context rows a sample carries: whisper's frames
+    (``encoder_seq``), the VLM's image tokens (``n_image_tokens``), 0 for
+    a text model."""
+    if cfg.family == "audio":
+        return cfg.encoder_seq
+    if cfg.family == "vlm":
+        return cfg.n_image_tokens
+    return 0
+
+
 def stub_context(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                  device) -> Optional[torch.Tensor]:
     """The launchers' context for the audio / vlm families, whose
-    frontends are stubs (as in the JAX package): (batch, encoder_seq or
-    n_image_tokens, d_model) filled with 0.01. None for a text model."""
-    if cfg.family not in ("audio", "vlm"):
+    frontends are stubs (as in the JAX package): (batch, context_len,
+    d_model) filled with 0.01. None for a text model."""
+    n = context_len(cfg)
+    if not n:
         return None
-    n = cfg.encoder_seq if cfg.family == "audio" else cfg.n_image_tokens
     return torch.full((batch, n, cfg.d_model), 0.01, dtype=dtype,
                       device=device)
 
 
 def encode_context(params: Params, cfg: ModelConfig,
-                   context: Optional[torch.Tensor]
+                   context: Optional[torch.Tensor], model_axis=None
                    ) -> Optional[torch.Tensor]:
-    """Public: encode a context once for serving (see ``decode_step``)."""
-    return _encode_context(params, cfg, context)
+    """Public: encode a context once for serving (see ``decode_step``);
+    over ``model_axis`` from ``params`` in the model-axis layout, the
+    result replicated."""
+    return _encode_context(params, cfg, context,
+                           _tp_axis(cfg, model_axis))
 
 
 def _encode_context(params: Params, cfg: ModelConfig,
-                    context: Optional[torch.Tensor]
+                    context: Optional[torch.Tensor], model_axis=None
                     ) -> Optional[torch.Tensor]:
     """Whisper: the encoder stack (non-causal attention without
     positions, then the MLP, each layer; then ``encoder/final_norm``)
     over the stub frame embeddings (b, s, d). VLM: the stub patch
-    embeddings pass straight through."""
+    embeddings pass straight through. Over ``model_axis`` each layer
+    splits as the decoder's do; the input, the output and the final
+    norm stay replicated."""
     if context is None or not cfg.has_encoder:
         return context
     enc = params["encoder"]
@@ -449,8 +473,9 @@ def _encode_context(params: Params, cfg: ModelConfig,
         layer = {name: {k: v[i] for k, v in sub.items()}
                  for name, sub in enc["layers"].items()}
         x, _ = attention_apply(layer["attn"], cfg, x, positions=positions,
-                               causal=False, use_rope=False)
-        x = mlp_apply(layer["mlp"], cfg, x)
+                               causal=False, use_rope=False,
+                               model_axis=model_axis)
+        x = mlp_apply(layer["mlp"], cfg, x, model_axis)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -480,32 +505,38 @@ def _period(params: Params, cfg: ModelConfig, i: int, x: torch.Tensor,
     return x, aux
 
 
-TP_MIXERS = ATTN + ("mamba",)
-TP_FFNS = ("mlp", "moe")
+def check_tensor_parallel(cfg: ModelConfig, m: int) -> None:
+    """Raises where the tensor-parallel forward of ``cfg`` over a model
+    axis of ``m`` shards is not ported: query heads (of the decoder, the
+    cross-attention or the encoder) or rwkv heads that ``m`` does not
+    divide while JAX's rules split their columns, which GSPMD splits
+    inside a head (ROADMAP Queue 1: the split inside a head). Every
+    family runs otherwise. Ragged offsets under a model axis raise in
+    ``layers.attention_apply``, and rule overrides in the serving steps
+    and the dry-run (ROADMAP Queue 1, item 5d)."""
+    if m <= 1:
+        return
+    from repro_torch.train.steps import param_shard_dims
 
-
-def check_tensor_parallel(cfg: ModelConfig) -> None:
-    """Raises unless every slot of ``cfg`` is an attention or mamba mixer
-    with an MLP or MoE feed-forward, without cross-attention, an encoder
-    or learned positions: the families whose forward runs over a model
-    axis (the dense decoders, the MoE and the hybrid)."""
-    bad = [s for s in cfg.period if s.mixer not in TP_MIXERS
-           or s.ffn not in TP_FFNS or s.cross_attn]
-    if bad or cfg.has_encoder or cfg.pos_embedding == "learned":
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over a model axis runs the "
-            "dense decoder, MoE and hybrid families (attention and mamba "
-            "mixers, MLP and MoE feed-forwards); the rwkv mixer, "
-            "cross-attention, the encoder and learned positions are not "
-            "ported (ROADMAP Queue 1, item 5)")
+    dims = param_shard_dims(cfg, m)
+    heads = [(cfg.n_heads, k) for k in dims
+             if k.endswith(("/attn/wq", "/cross/wq"))]
+    heads += [(cfg.rwkv_n_heads, k) for k in dims
+              if k.endswith("/time_mix/w_r")]
+    for h, key in heads:
+        if dims[key] is not None and h % m:
+            raise NotImplementedError(
+                f"{cfg.name}: {h} heads do not split whole over a model "
+                f"axis of {m} ({key}; JAX's GSPMD splits inside a head): "
+                "the split inside a head, not ported (ROADMAP Queue 1)")
 
 
 def _tp_axis(cfg: ModelConfig, model_axis):
-    """``model_axis``, or None for none or a single shard; the families
-    ``check_tensor_parallel`` refuses raise under M > 1."""
+    """``model_axis``, or None for none or a single shard; what
+    ``check_tensor_parallel`` refuses raises under M > 1."""
     if model_axis is None or model_axis.size == 1:
         return None
-    check_tensor_parallel(cfg)
+    check_tensor_parallel(cfg, model_axis.size)
     return model_axis
 
 
@@ -520,11 +551,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``model_axis`` (``core/model_axis``, M > 1 shards) runs the model
     tensor-parallel over ``params`` in the model-axis layout
     (``convert.shard_params``); the logits then come vocab-split, (M, b,
-    s, V/M), for ``lm_loss(..., model_axis=)``. The families
-    ``check_tensor_parallel`` refuses raise."""
+    s, V/M), for ``lm_loss(..., model_axis=)``. What
+    ``check_tensor_parallel`` refuses raises."""
     model_axis = _tp_axis(cfg, model_axis)
     x, positions = _embed_prompt(params, cfg, tokens, model_axis)
-    ctx = _encode_context(params, cfg, context)
+    ctx = _encode_context(params, cfg, context, model_axis)
     auxs = []
     for i in range(cfg.n_periods):
         if cfg.remat and torch.is_grad_enabled():
@@ -598,8 +629,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     keeps their hidden states exact -- recurrent models need equal
     lengths, their state would consume the padding).
 
-    ``model_axis`` (M > 1 shards; the families of
-    ``check_tensor_parallel``): ``params`` and ``cache`` in their
+    ``model_axis`` (M > 1 shards; ``check_tensor_parallel``'s refusals
+    raise): ``params`` and ``cache`` in their
     model-axis layouts (``convert.shard_params``,
     ``convert.shard_cache``); the logits come back vocab-split, (M, b,
     V/M), as ``forward``'s do. ``cache_nodes``: the node blocks of a
@@ -608,7 +639,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     b, s = tokens.shape
     model_axis = _tp_axis(cfg, model_axis)
     x, positions = _embed_prompt(params, cfg, tokens, model_axis)
-    ctx = _encode_context(params, cfg, context)
+    ctx = _encode_context(params, cfg, context, model_axis)
     states: Dict[str, List[Any]] = {}
     for i in range(cfg.n_periods):
         for si, spec in enumerate(cfg.period):
@@ -668,7 +699,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                                        cache_offsets=offsets,
                                        model_axis=model_axis,
                                        cache_nodes=cache_nodes)
-                x = _cross(cfg, spec, sp, x, positions, context)
+                x = _cross(cfg, spec, sp, x, positions, context, model_axis)
                 x, _ = _ffn_step(cfg, spec, sp, x, None, model_axis)
             else:
                 x, st = _slot_step(cfg, spec, sp, x,

@@ -1,6 +1,7 @@
 """The JAX side of the tensor-parallel family tests, and their shared
 port-side checks (``tests/test_torch_tp_moe.py``,
-``tests/test_torch_tp_mamba.py``).
+``tests/test_torch_tp_mamba.py``, ``tests/test_torch_tp_rwkv.py``,
+``tests/test_torch_tp_encoder.py``).
 
 Run as a script, one case per process (``XLA_FLAGS`` must be set before
 jax imports; 4 faked CPU devices)::
@@ -22,8 +23,11 @@ mesh, jitted with the shardings of their rules; writes the parameters
 config overrides by name), the unsharded forward's logits, aux,
 ``lm_loss`` and gradients on a seeded batch, with the parameters
 (``<variant>/p/``, ``/g/``). Inputs come from seeded numpy draws that
-the port side repeats; ``conv_b`` / ``dt_bias`` are redrawn in
-``serve`` and ``forward``.
+the port side repeats; ``conv_b`` / ``dt_bias`` (and rwkv's
+``decay_bias`` / ``bonus_u``) are redrawn in ``serve`` and ``forward``.
+The audio / vlm families get a seeded context of distinct rows
+(``context_input``) in all three: raw into the train step, the forward
+and prefill, encoded once (JAX's ``encode_context``) into decode.
 """
 import dataclasses
 import os
@@ -41,7 +45,7 @@ SDM = dict(p=0.2, theta=0.5, gamma=1e-2, sigma=0.1, clip_c=1.0,
 SERVE_BATCH, PROMPT, MAX_LEN, DECODE_STEPS = 4, 22, 48, 4
 # constant-initialised leaves (zeros at init) redrawn as small normals so
 # that their paths do work, as tests/test_torch_moe_recurrent.py does
-REDRAW = ("conv_b", "dt_bias")
+REDRAW = ("conv_b", "dt_bias", "decay_bias", "bonus_u")
 TIMEOUT = 300
 
 
@@ -62,6 +66,18 @@ def cut(cfg, slots: int):
         return cfg
     return dataclasses.replace(cfg, period=cfg.period[:slots],
                                n_layers=slots)
+
+
+def context_input(cfg, batch: int, seed: int = 5):
+    """A seeded (batch, context rows, d_model) f32 context of distinct
+    rows for the audio / vlm families (None for a text model): the
+    launchers' stub context has equal rows, under which cross-attention's
+    probabilities do not matter."""
+    if cfg.family not in ("audio", "vlm"):
+        return None
+    n = cfg.encoder_seq if cfg.family == "audio" else cfg.n_image_tokens
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(batch, n, cfg.d_model)).astype(np.float32)
 
 
 def serve_inputs(vocab: int):
@@ -108,8 +124,10 @@ def _jax_train(arch: str, slots: int, out_path: str) -> None:
                          seq_len=SEQ, seed=0)
     batches = [tuple(jnp.asarray(a) for a in stream.batch_at(t))
                for t in range(STEPS)]
+    ctx = context_input(cfg, BATCH)
+    extra = () if ctx is None else (jnp.asarray(ctx),)
     step = jax.jit(steps.make_distributed_train(tc, mesh)).lower(
-        state, *batches[0]).compile()
+        state, *batches[0], *extra).compile()
     shapes = []
     for line in step.as_text().splitlines():
         if "ppermute" not in line or not re.search(
@@ -120,7 +138,8 @@ def _jax_train(arch: str, slots: int, out_path: str) -> None:
     losses = []
     want = step.input_shardings[0][0]
     for tokens, labels in batches:
-        state, loss = step(jax.device_put(state, want), tokens, labels)
+        state, loss = step(jax.device_put(state, want), tokens, labels,
+                           *extra)
         losses.append(float(loss))
     out["losses"] = np.asarray(losses)
     out["payloads"] = np.asarray([s + [0] * (3 - len(s)) for s in shapes],
@@ -146,6 +165,9 @@ def _jax_serve(arch: str, meshes: str, out_path: str) -> None:
         jax.random.PRNGKey(1), cfg))
     out = {f"p/{k}": v for k, v in flat(params).items()}
     tokens, dec = serve_inputs(cfg.vocab_size)
+    ctx = context_input(cfg, SERVE_BATCH)
+    enc = None if ctx is None else transformer.encode_context(
+        params, cfg, jnp.asarray(ctx))
     cache_sds = jax.eval_shape(lambda: transformer.init_cache(
         cfg, SERVE_BATCH, MAX_LEN, jnp.float32))
     cache_axes = transformer.cache_logical_axes(cfg)
@@ -175,17 +197,25 @@ def _jax_serve(arch: str, meshes: str, out_path: str) -> None:
                                  else ("batch",),
                                  (SERVE_BATCH, PROMPT) if kind == "prefill"
                                  else (SERVE_BATCH,))
-            made[kind] = (jax.jit(fn, in_shardings=(psh, tok, csh)), csh)
+            shard = (psh, tok, csh)
+            if ctx is not None:
+                shard += (rules.sharding(("batch", None, "embed"),
+                                         ctx.shape),)
+            made[kind] = (jax.jit(fn, in_shardings=shard), csh)
         jf, _ = made["prefill"]
         cache = transformer.init_cache(cfg, SERVE_BATCH, MAX_LEN,
                                        jnp.float32)
-        logits, cache = jf(params, jnp.asarray(tokens), cache)
+        pre = () if ctx is None else (jnp.asarray(ctx),)
+        post = () if ctx is None else (enc,)
+        logits, cache = jf(params, jnp.asarray(tokens), cache, *pre)
         out[f"{mesh_name}/logits/0"] = np.asarray(logits)
         out.update(arrays(cache, f"{mesh_name}/prefill"))
         jd, csh = made["decode"]
-        cache = jax.device_put(cache, csh)
         for t in range(DECODE_STEPS):
-            logits, cache = jd(params, jnp.asarray(dec[t]), cache)
+            # a step's output cache may come back in another layout
+            # (rwkv's token-shift states split by embed): re-place it
+            cache = jax.device_put(cache, csh)
+            logits, cache = jd(params, jnp.asarray(dec[t]), cache, *post)
             out[f"{mesh_name}/logits/{t + 1}"] = np.asarray(logits)
         out.update(arrays(cache, f"{mesh_name}/decode"))
     np.savez(out_path, **out)
@@ -206,9 +236,12 @@ def _jax_forward(arch: str, variants: str, out_path: str) -> None:
         params = redraw_params(jax, transformer.init_params(
             jax.random.PRNGKey(1), cfg))
         tokens, labels = forward_inputs(cfg.vocab_size)
+        ctx = context_input(cfg, len(tokens))
+        ctx = None if ctx is None else jnp.asarray(ctx)
 
         def loss_fn(p):
-            logits, aux = transformer.forward(p, cfg, jnp.asarray(tokens))
+            logits, aux = transformer.forward(p, cfg, jnp.asarray(tokens),
+                                              context=ctx)
             return transformer.lm_loss(logits, jnp.asarray(labels),
                                        cfg.vocab_size, aux), (logits, aux)
 
@@ -261,10 +294,28 @@ def close(got, want, rtol: float, what: str, floor: float = 1e-3) -> None:
                                atol=rtol * scale, err_msg=what)
 
 
-def tp_loss_and_grads(params, cfg, m: int, tokens, labels, axis):
+class LastShardDropped:
+    """A model axis whose all-reduce drops the last shard's partials: the
+    seeded fault of a family's *g* (chip_smoke's phases 27d / 28d)."""
+
+    def __init__(self, axis):
+        self.axis = axis
+
+    def __getattr__(self, name):
+        return getattr(self.axis, name)
+
+    def all_reduce(self, x):
+        x = x.clone()
+        x[-1] = 0
+        return self.axis.all_reduce(x)
+
+
+def tp_loss_and_grads(params, cfg, m: int, tokens, labels, axis,
+                      context=None):
     """The port's forward, ``lm_loss`` and gradients over ``m`` shards
-    (``convert.shard_params`` of the unsharded ``params``): (shards,
-    logits, aux, loss, the gradients unsharded)."""
+    (``convert.shard_params`` of the unsharded ``params``; ``context``:
+    the audio / vlm families' raw context): (shards, logits, aux, loss,
+    the gradients unsharded)."""
     import torch
 
     from repro_torch import tree as tree_mod
@@ -275,7 +326,8 @@ def tp_loss_and_grads(params, cfg, m: int, tokens, labels, axis):
     leaves, struct = tree_mod.flatten(shards)
     mine = [v.requires_grad_(True) for v in leaves]
     logits, aux = transformer.forward(tree_mod.unflatten(struct, mine), cfg,
-                                      tokens, model_axis=axis)
+                                      tokens, context=context,
+                                      model_axis=axis)
     loss = transformer.lm_loss(logits, labels, cfg.vocab_size, aux,
                                model_axis=axis)
     grads = unshard_params(tree_mod.unflatten(
@@ -292,7 +344,8 @@ def port_train_2x2(arch: str, slots: int, want: dict):
     from repro_torch.convert import params_from_jax
     from repro_torch.core import sdm_dsgd, transport as tr
     from repro_torch.core.model_axis import StackModelAxis
-    from repro_torch.launch import train as train_mod
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import TrainRun
     from repro_torch.train import steps
 
     tc = steps.DistributedTrainConfig(
@@ -314,8 +367,20 @@ def port_train_2x2(arch: str, slots: int, want: dict):
     axis = StackModelAxis(MODEL, "cpu")
     state = steps.init_distributed_state(tc, transport, params=params,
                                          model_axis=axis)
-    run = train_mod.train(tc, transport, steps=STEPS, global_batch=BATCH,
-                          seq_len=SEQ, state=state, model_axis=axis)
+    # the launcher's step loop (``launch.train.train``), with the seeded
+    # context in place of its stub
+    step = steps.make_distributed_train(tc, transport, model_axis=axis)
+    stream = TokenStream(vocab_size=tc.model.vocab_size, batch=BATCH,
+                         seq_len=SEQ, seed=0)
+    ctx = context_input(tc.model, BATCH)
+    ctx = None if ctx is None else torch.from_numpy(ctx)
+    losses = []
+    for t in range(STEPS):
+        tokens, labels = (torch.as_tensor(a) for a in stream.batch_at(t))
+        state, loss = step(state, tokens, labels, ctx)
+        losses.append(float(loss))
+    run = TrainRun(state=tr.settle(state), losses=losses, step_s=[],
+                   tokens_per_step=BATCH * SEQ)
     return tc, params, transport, axis, sent, run
 
 
@@ -381,17 +446,21 @@ def check_serving_1xm(arch: str, mesh_name: str, want: dict, rtol: float,
                       cfg=None, params=None, prefix=None) -> None:
     """``make_prefill_fn`` / ``make_decode_fn`` on ``mesh_name`` against
     ``want`` (JAX's arrays under ``prefix``, by default the mesh's name):
-    logits and the unsharded cache (KV and mamba states) within ``rtol``
-    of their scale, the counters against ``tp_serving_collectives`` every
-    step, the mamba states split by channel."""
+    logits and the unsharded cache (KV, mamba and rwkv states) within
+    ``rtol`` of their scale, the counters against
+    ``tp_serving_collectives`` every step, the mamba states split by
+    channel and the rwkv WKV states by heads. The audio / vlm families
+    prefill on ``context_input``'s raw context and decode on it encoded
+    over the same model axis (``transformer.encode_context``)."""
     import torch
 
     from repro_torch import configs
     from repro_torch.convert import (params_from_jax, shard_cache,
                                      shard_params, unshard_cache)
-    from repro_torch.core.model_axis import tp_serving_collectives
+    from repro_torch.core.model_axis import (StackModelAxis,
+                                             tp_serving_collectives)
     from repro_torch.launch.mesh import parse_mesh
-    from repro_torch.models import mamba, transformer
+    from repro_torch.models import mamba, rwkv, transformer
     from repro_torch.train import steps
 
     prefix = prefix or mesh_name
@@ -402,6 +471,8 @@ def check_serving_1xm(arch: str, mesh_name: str, want: dict, rtol: float,
     mesh = parse_mesh(mesh_name)
     m = mesh.model
     tokens, dec = serve_inputs(cfg.vocab_size)
+    ctx = context_input(cfg, SERVE_BATCH)
+    ctx = None if ctx is None else torch.from_numpy(ctx)
     pf, prules = steps.make_prefill_fn(cfg, mesh, device="cpu")
     df, drules = steps.make_decode_fn(cfg, mesh, device="cpu")
     sp = shard_params(params, cfg, m)
@@ -426,8 +497,15 @@ def check_serving_1xm(arch: str, mesh_name: str, want: dict, rtol: float,
                 assert st.ssm.shape[1:] == (m, SERVE_BATCH,
                                             cfg.mamba_d_inner // m,
                                             cfg.mamba_d_state)
+            if isinstance(st, rwkv.RWKVState):     # WKV split by heads
+                n = cfg.rwkv_head_size
+                assert st.wkv.shape[1:] == (m, SERVE_BATCH,
+                                            cfg.rwkv_n_heads // m, n, n)
+                assert st.att_shift.shape[1:] == (SERVE_BATCH, cfg.d_model)
 
-    logits, cache = pf(sp, torch.from_numpy(tokens), cache)
+    logits, cache = pf(sp, torch.from_numpy(tokens), cache, ctx)
+    enc = None if ctx is None else transformer.encode_context(
+        sp, cfg, ctx, model_axis=StackModelAxis(m, "cpu"))
     assert logits.shape == (m, SERVE_BATCH, cfg.padded_vocab // m)
     close(torch.cat(list(logits), -1).numpy(), want[f"{prefix}/logits/0"],
           rtol, "prefill logits")
@@ -440,7 +518,7 @@ def check_serving_1xm(arch: str, mesh_name: str, want: dict, rtol: float,
                                       torch.float32)
     for t in range(DECODE_STEPS):
         df.model_axis.reset_counters()
-        logits, cache = df(sp, torch.from_numpy(dec[t]), cache)
+        logits, cache = df(sp, torch.from_numpy(dec[t]), cache, enc)
         close(torch.cat(list(logits), -1).numpy(),
               want[f"{prefix}/logits/{t + 1}"], rtol,
               f"decode step {t} logits")

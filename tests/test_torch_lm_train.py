@@ -287,13 +287,13 @@ def test_launcher_targets_cuda_by_default_and_refuses_what_is_not_ported():
     base = ["--arch", ARCH, "--smoke", "--steps", "1"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_mod.main(base)
-    # a model axis across the cards of a pod, and tensor parallelism of
-    # the rwkv mixer, are not ported
+    # a model axis across the cards of a pod, and the split inside a head
+    # (rwkv6-smoke's 4 heads over 8 shards), are not ported
     with pytest.raises(ValueError, match="TPU pod mesh.*ROADMAP"):
         train_mod.main(base + ["--device", "cpu", "--mesh", "16x16"])
-    with pytest.raises(NotImplementedError, match="rwkv mixer"):
+    with pytest.raises(NotImplementedError, match="inside a head"):
         train_mod.main(["--arch", "rwkv6-3b", "--smoke",
-                        "--steps", "1", "--device", "cpu", "--mesh", "2x2"])
+                        "--steps", "1", "--device", "cpu", "--mesh", "1x8"])
 
 
 @pytest.mark.parametrize("name,nodes", [("4", 4), ("4x1", 4), ("2x3x1", 6),
@@ -305,8 +305,8 @@ def test_mesh_specs_name_node_counts(name, nodes):
 @pytest.mark.parametrize("name", ["2x2", "single_pod", "multi_pod", "4x"])
 def test_mesh_specs_refuse_tensor_parallel_and_pods(name):
     """The pod meshes and malformed names raise. A model axis on one
-    device runs the dense, MoE and hybrid families: ``2x2`` parses (2
-    nodes, 2 shards) and tensor parallelism of an rwkv model raises."""
+    device runs every family: ``2x2`` parses (2 nodes, 2 shards), and
+    heads that M does not divide raise (rwkv6-smoke's 4 at M = 8)."""
     if name != "2x2":
         with pytest.raises(ValueError):
             mesh_mod.parse_mesh(name)
@@ -315,9 +315,11 @@ def test_mesh_specs_refuse_tensor_parallel_and_pods(name):
     assert (mesh.n_nodes, mesh.model) == (2, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.check_tensor_parallel(
-            configs.get_smoke_config("rwkv6-3b"))
+            configs.get_smoke_config("rwkv6-3b"), 8)
     transformer.check_tensor_parallel(
-        configs.get_smoke_config("granite-moe-1b-a400m"))
+        configs.get_smoke_config("rwkv6-3b"), 2)
+    transformer.check_tensor_parallel(
+        configs.get_smoke_config("granite-moe-1b-a400m"), 2)
 
 
 def test_registry_faces_are_callable():

@@ -357,11 +357,28 @@ def test_no_matmul_takes_a_whole_split_weight(m):
 
 def test_tensor_parallelism_refuses_other_families_and_shapes():
     tok = torch.zeros(1, 4, dtype=torch.long)
-    for arch in ("rwkv6-3b", "whisper-large-v3", "llama-3.2-vision-11b"):
+    # every family runs over the model axis; what remains refused is the
+    # split inside a head: the smoke configs' 4 heads at M = 8
+    for arch in ("rwkv6-3b", "whisper-large-v3"):
         cfg = configs.get_smoke_config(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer.forward({}, cfg, tok,
-                                model_axis=StackModelAxis(2, "cpu"))
+                                model_axis=StackModelAxis(8, "cpu"))
+    # ragged offsets under a model axis: whisper's decode over 2 shards
+    from repro_torch.convert import shard_cache
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.train import steps as steps_mod
+
+    cfg = configs.get_smoke_config("whisper-large-v3")
+    _, rules = steps_mod.make_decode_fn(cfg, parse_mesh("1x2"), device="cpu")
+    cache = shard_cache(transformer.init_cache(cfg, 2, 8, torch.float32,
+                                               "cpu"), cfg, rules)
+    zeros = torch.zeros(2, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="ragged"):
+        transformer.decode_step(
+            shard_params(transformer.init_params(cfg, device="cpu"), cfg, 2),
+            cfg, zeros, cache, offsets=zeros,
+            model_axis=StackModelAxis(2, "cpu"))
     cfg = configs.get_smoke_config(ARCH)
     params = shard_params(transformer.init_params(cfg, device="cpu"), cfg, 8)
     with pytest.raises(NotImplementedError, match="split whole"):
