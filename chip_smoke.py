@@ -221,6 +221,27 @@ Phases (any failure exits non-zero):
      ``w_out`` partial dropped from the time mix's all-reduce, whisper
      and llama-vision with the last shard's cross-attention K / V block
      zeroed.
+  29. the split inside a head over the ``model`` axis (M does not divide
+     the heads while JAX's rules split their columns; no kernel of its
+     own): (a) the forward, ``lm_loss`` and every gradient leaf at full
+     width in f32 against unsharded, one row of 128 tokens: gemma2-2b,
+     phi3-medium-14b, qwen1.5-32b x 2 layers and rwkv6-3b x 4 at M = 16,
+     whisper 4 + 4 at M = 8 on a seeded 1500-frame context, each within
+     1e-4 of its scale, counters equal ``tp_collectives``; (b) phase
+     10's gemma2-2b x 4 cell on ``2x16`` through ``launch.train.train``
+     (phase 25's checks; the gather-pack kernel against plain at every
+     bucket plane, timed against its bound and ``index_select``); (c) the
+     serving steps at full width against unsharded, 4 rows, 16 decode
+     steps on the unsharded run's greedy tokens: gemma2-2b x 26 on
+     ``1x16`` (512 tokens into 1024 positions) and whisper 32 + 32 on
+     ``1x8`` (128 tokens on 1500 frames) in bf16 at 2^-5 a row, rwkv6 x 4
+     on ``1x16`` in f32 and bf16 at ``TPE_RWKV_GATES`` with its witness;
+     greedy agreement, decode ms at M 1 and 16 (8); (d) fault controls,
+     each above the gate of its run: gemma2-2b with the all-gather's
+     backward a plain slice (its gradients in a) and with each shard
+     reading out its neighbour's columns of a cut head (a; the gemma2-2b
+     and whisper serves of c), rwkv6 with the last shard's ``w_out``
+     partial dropped (c).
 
 Prints a line per check and measurement, then a ``{"kernels": [...]}``
 line, the card's name and power limit, and last
@@ -3543,12 +3564,13 @@ TPE_F32_RTOL = 1e-4
 # 28c: full width and depth, bf16: 4 rows into TPE_MAX_LEN positions,
 # TPE_STEPS decode steps on the unsharded run's greedy tokens. whisper's
 # decoder holds 448 positions (its prompt 128); rwkv's prompt is its
-# in-order loop's length (32 layers x 256 steps)
+# in-order loop's length (32 layers x 256 steps); gemma2-2b's is phase
+# 29c's (4 rows of 512 into 1024 positions)
 TPE_ROWS, TPE_STEPS = 4, 16
 TPE_PROMPT = {"rwkv6-3b": 256, "whisper-large-v3": 128,
-              "llama-3.2-vision-11b": 512}
+              "llama-3.2-vision-11b": 512, "gemma2-2b": 512}
 TPE_MAX_LEN = {"rwkv6-3b": 512, "whisper-large-v3": 448,
-               "llama-3.2-vision-11b": 1024}
+               "llama-3.2-vision-11b": 1024, "gemma2-2b": 1024}
 # rwkv6 is served in f32, then in bf16, at 28a's 4 layers and at its full
 # 32; the others in bf16 at full depth at phase 26's 2^-5 a row. Seeded
 # rwkv6 amplifies rounding with depth. A witness, the unsharded serve
@@ -3715,32 +3737,33 @@ def tpe_grads_f32(torch, arch, dev="cuda"):
 
 
 def _tpe_serve_runs(torch, np, arch, cfg, params, tokens, ctx, feed, gate,
-                    label, dev):
+                    label, dev, models=TPE_MODELS, phase="28c"):
     """The unsharded serve (fed ``feed``, or greedy itself) and the
-    sharded serve at each M fed the same tokens, each row's logits held
-    to ``gate``. Returns (the unsharded logits, its greedy tokens, {m:
-    error}, decode ms by M, prefill ms by M, failures)."""
-    kw = dict(steps=TPE_STEPS, max_len=TPE_MAX_LEN[arch], context=ctx)
+    sharded serve at each M of ``models`` fed the same tokens, each
+    row's logits held to ``gate``. Returns (the unsharded logits, its
+    greedy tokens, {m: error}, decode ms by M, prefill ms by M,
+    failures)."""
+    prompt, max_len = tokens.shape[1], TPE_MAX_LEN[arch]
+    kw = dict(steps=TPE_STEPS, max_len=max_len, context=ctx)
     ref, greedy, ms1, pre1, _, _ = _tps_serve(torch, cfg, params, tokens,
                                               feed, 1, dev, **kw)
     feed = greedy[:-1] if feed is None else feed
     failures, errs = [], {}
     step_ms, prefill_ms = {1: float(np.mean(ms1))}, {1: pre1}
     dtype = params["embed"].dtype
-    for m in TPE_MODELS:
+    for m in models:
         got, tg, ms, pre, counts, devs = _tps_serve(
             torch, cfg, params, tokens, feed, m, dev, **kw)
         errs[m] = _tps_compare(torch, ref, got)
         agree = sum(int((x == y).sum()) for x, y in zip(tg, greedy))
         total = sum(int(y.numel()) for y in greedy)
-        ok = _tps_counts_ok(cfg, m, counts, dtype, TPE_ROWS,
-                            TPE_PROMPT[arch])
+        ok = _tps_counts_ok(cfg, m, counts, dtype, TPE_ROWS, prompt)
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         step_ms[m], prefill_ms[m] = float(np.mean(ms)), pre
         per = counts[1] if len(counts) > 1 else ("", {}, {})
-        log(f"phase 28c {cfg.name} x{cfg.n_layers} {label} at full width, "
-            f"1x{m}: prefill {TPE_ROWS} x {TPE_PROMPT[arch]} tokens into "
-            f"{TPE_MAX_LEN[arch]} positions"
+        log(f"phase {phase} {cfg.name} x{cfg.n_layers} {label} at full "
+            f"width, 1x{m}: prefill {TPE_ROWS} x {prompt} tokens into "
+            f"{max_len} positions"
             + (f" on a {ctx.shape[1]}-row context" if ctx is not None
                else "")
             + f", {TPE_STEPS} decode steps teacher-forced on the unsharded "
@@ -3750,10 +3773,10 @@ def _tpe_serve_runs(torch, np, arch, cfg, params, tokens, ctx, feed, gate,
             f"== tp_serving_collectives: {ok} (a decode step: {per[1]} "
             f"calls, {per[2]} bytes); devices {sorted(devs)}")
         if not (errs[m] <= gate and ok and finite and devs == {"cuda"}):
-            failures.append(f"28c {cfg.name} {label} serving at 1x{m}")
+            failures.append(f"{phase} {cfg.name} {label} serving at 1x{m}")
         del got
-    log(f"phase 28c {cfg.name} {label}: mean decode step ms ({TPE_ROWS} "
-        f"rows, {TPE_MAX_LEN[arch]}-position cache, host wall, "
+    log(f"phase {phase} {cfg.name} {label}: mean decode step ms ({TPE_ROWS} "
+        f"rows, {max_len}-position cache, host wall, "
         f"synchronised) "
         + ", ".join(f"M {m} {v:.3f}" for m, v in step_ms.items())
         + "; prefill ms "
@@ -3785,15 +3808,17 @@ def _reversed_order(torch, params, cfg):
     return tree_mod.from_flat(flat)
 
 
-def tpe_serve(torch, np, arch, layers=None, dev="cuda"):
+def tpe_serve(torch, np, arch, layers=None, dev="cuda", models=TPE_MODELS,
+              phase="28c", fault=None):
     """28c for one arch at full width, ``layers`` deep (None: full depth):
-    ``make_prefill_fn`` / ``make_decode_fn`` on 1x2 and 1x4 against the
-    unsharded steps in bf16 (rwkv6 first in f32, each dtype at its
-    ``TPE_RWKV_GATES``, with its witness read, and its unsharded bf16
-    serve's distance from the f32 one), then 28d's reading of each run
-    at 2 shards.
-    Returns (failures, bf16 decode ms by M, bf16 prefill ms by M, peak
-    bytes, [(what, reading, gate)])."""
+    ``make_prefill_fn`` / ``make_decode_fn`` on 1xM for M in ``models``
+    (1x2 and 1x4) against the unsharded steps in bf16 (rwkv6 first in
+    f32, each dtype at its ``TPE_RWKV_GATES``, with its witness read,
+    and its unsharded bf16 serve's distance from the f32 one), then the
+    fault's reading (28d's, ``_tpe_fault``, unless ``fault`` names
+    another context) of each run at ``models[0]`` shards. Phase 29c
+    calls it at M 16 / 8. Returns (failures, bf16 decode ms by M, bf16
+    prefill ms by M, peak bytes, [(what, reading, gate)])."""
     from repro_torch import configs, tree as tree_mod
     from repro_torch.models import transformer
 
@@ -3816,6 +3841,7 @@ def tpe_serve(torch, np, arch, layers=None, dev="cuda"):
                            generator=gen, device=dev)
     ctx = _tpe_context(torch, cfg, TPE_ROWS, torch.float32, dev)
     kw = dict(steps=TPE_STEPS, max_len=TPE_MAX_LEN[arch])
+    fault = fault or _tpe_fault
     failures, faults, feed, ref32 = [], [], None, None
     for label, dtype, gate in passes:
         if params["embed"].dtype != dtype:
@@ -3823,27 +3849,30 @@ def tpe_serve(torch, np, arch, layers=None, dev="cuda"):
             torch.cuda.empty_cache()
         c = None if ctx is None else ctx.to(dtype)
         ref, greedy, _, step_ms, prefill_ms, more = _tpe_serve_runs(
-            torch, np, arch, cfg, params, tokens, c, feed, gate, label, dev)
+            torch, np, arch, cfg, params, tokens, c, feed, gate, label, dev,
+            models, phase)
         failures += more
         feed = greedy[:-1] if feed is None else feed
         if ref32 is not None:
-            log(f"phase 28c {cfg.name} x{cfg.n_layers}: the unsharded bf16 "
+            log(f"phase {phase} {cfg.name} x{cfg.n_layers}: the unsharded "
+                f"bf16 "
                 f"serve sits {_tps_compare(torch, ref32, ref):.3e} from the "
                 f"f32 one; bf16 gate {gate:.5g}")
         if rwkv:
             wit = _tps_compare(torch, ref, _tps_serve(
                 torch, cfg, _reversed_order(torch, params, cfg), tokens,
                 feed, 1, dev, **kw)[0])
-            log(f"phase 28c {cfg.name} x{cfg.n_layers} {label} witness: the "
+            log(f"phase {phase} {cfg.name} x{cfg.n_layers} {label} witness: "
+                f"the "
                 f"unsharded serve with heads and d_ff reversed (the same "
                 f"function, another summation order) reads {wit:.3e} "
                 f"(must be within the rtol {gate:.5g})")
             if not wit <= gate:
                 failures.append(f"28c {cfg.name} x{cfg.n_layers} {label}: "
                                 f"the witness exceeds its gate")
-        with _tpe_fault(arch):
-            bad = _tps_serve(torch, cfg, params, tokens, feed, 2, dev,
-                             context=c, **kw)[0]
+        with fault(arch):
+            bad = _tps_serve(torch, cfg, params, tokens, feed, models[0],
+                             dev, context=c, **kw)[0]
         faults.append((f"{arch} x{cfg.n_layers} {label}",
                        _tps_compare(torch, ref, bad), gate))
         ref32 = ref
@@ -3851,8 +3880,8 @@ def tpe_serve(torch, np, arch, layers=None, dev="cuda"):
     del params, ref, ref32
     peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
-    log(f"phase 28c {cfg.name} x{cfg.n_layers}: {time.monotonic() - t0:.1f} "
-        f"s, peak {peak / 1e9:.3f} GB")
+    log(f"phase {phase} {cfg.name} x{cfg.n_layers}: "
+        f"{time.monotonic() - t0:.1f} s, peak {peak / 1e9:.3f} GB")
     return failures, step_ms, prefill_ms, peak, faults
 
 
@@ -3904,6 +3933,219 @@ def tp_encoder_families_phase(torch, np, card, dev="cuda"):
                     for a, d in decode_ms.items()))
     if failures:
         raise AssertionError(f"phase 28 failed: {failures}")
+    return launches, dict(extra, seconds=secs, decode_ms=decode_ms,
+                          prefill_ms=prefill_ms)
+
+
+# ---- slice 17: the split inside a head (phase 29) ---------------------------
+
+# 29a: the forward, lm_loss and every gradient at full width in f32,
+# depth cut, against unsharded, at the M where the heads do not divide:
+# (decoder layers, encoder layers, M); one row of TPE_F32_SEQ tokens
+# (whisper on a seeded 1500-frame context)
+TPH_F32_CUT = {"gemma2-2b": (2, None, 16), "phi3-medium-14b": (2, None, 16),
+               "qwen1.5-32b": (2, None, 16), "rwkv6-3b": (4, None, 16),
+               "whisper-large-v3": (4, 4, 8)}
+# 29b: gemma2-2b x 4 layers (phase 10's cell) on LM_NODES x TPH_TRAIN_M
+TPH_TRAIN_M, TPH_TRAIN_STEPS = 16, 3
+# 29c: the serving steps at full width (rwkv6 at 28a's 4 layers) on 1xM,
+# M the split inside a head's; TPE_ROWS rows of TPE_PROMPT tokens,
+# TPE_STEPS decode steps on the unsharded run's greedy tokens
+TPH_SERVE = (("gemma2-2b", None, 16), ("whisper-large-v3", None, 8),
+             ("rwkv6-3b", 4, 16))
+
+
+@contextlib.contextmanager
+def _sliced_gather_backward(arch=None):
+    """29d's gradient fault: the model axis's all-gather backward as a
+    plain slice (each shard keeps its own copy's gradient of its block,
+    unsummed), where a reduce-scatter sums the score gradients of the
+    shards that share a head."""
+    from repro_torch.core import model_axis as ma
+
+    real = ma._AllGather.backward
+
+    def sliced(ctx, grad):
+        import torch
+
+        m = ctx.axis.size
+        return torch.stack([g.chunk(m, dim=ctx.dim)[i] for i, g in
+                            enumerate(grad.unbind(0))]), None, None
+
+    ma._AllGather.backward = staticmethod(sliced)
+    try:
+        yield
+    finally:
+        ma._AllGather.backward = real
+
+
+@contextlib.contextmanager
+def _neighbour_columns(arch=None):
+    """29d's forward fault: each shard reads out the next block of columns
+    of the heads it attends (a cut head read with its neighbour's V
+    columns)."""
+    from repro_torch.models import layers
+
+    real = layers._query_heads
+
+    def shifted(cfg, axis, device):
+        heads, cols = real(cfg, axis, device)
+        width = heads.shape[1] * cfg.resolved_head_dim
+        return heads, (cols + cols.shape[1]) % width
+
+    layers._query_heads = shifted
+    try:
+        yield
+    finally:
+        layers._query_heads = real
+
+
+def tph_grads_f32(torch, arch, dev="cuda"):
+    """29a for one arch: the forward, ``lm_loss`` and every gradient at
+    full width in f32 over M shards whose heads M cuts, against unsharded
+    (each within TPE_F32_RTOL of its scale), the counters against
+    ``tp_collectives``; for gemma2-2b also 29d's two readings. Returns
+    (failures, worst error, [(what, reading, gate)])."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.convert import shard_params, unshard_params
+    from repro_torch.core.model_axis import StackModelAxis, tp_collectives
+    from repro_torch.models import transformer
+
+    layers, enc_layers, m = TPH_F32_CUT[arch]
+    cfg = _tpe_cfg(arch, layers, enc_layers)
+    heads = cfg.rwkv_n_heads if cfg.family == "ssm" else cfg.n_heads
+    t0 = time.monotonic()
+    params = transformer.init_params(cfg, seed=29, dtype=torch.float32,
+                                     device=dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    tokens = torch.randint(0, cfg.vocab_size, (TPE_F32_ROWS, TPE_F32_SEQ),
+                           generator=gen, device=dev)
+    ctx = _tpe_context(torch, cfg, TPE_F32_ROWS, torch.float32, dev)
+
+    def run(p, axis, grads=True):
+        leaves, struct = tree_mod.flatten(p)
+        mine = [v.detach().requires_grad_(grads) for v in leaves]
+        with torch.set_grad_enabled(grads):
+            logits, aux = transformer.forward(
+                tree_mod.unflatten(struct, mine), cfg, tokens, context=ctx,
+                model_axis=axis)
+            loss = transformer.lm_loss(logits, tokens, cfg.vocab_size, aux,
+                                       model_axis=axis)
+        g = torch.autograd.grad(loss, mine) if grads else None
+        logits = logits.detach()
+        if axis is not None:
+            logits = torch.cat(list(logits), -1)
+        return (logits, float(loss.detach()),
+                g and tree_mod.unflatten(struct, list(g)))
+
+    ref, ref_loss, ref_g = run(params, None)
+    ref_g = tree_mod.flatten_with_paths(ref_g)
+
+    def grad_errors(g):
+        g = tree_mod.flatten_with_paths(unshard_params(g, cfg, m))
+        return {k: float((g[k] - w).abs().max()
+                         / w.abs().max().clamp_min(1e-30))
+                for k, w in ref_g.items()}
+
+    axis = StackModelAxis(m, dev)
+    shards = shard_params(params, cfg, m)
+    got, loss, g = run(shards, axis)
+    gerr = grad_errors(g)
+    del g
+    worst = max(gerr, key=gerr.get)
+    logit_err = _rel_err(torch, got, ref)
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    err = max(logit_err, loss_err, gerr[worst])
+    want = tp_collectives(cfg, m, TPE_F32_ROWS, TPE_F32_SEQ, torch.float32)
+    ok = all(axis.calls[op] == v["calls"] and axis.bytes[op] == v["bytes"]
+             for op, v in want.items())
+    finite = bool(torch.isfinite(got).all())
+    on_card = {t.device.type for t in (got, shards["embed"])} == {"cuda"}
+    log(f"phase 29a {cfg.name} x{cfg.n_layers}"
+        + (f" + {cfg.n_encoder_layers} encoder" if cfg.has_encoder else "")
+        + f" layers f32 at full width ({heads} heads over {m} shards: "
+        f"{heads / m:.4g} a shard), {TPE_F32_ROWS} x {TPE_F32_SEQ} tokens"
+        + (f" on a {ctx.shape[1]}-row context" if ctx is not None else "")
+        + f": logits max |TP - unsharded| / max |unsharded| {logit_err:.3e}, "
+        f"loss relative {loss_err:.3e}, gradients worst leaf {worst} "
+        f"{gerr[worst]:.3e} (rtol {TPE_F32_RTOL}); finite {finite}; "
+        f"model-axis calls {axis.calls} == tp_collectives: {ok}")
+    failures = []
+    if not (err <= TPE_F32_RTOL and ok and finite and on_card):
+        failures.append(f"29a {arch} f32 at {m} shards")
+    faults = []
+    if arch == "gemma2-2b":                                   # 29d
+        with _sliced_gather_backward():
+            _, _, g = run(shards, StackModelAxis(m, dev))
+        bad = grad_errors(g)
+        del g
+        faults.append((f"{arch} f32 gradients at {m} shards", "the all-"
+                       "gather's backward a plain slice",
+                       max(bad.values()), TPE_F32_RTOL))
+        with _neighbour_columns():
+            bad, _, _ = run(shards, StackModelAxis(m, dev), grads=False)
+        faults.append((f"{arch} f32 logits at {m} shards", "each shard "
+                       "reading out its neighbour's columns",
+                       _rel_err(torch, bad, ref), TPE_F32_RTOL))
+        del bad
+    del params, shards, ref, ref_g, got
+    torch.cuda.empty_cache()
+    log(f"phase 29a {cfg.name}: {time.monotonic() - t0:.1f} s")
+    return failures, err, faults
+
+
+def tp_head_split_phase(torch, np, card, dev="cuda"):
+    """Phase 29 (see the module docstring). Returns (the gather-pack
+    launches of 29b, timing extras for the kernels line)."""
+    t_phase = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    failures, faults = [], []
+    for arch in TPH_F32_CUT:                                   # 29a
+        more, _, more_f = tph_grads_f32(torch, arch, dev)
+        failures += more
+        faults += more_f
+    peak_a = torch.cuda.max_memory_allocated()
+    t_b = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _tpe_cfg("gemma2-2b", LM_LAYERS)                     # 29b
+    launches, extra, more = tp_train_cell(torch, np, card, cfg,
+                                          TPH_TRAIN_STEPS, "phase 29b", dev,
+                                          m=TPH_TRAIN_M)
+    failures += more
+    t_c = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_ms, prefill_ms, peak_c = {}, {}, {}
+    for arch, layers, m in TPH_SERVE:                          # 29c
+        fault = None if arch == "rwkv6-3b" else _neighbour_columns
+        more, decode_ms[arch], prefill_ms[arch], peak_c[arch], more_f = \
+            tpe_serve(torch, np, arch, layers, dev, models=(m,),
+                      phase="29c", fault=fault)
+        failures += more
+        faults += [(what, ("the last shard's w_out partial dropped"
+                           if fault is None else "each shard reading out "
+                           "its neighbour's columns"), got, gate)
+                   for what, got, gate in more_f]
+        gc.collect()
+    for what, how, got, gate in faults:                        # 29d
+        log(f"phase 29d fault control, {what} with {how}: {got:.3e} (must "
+            f"exceed the rtol {gate:.5g})")
+        if not got > gate:
+            failures.append(f"29d: the {what} gate does not see the fault")
+    secs = time.monotonic() - t_phase
+    log(f"phase 29 on {card}: {secs:.1f} s (29a {t_b - t_phase:.1f}, 29b "
+        f"{t_c - t_b:.1f}, 29c {time.monotonic() - t_c:.1f}); peak memory "
+        f"29a {peak_a / 1e9:.3f} GB, 29c "
+        + ", ".join(f"{a} {v / 1e9:.3f} GB" for a, v in peak_c.items())
+        + "; decode step ms "
+        + "; ".join(f"{a}: " + ", ".join(f"M {m} {v:.3f}"
+                                         for m, v in d.items())
+                    for a, d in decode_ms.items()))
+    if failures:
+        raise AssertionError(f"phase 29 failed: {failures}")
     return launches, dict(extra, seconds=secs, decode_ms=decode_ms,
                           prefill_ms=prefill_ms)
 
@@ -4292,11 +4534,11 @@ def tp_phase(torch, np, card, dev="cuda"):
 
 
 def tp_train_cell(torch, np, card, cfg, steps, phase, dev="cuda",
-                  seq_len=LM_SEQ):
-    """``cfg`` (full width, its depth cut) on LM_NODES x TP_MODEL through
-    ``launch.train.train(model_axis=StackModelAxis(TP_MODEL))`` for
+                  seq_len=LM_SEQ, m=TP_MODEL):
+    """``cfg`` (full width, its depth cut) on LM_NODES x ``m`` through
+    ``launch.train.train(model_axis=StackModelAxis(m))`` for
     ``steps`` steps of ``seq_len`` tokens, phase 10's wire (the cell of
-    phase 25, of 27b and of 28b; the audio / vlm families train on the
+    phase 25, of 27b, of 28b and of 29b; the audio / vlm families train on the
     launcher's stub context and take their gradients timed here on a
     seeded one):
     the buckets, the wire and the model-axis counters against their
@@ -4322,7 +4564,7 @@ def tp_train_cell(torch, np, card, cfg, steps, phase, dev="cuda",
     from repro_torch.train import steps as steps_mod
 
     failures = []
-    n, m = LM_NODES, TP_MODEL
+    n = LM_NODES
     mesh = parse_mesh(f"{n}x{m}")
     sdm = SDMConfig(p=0.2, theta=0.5, gamma=1e-3, sigma=1.0, clip_c=1e-4,
                     compressor="fixedk:128")        # phase 10's
@@ -5049,6 +5291,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     n, timing["fixedk_gather_pack"]["phase28"] = tp_encoder_families_phase(
+        torch, np, card)
+    launches["fixedk_gather_pack"] += n
+
+    # ---- 29. the split inside a head ---------------------------------------
+    log(f"-- phase 29 at {time.monotonic() - T_MAIN:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, timing["fixedk_gather_pack"]["phase29"] = tp_head_split_phase(
         torch, np, card)
     launches["fixedk_gather_pack"] += n
 

@@ -53,7 +53,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import KVCache
 from repro_torch.models.transformer import (Cache, Params,
                                             cache_logical_axes,
-                                            check_tensor_parallel,
                                             flat_specs, unflatten)
 
 __all__ = ["params_from_jax", "tree_from_jax", "shard_params",
@@ -168,20 +167,47 @@ def node_blocks(rules, part) -> int:
     return nodes
 
 
+_WKV_AXES = ("layers", "batch", "heads", None, None)
+
+
+def _wkv_by_columns(cfg: ModelConfig, slot: str, m: int) -> bool:
+    """Whether slot ``slot``'s rwkv time mix runs over columns on a model
+    axis of ``m``: M cuts its heads and splits their h N columns (the
+    split inside a head, ``models/rwkv``). JAX's rules then leave the WKV
+    state whole (``heads``); the port's shards hold it by columns, (layers,
+    M, b, h N / M, N), S[H, :, j] at column (H, j)."""
+    from repro_torch.train.steps import param_shard_dims
+
+    return bool(m > 1 and cfg.rwkv_n_heads % m and param_shard_dims(
+        cfg, m)[f"blocks/{slot}/time_mix/w_r"] is not None)
+
+
+def _wkv_columns(t: torch.Tensor) -> torch.Tensor:
+    """A whole WKV state (layers, b, h, N, N) -> (layers, b, h N, N), S[H,
+    :, j] at row H N + j."""
+    return t.transpose(-1, -2).reshape(tuple(t.shape[:2]) + (-1,
+                                                              t.shape[-1]))
+
+
 def shard_cache(cache: Cache, cfg: ModelConfig, rules,
                 index: Optional[int] = None) -> Cache:
     """A whole cache -> its model-axis layout under ``rules`` (copies; a
-    whole leaf is kept as it is). With ``index``, shard ``index`` alone,
-    (layers, 1, ...) (node 0's block under ``shard_cache_seq``): one
-    device's cache."""
+    whole leaf is kept as it is, but an rwkv WKV state whose heads M cuts
+    goes by columns, ``_wkv_by_columns``). With ``index``, shard
+    ``index`` alone, (layers, 1, ...) (node 0's block under
+    ``shard_cache_seq``): one device's cache."""
     m = rules.sizes.get("model", 1)
-    check_tensor_parallel(cfg, m)
     axes = cache_logical_axes(cfg).slots
     slots = {}
     for slot, kv in cache.slots.items():
         if not isinstance(kv, KVCache):             # a recurrent state
 
             def split_state(t, ax):
+                if ax == _WKV_AXES and _wkv_by_columns(cfg, slot, m):
+                    parts = _wkv_columns(t).chunk(m, dim=2)
+                    if index is not None:
+                        return parts[index].unsqueeze(1).clone()
+                    return torch.stack(parts, dim=1)
                 k = rules.split_dim(ax, t.shape)
                 if k is None or m == 1:
                     return t
@@ -217,15 +243,19 @@ def shard_cache(cache: Cache, cfg: ModelConfig, rules,
 
 def unshard_cache(cache: Cache, cfg: ModelConfig, rules) -> Cache:
     """The model-axis layout of a cache under ``rules`` -> whole leaves
-    (copies)."""
+    (copies): JAX's cache, whatever layout the shards held."""
     m = rules.sizes.get("model", 1)
-    check_tensor_parallel(cfg, m)
     axes = cache_logical_axes(cfg).slots
     slots = {}
     for slot, kv in cache.slots.items():
         if not isinstance(kv, KVCache):             # a recurrent state
 
             def join_state(t, ax):
+                if ax == _WKV_AXES and _wkv_by_columns(cfg, slot, m):
+                    whole = torch.cat(t.unbind(1), dim=2)
+                    n = cfg.rwkv_head_size
+                    return whole.reshape(tuple(whole.shape[:2])
+                                         + (-1, n, n)).transpose(-1, -2)
                 if t.dim() == len(ax):              # whole
                     return t
                 k = next(i for i, a in enumerate(ax)

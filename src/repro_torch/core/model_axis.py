@@ -239,9 +239,11 @@ def tp_collectives(cfg, m: int, batch: int, seq: int,
     forward, ``lm_loss`` and the backward) on an M-shard axis, from the
     layer list: {op: {"calls", "bytes"}}. Per attention layer with
     sharded query heads: the input's *f* (backward) and the output's *g*
-    (forward); K and V all-gathered (forward) and reduce-scattered
-    (backward) where a shard's query heads need KV heads outside its own
-    block, or copied in from a replicated K / V. Per MLP layer with a
+    (forward); where M cuts the heads (the split inside a head) Q
+    all-gathered (forward) and reduce-scattered (backward); K and V
+    all-gathered and reduce-scattered where a shard's query heads need
+    KV heads outside its own block, or copied in from a replicated K /
+    V. Per MLP layer with a
     sharded ``w_up``: *f* and *g*. Per MoE layer with sharded experts
     (by experts, or by ``mlp`` in the fallback): the rows' *f*, the
     slot gates' *f* (an (M, e, capacity) f32 stack) and the combine's
@@ -249,7 +251,9 @@ def tp_collectives(cfg, m: int, batch: int, seq: int,
     blocks of its product all-gathered (reduce-scattered backward); with
     split channels also the ``w_x_dbc`` partials' all-reduce and its *f*
     (backward), the output's *g*. Per rwkv time mix with split heads: the
-    normed input's *f* (backward) and ``w_out``'s *g*. Per rwkv channel
+    normed input's *f* (backward) and ``w_out``'s *g*; where M cuts the
+    heads also r, k and the decay's projection all-gathered (reduce-
+    scattered backward). Per rwkv channel
     mix with a split weight: the input's *f* (backward); with a split
     ``w_k`` the ``w_v`` partials' *g*; with a split ``w_r`` its product
     all-gathered (reduce-scattered backward). Per cross-attention layer
@@ -280,14 +284,18 @@ def tp_collectives(cfg, m: int, batch: int, seq: int,
     act = m * tokens * cfg.d_model * elt             # an (M, b, s, d) stack
     row = m * tokens * 4                             # an (M, b, s) f32 stack
     kv_row = cfg.n_kv_heads * cfg.resolved_head_dim * elt
+    q_row = cfg.n_heads * cfg.resolved_head_dim * elt
 
     def add(op, nbytes, calls=1, layers=cfg.n_periods):
         out[op]["calls"] += calls * layers
         out[op]["bytes"] += calls * layers * nbytes
 
-    def attention(wk_split, act, kvc, fwd, layers=cfg.n_periods):
+    def attention(wk_split, act, qc, kvc, fwd, layers=cfg.n_periods):
         add("all_reduce", act, 1, layers)            # f backward
         add("all_reduce", act, fwd, layers)          # g forward
+        if cfg.n_heads % m:                          # the split inside a head
+            add("all_gather", qc, fwd, layers)
+            add("reduce_scatter", m * qc, 1, layers)
         if wk_split and cfg.n_kv_heads % m:
             add("all_gather", kvc, 2 * fwd, layers)
             add("reduce_scatter", m * kvc, 2, layers)
@@ -296,19 +304,25 @@ def tp_collectives(cfg, m: int, batch: int, seq: int,
 
     if enc.get("attn/wq") and ctx_tokens:
         e_act = m * ctx_tokens * cfg.d_model * elt
-        attention(enc["attn/wk"], e_act, ctx_tokens * kv_row, 1,
-                  cfg.n_encoder_layers)
+        attention(enc["attn/wk"], e_act, ctx_tokens * q_row,
+                  ctx_tokens * kv_row, 1, cfg.n_encoder_layers)
         if enc.get("mlp/w_up"):                      # f backward, g forward
             add("all_reduce", e_act, 2, cfg.n_encoder_layers)
     fwd = 2 if cfg.remat else 1
     for split in slots:
         if split.get("attn/wq"):
-            attention(split["attn/wk"], act, tokens * kv_row, fwd)
+            attention(split["attn/wk"], act, tokens * q_row,
+                      tokens * kv_row, fwd)
         if split.get("time_mix/w_r"):
             add("all_reduce", act)                   # f backward
             add("all_reduce", act, fwd)              # g forward
+            if cfg.rwkv_n_heads % m:                 # r, k, w's projection
+                rd = tokens * cfg.d_model * elt
+                add("all_gather", rd, 3 * fwd)
+                add("reduce_scatter", m * rd, 3)
         if split.get("cross/wq") and ctx_tokens:
-            attention(split["cross/wk"], act, ctx_tokens * kv_row, fwd)
+            attention(split["cross/wk"], act, tokens * q_row,
+                      ctx_tokens * kv_row, fwd)
             if split["cross/wk"] and cfg.has_encoder:  # the context's f
                 add("all_reduce", m * ctx_tokens * cfg.d_model * elt)
         if split.get("mamba/w_in"):
@@ -367,22 +381,23 @@ def tp_serving_collectives(cfg, m: int, batch: int, seq: int, kind: str,
     a whole cache all-gathers K and V where ``wk`` is split; split by
     positions, the query heads and (where ``wk`` is split) K and V are
     all-gathered, then the partials' max (f32) and one all-reduce of
-    their sums and weighted sums (f32, head_dim + 1 a head). Per MLP
-    layer with a sharded ``w_up`` and per MoE layer with sharded
-    experts: the all-reduce. Per mamba layer with a split ``w_in``: the
-    all-gather of its product's blocks; with split channels (the state
-    split by channel in either layout) also the ``w_x_dbc`` partials'
-    and the output's all-reduces. Per rwkv time mix with split heads:
-    ``w_out``'s all-reduce; per channel mix the ``w_v`` partials' all-
-    reduce (split ``w_k``) and ``w_r``'s product all-gathered (split
-    ``w_r``). Per cross-attention layer (``transformer.context_len(cfg)``
-    context rows a sample; decode recomputes its K / V every step, as
-    JAX does): the output's
-    all-reduce, and K and V
-    all-gathered where ``wk`` is split and M does not divide the KV
-    heads. Prefill also runs the encoder over the context's rows: per
-    layer its attention's and its MLP's all-reduce, with the same K / V
-    all-gathers (decode takes the context encoded). A vocab-split
+    their sums and weighted sums (f32, head_dim + 1 a head); with a whole
+    cache, where M cuts the heads, Q is all-gathered. Per MLP layer with
+    a sharded ``w_up`` and per MoE layer with sharded experts: the
+    all-reduce. Per mamba layer with a split ``w_in``: the all-gather of
+    its product's blocks; with split channels (the state split by
+    channel in either layout) also the ``w_x_dbc`` partials' and the
+    output's all-reduces. Per rwkv time mix with split heads: ``w_out``'s
+    all-reduce (and r, k and the decay's projection all-gathered where M
+    cuts the heads); per channel mix the ``w_v`` partials' all-reduce
+    (split ``w_k``) and ``w_r``'s product all-gathered (split ``w_r``).
+    Per cross-attention layer (``transformer.context_len(cfg)`` context
+    rows a sample; decode recomputes its K / V every step, as JAX does):
+    the output's all-reduce, and K and V all-gathered where ``wk`` is
+    split and M does not divide the KV heads; Q all-gathered where M
+    cuts the heads. Prefill also runs the encoder over the context's
+    rows: per layer its attention's and its MLP's all-reduce, with the
+    same K / V all-gathers (decode takes the context encoded). A vocab-split
     embedding's all-reduce. No gradient: *f* counts nothing."""
     from repro_torch.models.transformer import context_len
 
@@ -402,21 +417,26 @@ def tp_serving_collectives(cfg, m: int, batch: int, seq: int, kind: str,
         out[op]["calls"] += calls * layers
         out[op]["bytes"] += calls * layers * nbytes
 
-    def unmasked(wk_split, act, rows, layers=cfg.n_periods):
+    def unmasked(wk_split, act, q_rows, rows, layers=cfg.n_periods):
         add("all_reduce", act, 1, layers)            # g of wo
+        if h % m:                                    # the split inside a head
+            add("all_gather", q_rows * h * hd * elt, 1, layers)
         if wk_split and kvh % m:
             add("all_gather", rows * kvh * hd * elt, 2, layers)
 
     if kind == "prefill" and enc.get("attn/wq") and ctx_tokens:
         e_act = m * ctx_tokens * cfg.d_model * elt
-        unmasked(enc["attn/wk"], e_act, ctx_tokens, cfg.n_encoder_layers)
+        unmasked(enc["attn/wk"], e_act, ctx_tokens, ctx_tokens,
+                 cfg.n_encoder_layers)
         if enc.get("mlp/w_up"):
             add("all_reduce", e_act, 1, cfg.n_encoder_layers)
     for split in slots:
         if split.get("cross/wq") and ctx_tokens:
-            unmasked(split["cross/wk"], act, ctx_tokens)
+            unmasked(split["cross/wk"], act, tokens, ctx_tokens)
         if split.get("time_mix/w_r"):
             add("all_reduce", act)
+            if cfg.rwkv_n_heads % m:                 # r, k, w's projection
+                add("all_gather", tokens * cfg.d_model * elt, 3)
         if split.get("channel_mix/w_k"):
             add("all_reduce", act)
         if split.get("channel_mix/w_r"):
@@ -426,8 +446,9 @@ def tp_serving_collectives(cfg, m: int, batch: int, seq: int, kind: str,
             kv_gather = split["attn/wk"] and (kind == "decode" or kvh % m)
             if kv_gather:
                 add("all_gather", tokens * kvh * hd * elt, 2)
-            if kind == "decode":
+            if kind == "decode" or h % m:            # Q gathered
                 add("all_gather", tokens * h * hd * elt)
+            if kind == "decode":
                 add("all_max", m * tokens * h * 4)
                 add("all_reduce", m * tokens * h * (hd + 1) * 4)
         if split.get("mamba/w_in"):

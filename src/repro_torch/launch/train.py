@@ -8,8 +8,9 @@ The counterpart of ``repro.launch.train``, with the same flags plus
 versions of the kernels). ``--mesh N`` simulates N edge nodes, all held
 on the one device as one node block; ``--mesh NxM`` splits each node's
 model over a ``model`` axis of M shards, held as a stack on the same
-device (``core/model_axis``: every family, while M splits the heads
-whole; the wire planes take JAX's tensor-parallel buckets):
+device (``core/model_axis``: every family, at any M that JAX's rules
+split a weight by, heads M does not divide split inside a head; the
+wire planes take JAX's tensor-parallel buckets):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
       --smoke --mesh 2x2 --steps 3 --compressor fixedk:8 --device cpu
@@ -211,8 +212,8 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", default="2",
                     help="N or NxM: N simulated edge nodes, each node's "
                          "model split over a model axis of M shards "
-                         "(tensor parallelism: every family, while M "
-                         "splits the heads whole)")
+                         "(tensor parallelism: every family; heads M "
+                         "does not divide split inside a head)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--global-batch", type=int, default=None)
     ap.add_argument("--seq-len", type=int, default=None)
@@ -323,9 +324,7 @@ def main(argv=None) -> None:
     model_axis = None
     if mesh.model > 1:
         from repro_torch.core.model_axis import StackModelAxis
-        from repro_torch.models.transformer import check_tensor_parallel
 
-        check_tensor_parallel(cfg, mesh.model)
         model_axis = StackModelAxis(mesh.model, dev)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"arch={cfg.name} mesh={mesh.shape} nodes={n_nodes} "

@@ -273,8 +273,10 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     by positions (``cache_nodes`` node blocks a shard under
     ``shard_cache_seq``) or whole. A block whose ``wq`` the divisibility
     fallback left whole runs as without the axis (with a whole cache).
-    Ragged offsets, and a model-axis cache beside a whole ``wq``, raise
-    (ROADMAP Queue 1: ragged offsets under a model axis).
+    Heads that M does not divide split inside a head, as JAX's rules
+    split ``heads_flat`` (``_query_heads``). Ragged offsets (ROADMAP
+    Queue 1: ragged offsets under a model axis), and a model-axis cache
+    beside a whole ``wq``, raise.
     """
     if model_axis is not None and (_split(params["wq"], 2)
                                    or (cache is not None
@@ -291,8 +293,9 @@ def attention_apply(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                 "steps share the scalar offset")
         if not _split(params["wq"], 2):
             raise NotImplementedError(
-                "a model-axis cache beside a whole wq is not ported "
-                "(ROADMAP Queue 1, the split inside a head)")
+                "a model-axis cache beside a wq the divisibility fallback "
+                "left whole (M does not divide its columns) is not ported "
+                "(ROADMAP Queue 1, a whole wq beside a split cache)")
         return _attention_tp_cached(
             params, cfg, x, positions=positions, layer_kind=layer_kind,
             cache=cache, offset=int(cache_offset), axis=model_axis,
@@ -454,39 +457,61 @@ def _bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
 
 
-def _kv_of_own_heads(t: torch.Tensor, cfg: ModelConfig,
-                     axis) -> torch.Tensor:
-    """(L, b, s, kv heads x hd), every shard holding every KV head ->
-    (L, b, s, hq x hd): each local shard's copy of the KV head of each of
-    its ``hq = n_heads / M`` query heads (GQA group 1 from here on)."""
-    hd = cfg.resolved_head_dim
-    hq = cfg.n_heads // axis.size
-    group = cfg.n_heads // cfg.n_kv_heads
-    ids = axis.shard_ids(t.device)
-    idx = (ids[:, None] * hq + torch.arange(hq, device=t.device)) // group
-    t = t.reshape(tuple(t.shape[:3]) + (cfg.n_kv_heads, hd))
-    idx = idx[:, None, None, :, None].expand(
-        tuple(t.shape[:3]) + (hq, hd))
-    return torch.gather(t, 3, idx).reshape(tuple(t.shape[:3]) + (hq * hd,))
+def _query_heads(cfg: ModelConfig, axis, device):
+    """The query heads each local shard attends, (L, T), and where its
+    block of ``wq``'s columns lies among their T hd output columns, (L,
+    c), or None where M divides the heads (each shard's block is then
+    exactly its ``n_heads / M`` heads). Otherwise M splits the columns
+    inside a head (the split inside a head, as GSPMD splits
+    ``heads_flat``): shard i's c = h hd / M columns start at i c and touch
+    the heads from i c // hd; T is the most any shard touches, and a
+    shard that touches fewer repeats the last head (its columns are never
+    read out)."""
+    h, hd, m = cfg.n_heads, cfg.resolved_head_dim, axis.size
+    ids = axis.shard_ids(device)
+    if h % m == 0:
+        hq = h // m
+        return ids[:, None] * hq + torch.arange(hq, device=device), None
+    c = h * hd // m
+    t = max(((i + 1) * c - 1) // hd - i * c // hd + 1 for i in range(m))
+    first = ids * c // hd
+    heads = (first[:, None] + torch.arange(t, device=device)).clamp_max(h - 1)
+    cols = (ids * c - first * hd)[:, None] + torch.arange(c, device=device)
+    return heads, cols
+
+
+def _take_heads(t: torch.Tensor, heads: torch.Tensor,
+                hd: int) -> torch.Tensor:
+    """(L, b, s, H hd), every shard holding every head -> (L, b, s, T hd):
+    each local shard's copy of its heads ``heads`` (L, T)."""
+    lead = tuple(t.shape[:3])
+    t = t.reshape(lead + (-1, hd))
+    idx = heads[:, None, None, :, None].expand(lead + (heads.shape[1], hd))
+    return torch.gather(t, 3, idx).reshape(lead + (-1,))
+
+
+def _read_out(out: torch.Tensor, cols: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """Each shard's attention over its heads, (L, b, s, T hd) -> its own
+    output columns (L, b, s, c), the rows of its block of ``wo``."""
+    if cols is None:
+        return out
+    return torch.gather(out, 3, cols[:, None, None].expand(
+        tuple(out.shape[:3]) + (cols.shape[1],)))
 
 
 def _tp_project(params, cfg: ModelConfig, x: torch.Tensor, axis,
                 kv_source: Optional[torch.Tensor] = None):
     """The shards' shared pre-attention stage: the norm, *f*, each
-    shard's query heads from its block of ``wq``, (L, b, s, hq hd); K / V
-    from each shard's block of ``wk`` / ``wv``, (L, b, s, c), where they
-    are split (``kv`` "own": the block is exactly its query heads' KV
-    heads, ``n_kv_heads % M == 0``; "gather": columns that cut a head),
-    or once from the replicated norm, (b, s, kvh hd), where the
+    shard's block of Q from its block of ``wq``, (L, b, s, h hd / M); K /
+    V from each shard's block of ``wk`` / ``wv``, (L, b, s, c), where
+    they are split (``kv`` "own": the block is exactly its query heads'
+    KV heads, ``n_kv_heads % M == 0``; "gather": columns that cut a
+    head), or once from the replicated norm, (b, s, kvh hd), where the
     divisibility fallback left them whole ("whole"). Cross-attention
     takes K / V from the replicated ``kv_source`` instead (through its
     own *f* where ``wk`` is split). Returns (residual, q, k, v, kv)."""
     m = axis.size
-    if cfg.n_heads % m:
-        raise NotImplementedError(
-            f"{cfg.n_heads} query heads do not split whole over a model "
-            f"axis of {m} (JAX's GSPMD splits inside a head): the split "
-            "inside a head, not ported (ROADMAP Queue 1)")
     residual = x
     h = rms_norm(x, params["norm"], cfg.norm_eps,
                  plus_one=cfg.post_block_norm)
@@ -535,24 +560,34 @@ def _attention_tp(params, cfg: ModelConfig, x: torch.Tensor, *,
                   kv_source: Optional[torch.Tensor] = None,
                   causal: bool = True, use_rope: bool = True):
     """Megatron's attention: the input copied into the shards, each
-    shard's query heads from its block of ``wq`` (heads split whole,
-    GQA groups kept), its output through its rows of ``wo``, the partial
-    sums all-reduced before ``post_norm`` and the residual add. K / V:
-    from the shard's own block of ``wk`` / ``wv`` where it holds exactly
-    its query heads' KV heads (``n_kv_heads % M == 0``); otherwise every
-    shard gathers the whole K / V (split ``wk``: all-gathered from the
-    blocks; ``wk`` left whole: computed once, copied in) and takes its
-    query heads' KV heads. Cross-attention (``kv_source``, the
-    replicated context) and the encoder (``causal=False,
-    use_rope=False``) rotate nothing; cross-attention masks nothing."""
-    n = axis.local
+    shard's block of Q from its block of ``wq``, its output through its
+    rows of ``wo``, the partial sums all-reduced before ``post_norm`` and
+    the residual add. Where M divides the heads a shard's block is its
+    query heads (GQA groups kept). Where it does not (the split inside a
+    head, ``_query_heads``) Q is all-gathered and each shard attends the
+    whole heads its block touches, then reads out its own columns; the
+    all-gather's backward, a reduce-scatter, sums the score gradients of
+    the shards that share a head. K / V: from the shard's own block of
+    ``wk`` / ``wv`` where it holds exactly its query heads' KV heads
+    (``n_kv_heads % M == 0``); otherwise every shard gathers the whole K
+    / V (split ``wk``: all-gathered from the blocks; ``wk`` left whole:
+    computed once, copied in) and takes its query heads' KV heads.
+    RoPE rotates whole heads, after any gather. Cross-attention
+    (``kv_source``, the replicated context) and the encoder
+    (``causal=False, use_rope=False``) rotate nothing; cross-attention
+    masks nothing."""
+    n, hd = axis.local, cfg.resolved_head_dim
     residual, q, k, v, kv = _tp_project(params, cfg, x, axis, kv_source)
+    heads, cols = _query_heads(cfg, axis, x.device)
+    if cols is not None:
+        q = _take_heads(axis.all_gather(q), heads, hd)
+    kv_heads = heads // (cfg.n_heads // cfg.n_kv_heads)
     if kv == "gather":
-        k = _kv_of_own_heads(axis.all_gather(k), cfg, axis)
-        v = _kv_of_own_heads(axis.all_gather(v), cfg, axis)
+        k = _take_heads(axis.all_gather(k), kv_heads, hd)
+        v = _take_heads(axis.all_gather(v), kv_heads, hd)
     elif kv == "whole":
-        k = _kv_of_own_heads(axis.copy_in(k), cfg, axis)
-        v = _kv_of_own_heads(axis.copy_in(v), cfg, axis)
+        k = _take_heads(axis.copy_in(k), kv_heads, hd)
+        v = _take_heads(axis.copy_in(v), kv_heads, hd)
     b, s = x.shape[:2]
     skv = k.shape[2]
     pos = positions.repeat(n, 1)                     # the shards fold into b
@@ -572,7 +607,8 @@ def _attention_tp(params, cfg: ModelConfig, x: torch.Tensor, *,
     out = _attend(q, k, v, chunk_q=cfg.attn_chunk_q, q_positions=pos,
                   kv_positions=kv_pos, causal=causal, window=window,
                   softcap_val=cfg.attn_softcap, kv_valid_len=None)
-    return _tp_out(params, cfg, out.reshape(n, b, s, -1), residual, axis)
+    return _tp_out(params, cfg, _read_out(out.reshape(n, b, s, -1), cols),
+                   residual, axis)
 
 
 # ---- with a dense cache (the serving steps) --------------------------------
@@ -593,12 +629,15 @@ def _attention_tp_cached(params, cfg: ModelConfig, x: torch.Tensor, *,
     ``offset`` and each query attends the cache's valid prefix, as the
     plain path does.
 
-    A cache split by KV heads, (L, b, max_len, kvh / M, hd): each shard
-    writes and attends its own KV heads with its own query heads. A
-    whole cache, (b, max_len, kvh, hd), held once: the whole K / V
-    (all-gathered where ``wk`` is split) are written once and each shard
-    reads its query heads' KV heads from it. A cache split by positions,
-    (L, b, l, kvh, hd): ``_attention_seq_split``."""
+    A cache split by KV heads, (L, b, max_len, kvh / M, hd) (M divides
+    the KV heads, so the query heads too): each shard writes and attends
+    its own KV heads with its own query heads. A whole cache, (b,
+    max_len, kvh, hd), held once: the whole K / V (all-gathered where
+    ``wk`` is split) are written once and each shard reads its query
+    heads' KV heads from it; where M cuts the query heads, each shard
+    attends the whole heads its block touches from the all-gathered Q
+    and reads out its own columns, as ``_attention_tp``. A cache split
+    by positions, (L, b, l, kvh, hd): ``_attention_seq_split``."""
     window = cfg.sliding_window if layer_kind == "attn_local" else None
     residual, q, k, v, kv = _tp_project(params, cfg, x, axis)
     if cache.k.dim() == 5 and cache.k.shape[3] == cfg.n_kv_heads:
@@ -609,11 +648,8 @@ def _attention_tp_cached(params, cfg: ModelConfig, x: torch.Tensor, *,
     n, hd = axis.local, cfg.resolved_head_dim
     b, s = x.shape[:2]
     pos = positions.repeat(n, 1)
+    heads, cols = _query_heads(cfg, axis, x.device)
     if cache.k.dim() == 5:                            # split by KV heads
-        if kv != "own":
-            raise NotImplementedError(
-                "a cache split by KV heads needs wk split by whole heads "
-                "(ROADMAP Queue 1, the split inside a head)")
         new_k = _rope_heads(k.reshape(n * b, s, -1), cfg, pos)
         cache.k[:, :, offset:offset + s] = new_k.reshape(
             (n, b, s) + tuple(cache.k.shape[3:])).to(cache.k.dtype)
@@ -627,10 +663,13 @@ def _attention_tp_cached(params, cfg: ModelConfig, x: torch.Tensor, *,
         cache.v[:, offset:offset + s] = _whole_kv(v, kv, axis).reshape(
             (b, s) + tuple(cache.v.shape[2:])).to(cache.v.dtype)
         length = cache.k.shape[1]
-        ck, cv = (_kv_of_own_heads(
+        kv_heads = heads // (cfg.n_heads // cfg.n_kv_heads)
+        ck, cv = (_take_heads(
             c.reshape(b, length, -1).unsqueeze(0).expand(
-                n, b, length, cfg.n_kv_heads * hd), cfg, axis).reshape(
+                n, b, length, cfg.n_kv_heads * hd), kv_heads, hd).reshape(
             n * b, length, -1, hd) for c in (cache.k, cache.v))
+    if cols is not None:
+        q = _take_heads(axis.all_gather(q), heads, hd)
     q = _rope_heads(q.reshape(n * b, s, -1), cfg, pos)
     length = ck.shape[1]
     kv_pos = torch.arange(length, device=x.device).expand(n * b, length)
@@ -638,7 +677,8 @@ def _attention_tp_cached(params, cfg: ModelConfig, x: torch.Tensor, *,
     out = _attend(q, ck, cv, chunk_q=cfg.attn_chunk_q, q_positions=pos,
                   kv_positions=kv_pos, causal=True, window=window,
                   softcap_val=cfg.attn_softcap, kv_valid_len=valid)
-    return _tp_out(params, cfg, out.reshape(n, b, s, -1), residual, axis)
+    return _tp_out(params, cfg, _read_out(out.reshape(n, b, s, -1), cols),
+                   residual, axis)
 
 
 def seq_split_positions(axis, local_len: int, nodes: int,
@@ -692,8 +732,9 @@ def _attention_seq_split(cfg: ModelConfig, q, k, v, kv: str, *,
     and weight 0. Under ``shard_cache_seq`` the two collectives span
     ("data", "model"), all N M partials: each is one collective and is
     counted once, on the model axis (a stack merges its N node blocks
-    inside its own partial). Returns each shard's heads of the merged
-    output, (L, b, s, hq hd), in V's dtype."""
+    inside its own partial). Returns each shard's columns of the merged
+    output, (L, b, s, h hd / M), in V's dtype (a block that cuts a head
+    reads out its own columns of it)."""
     hd = cfg.resolved_head_dim
     b, s = positions.shape
     kvh = cfg.n_kv_heads

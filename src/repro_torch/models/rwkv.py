@@ -27,11 +27,21 @@ local), the rows of ``decay_bias`` / ``bonus_u`` (``heads``) and of
 the ``mix_*`` vectors are replicated. The normed input enters the shards
 through *f* and each shard forms the token shift and the lerps from it
 alike; the WKV loop runs over the shard's heads with a state of (L, b,
-h/M, N, N). Channel mix: ``w_k`` split by columns and ``w_v`` by rows
-(partials all-reduced), ``w_r`` (``embed``, ``mlp``) by columns, its
-product all-gathered before ``r * kv``, as GSPMD reshards it; a weight
-the divisibility fallback leaves whole multiplies one copy of the
-replicated lerp. The token-shift states stay whole.
+h/M, N, N). Where M does not divide the heads but splits their h N
+columns (the split inside a head; ``decay_bias`` / ``bonus_u`` then stay
+whole, as JAX's rules leave ``heads``): output column j of head H needs
+the whole head's r, k, w and u but only column j of v, and its state
+only S[H, :, j]. So each shard all-gathers r, k and the decay's
+projection, takes the head of each of its own columns (``_column_heads``)
+and runs the loop over its columns with its own v, a state of (L, b,
+h N/M, N) (``S[H, :, j]`` of column (H, j)); the all-gathers' backward,
+a reduce-scatter, sums the gradients of the shards that share a head.
+``w_g`` and ``w_out`` split as before. Channel mix: ``w_k`` split by
+columns and ``w_v`` by rows (partials all-reduced), ``w_r`` (``embed``,
+``mlp``) by columns, its product all-gathered before ``r * kv``, as
+GSPMD reshards it; a weight the divisibility fallback leaves whole
+multiplies one copy of the replicated lerp. The token-shift states stay
+whole.
 """
 from __future__ import annotations
 
@@ -91,25 +101,29 @@ def rwkv_channel_mix_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def init_rwkv_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                     device, model_axis=None) -> RWKVState:
     """Zeros; over ``model_axis`` the WKV state split by heads, (L, b,
-    h/M, N, N)."""
+    h/M, N, N), or, where M cuts the heads, by columns, (L, b, h N/M,
+    N)."""
     d, h, n = cfg.d_model, cfg.rwkv_n_heads, cfg.rwkv_head_size
     wkv = (batch, h, n, n)
     if model_axis is not None:
-        wkv = (model_axis.local, batch, _local_heads(cfg, model_axis), n, n)
+        m = model_axis.size
+        wkv = (model_axis.local, batch) + (
+            (h // m, n, n) if h % m == 0 else (h * n // m, n))
     return RWKVState(
         att_shift=torch.zeros((batch, d), dtype=dtype, device=device),
         ffn_shift=torch.zeros((batch, d), dtype=dtype, device=device),
         wkv=torch.zeros(wkv, dtype=torch.float32, device=device))
 
 
-def _local_heads(cfg: ModelConfig, axis) -> int:
-    h, m = cfg.rwkv_n_heads, axis.size
-    if h % m:
-        raise NotImplementedError(
-            f"{h} rwkv heads do not split whole over a model axis of {m} "
-            "(JAX's GSPMD splits inside a head): the split inside a head, "
-            "not ported (ROADMAP Queue 1)")
-    return h // m
+def _column_heads(cfg: ModelConfig, axis, device):
+    """The head of each of a local shard's h N / M columns, (L, c), where
+    M cuts the heads; None where it divides them."""
+    h, n, m = cfg.rwkv_n_heads, cfg.rwkv_head_size, axis.size
+    if h % m == 0:
+        return None
+    c = h * n // m
+    ids = axis.shard_ids(device)
+    return (ids[:, None] * c + torch.arange(c, device=device)) // n
 
 
 def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
@@ -136,9 +150,13 @@ def _stacked_input(h: torch.Tensor, prev: torch.Tensor, axis):
     return hs, _shift(hs, prev.expand((hs.shape[0],) + tuple(prev.shape)))
 
 
-def _time_mix_projections(params, cfg: ModelConfig, x, x_prev, axis=None):
+def _time_mix_projections(params, cfg: ModelConfig, x, x_prev, axis=None,
+                          cols=None):
     """(r, k, v, g, w): r, k, v, w (..., s, heads, N) over the shard's
-    heads, g (..., s, d) (the shard's block over ``axis``)."""
+    heads, g (..., s, d) (the shard's block over ``axis``). With
+    ``cols`` (``_column_heads``): r, k, w (L, b, s, c, N) of the head of
+    each of the shard's c columns (all-gathered), v and g (L, b, s, c)
+    its own columns."""
     n = cfg.rwkv_head_size
     mm = torch.matmul if axis is None else _bmm
     lead = tuple(x.shape[:-1])
@@ -147,15 +165,27 @@ def _time_mix_projections(params, cfg: ModelConfig, x, x_prev, axis=None):
     xv = _lerp(params["mix_v"], x, x_prev)
     xw = _lerp(params["mix_w"], x, x_prev)
     xg = _lerp(params["mix_g"], x, x_prev)
-    r = mm(xr, params["w_r"]).reshape(lead + (-1, n))
-    k = mm(xk, params["w_k"]).reshape(lead + (-1, n))
-    v = mm(xv, params["w_v"]).reshape(lead + (-1, n))
     g = F.silu(mm(xg, params["w_g"]))
     bias = params["decay_bias"]
-    if axis is not None:
-        bias = bias[:, None, None]
+    if cols is not None:
+
+        def heads(t):          # each column's whole head, from the gather
+            full = axis.all_gather(t).reshape(lead + (-1, n))
+            idx = cols[:, None, None, :, None].expand(
+                lead + (cols.shape[1], n))
+            return torch.gather(full, -2, idx)
+
+        r, k = heads(mm(xr, params["w_r"])), heads(mm(xk, params["w_k"]))
+        v = mm(xv, params["w_v"])
+        wlog = heads(mm(xw, params["w_decay"])) + bias[cols][:, None, None]
+    else:
+        r = mm(xr, params["w_r"]).reshape(lead + (-1, n))
+        k = mm(xk, params["w_k"]).reshape(lead + (-1, n))
+        v = mm(xv, params["w_v"]).reshape(lead + (-1, n))
+        if axis is not None:
+            bias = bias[:, None, None]
+        wlog = mm(xw, params["w_decay"]).reshape(lead + (-1, n)) + bias
     # Finch data-dependent decay in (0, 1): exp(-exp(.)) of a projection.
-    wlog = mm(xw, params["w_decay"]).reshape(lead + (-1, n)) + bias
     w = torch.exp(-torch.exp(wlog.float()))
     return r, k, v, g, w
 
@@ -176,16 +206,20 @@ def rwkv_time_mix(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, RWKVState]:
     """Full-sequence time-mix. x: (b, s, d). Over ``model_axis`` (module
     docstring) x and the output stay replicated and ``state.wkv`` is
-    split by heads, (L, b, h/M, N, N)."""
+    split by heads, (L, b, h/M, N, N), or by columns where M cuts the
+    heads, (L, b, h N/M, N)."""
     s = x.shape[1]
     axis = _tp(model_axis, params["w_r"])
-    if axis is not None:
-        _local_heads(cfg, axis)
+    cols = None if axis is None else _column_heads(cfg, axis, x.device)
     residual = x
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     hx, x_prev = _stacked_input(h, state.att_shift, axis)
-    r, k, v, g, w = _time_mix_projections(params, cfg, hx, x_prev, axis)
+    r, k, v, g, w = _time_mix_projections(params, cfg, hx, x_prev, axis,
+                                          cols)
     u = params["bonus_u"].float()
+    if cols is not None:
+        return _time_mix_columns(params, x, h, state, r, k, v, g, w,
+                                 u[cols], axis)
     if axis is not None:
         u = u[:, None, None]                     # (L, 1, 1, h/M, N)
 
@@ -205,6 +239,25 @@ def rwkv_time_mix(params: Dict[str, torch.Tensor], cfg: ModelConfig,
         out = axis.all_reduce(_bmm(o, params["w_out"]))
     new_state = state._replace(att_shift=h[:, -1, :], wkv=S)
     return residual + out, new_state
+
+
+def _time_mix_columns(params, x, h, state, r, k, v, g, w, u, axis):
+    """The WKV loop over each shard's columns where M cuts the heads: r,
+    k, w (L, b, s, c, N) of each column's head, v, g (L, b, s, c), u (L,
+    c, N); the state (L, b, c, N), S[H, :, j] of column (H, j). Column
+    (H, j) reads out o = sum_i r_i (u_i k_i v_j + S[i]) and carries S =
+    w S + k v_j: the terms the whole head's loop forms for it."""
+    kv = (k * v[..., None]).float()              # k^T v's column j, f32
+    ukv = u[:, None, None] * kv
+    r32 = r.float()
+    S = state.wkv
+    outs = []
+    for t in range(x.shape[1]):
+        outs.append((r32[:, :, t] * (S + ukv[:, :, t])).sum(-1))
+        S = w[:, :, t] * S + kv[:, :, t]
+    o = torch.stack(outs, dim=2).to(x.dtype) * g
+    out = axis.all_reduce(_bmm(o, params["w_out"]))
+    return x + out, state._replace(att_shift=h[:, -1, :], wkv=S)
 
 
 def rwkv_channel_mix(params, cfg: ModelConfig, x: torch.Tensor,

@@ -46,7 +46,7 @@ from repro_torch.models.layers import (KVCache, ParamSpec, _bmm, _split,
                                        softcap)
 
 __all__ = ["model_specs", "param_shapes", "param_axes", "cache_logical_axes",
-           "check_tensor_parallel", "flat_specs", "init_params",
+           "flat_specs", "init_params",
            "forward", "lm_loss", "init_cache", "prefill", "decode_step",
            "decode_step_paged", "encode_context", "stub_context",
            "context_len", "Cache",
@@ -451,7 +451,7 @@ def encode_context(params: Params, cfg: ModelConfig,
     over ``model_axis`` from ``params`` in the model-axis layout, the
     result replicated."""
     return _encode_context(params, cfg, context,
-                           _tp_axis(cfg, model_axis))
+                           _tp_axis(model_axis))
 
 
 def _encode_context(params: Params, cfg: ModelConfig,
@@ -505,38 +505,10 @@ def _period(params: Params, cfg: ModelConfig, i: int, x: torch.Tensor,
     return x, aux
 
 
-def check_tensor_parallel(cfg: ModelConfig, m: int) -> None:
-    """Raises where the tensor-parallel forward of ``cfg`` over a model
-    axis of ``m`` shards is not ported: query heads (of the decoder, the
-    cross-attention or the encoder) or rwkv heads that ``m`` does not
-    divide while JAX's rules split their columns, which GSPMD splits
-    inside a head (ROADMAP Queue 1: the split inside a head). Every
-    family runs otherwise. Ragged offsets under a model axis raise in
-    ``layers.attention_apply``, and rule overrides in the serving steps
-    and the dry-run (ROADMAP Queue 1, item 5d)."""
-    if m <= 1:
-        return
-    from repro_torch.train.steps import param_shard_dims
-
-    dims = param_shard_dims(cfg, m)
-    heads = [(cfg.n_heads, k) for k in dims
-             if k.endswith(("/attn/wq", "/cross/wq"))]
-    heads += [(cfg.rwkv_n_heads, k) for k in dims
-              if k.endswith("/time_mix/w_r")]
-    for h, key in heads:
-        if dims[key] is not None and h % m:
-            raise NotImplementedError(
-                f"{cfg.name}: {h} heads do not split whole over a model "
-                f"axis of {m} ({key}; JAX's GSPMD splits inside a head): "
-                "the split inside a head, not ported (ROADMAP Queue 1)")
-
-
-def _tp_axis(cfg: ModelConfig, model_axis):
-    """``model_axis``, or None for none or a single shard; what
-    ``check_tensor_parallel`` refuses raises under M > 1."""
+def _tp_axis(model_axis):
+    """``model_axis``, or None for none or a single shard."""
     if model_axis is None or model_axis.size == 1:
         return None
-    check_tensor_parallel(cfg, model_axis.size)
     return model_axis
 
 
@@ -551,9 +523,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``model_axis`` (``core/model_axis``, M > 1 shards) runs the model
     tensor-parallel over ``params`` in the model-axis layout
     (``convert.shard_params``); the logits then come vocab-split, (M, b,
-    s, V/M), for ``lm_loss(..., model_axis=)``. What
-    ``check_tensor_parallel`` refuses raises."""
-    model_axis = _tp_axis(cfg, model_axis)
+    s, V/M), for ``lm_loss(..., model_axis=)``. Every family runs;
+    heads that M does not divide split inside a head, as JAX's rules
+    split their columns."""
+    model_axis = _tp_axis(model_axis)
     x, positions = _embed_prompt(params, cfg, tokens, model_axis)
     ctx = _encode_context(params, cfg, context, model_axis)
     auxs = []
@@ -629,15 +602,14 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     keeps their hidden states exact -- recurrent models need equal
     lengths, their state would consume the padding).
 
-    ``model_axis`` (M > 1 shards; ``check_tensor_parallel``'s refusals
-    raise): ``params`` and ``cache`` in their
+    ``model_axis`` (M > 1 shards): ``params`` and ``cache`` in their
     model-axis layouts (``convert.shard_params``,
     ``convert.shard_cache``); the logits come back vocab-split, (M, b,
     V/M), as ``forward``'s do. ``cache_nodes``: the node blocks of a
     cache split by positions over ("data", "model") (``shard_cache_seq``).
     """
     b, s = tokens.shape
-    model_axis = _tp_axis(cfg, model_axis)
+    model_axis = _tp_axis(model_axis)
     x, positions = _embed_prompt(params, cfg, tokens, model_axis)
     ctx = _encode_context(params, cfg, context, model_axis)
     states: Dict[str, List[Any]] = {}
@@ -674,7 +646,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     positions is the flash-decoding layout); ragged ``offsets`` raise
     under it."""
     b = token.shape[0]
-    model_axis = _tp_axis(cfg, model_axis)
+    model_axis = _tp_axis(model_axis)
     x = _embed_tokens(params, cfg, token[:, None], model_axis)
     if offsets is not None:
         positions = offsets[:, None]

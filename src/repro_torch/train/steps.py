@@ -145,8 +145,6 @@ def _serving_fn(cfg: ModelConfig, mesh, *, decode: bool,
     dev = resolve_device(device, allow_meta=True)
     if model_axis is None and mesh.model > 1:
         model_axis = StackModelAxis(mesh.model, dev)
-    if model_axis is not None:
-        transformer.check_tensor_parallel(cfg, model_axis.size)
     nodes = node_blocks(rules, rules_map.get("cache_seq"))
     run = transformer.decode_step if decode else transformer.prefill
 
@@ -335,7 +333,6 @@ def node_grads(cfg: ModelConfig, x_block: PyTree, tokens: torch.Tensor,
     m = _model_of(model_axis)
     if m > 1:
         from repro_torch.convert import shard_params, unshard_params
-        transformer.check_tensor_parallel(cfg, m)
         # a one-shard axis (the dry-run's) holds shard ``index`` alone
         index = getattr(model_axis, "index", None)
     axis = model_axis if m > 1 else None
@@ -389,8 +386,6 @@ def make_distributed_train(tc: DistributedTrainConfig, transport,
     """
     cfg = tc.model
     model = _model_of(model_axis)
-    if model > 1:
-        transformer.check_tensor_parallel(cfg, model)
     meth, mcfg = tc.resolved()
     seq = gossip_schedule(tc, transport.n)
     if getattr(mcfg, "overlap", False) and gossip.needs_replicas(seq):

@@ -1,28 +1,34 @@
 """The JAX side of the tensor-parallel family tests, and their shared
 port-side checks (``tests/test_torch_tp_moe.py``,
 ``tests/test_torch_tp_mamba.py``, ``tests/test_torch_tp_rwkv.py``,
-``tests/test_torch_tp_encoder.py``).
+``tests/test_torch_tp_encoder.py``, ``tests/test_torch_tp_head_split.py``).
 
-Run as a script, one case per process (``XLA_FLAGS`` must be set before
-jax imports; 4 faked CPU devices)::
+Run as a script (``XLA_FLAGS`` must be set before jax imports; 4 faked
+CPU devices)::
 
   python tests/helpers/tp_family_check.py train ARCH SLOTS OUT.npz
   python tests/helpers/tp_family_check.py serve ARCH MESH[,MESH] OUT.npz
   python tests/helpers/tp_family_check.py forward ARCH VARIANTS OUT.npz
+  python tests/helpers/tp_family_check.py many - JOBS OUT.npz
 
 ``train``: the JAX package's ``make_distributed_train`` on a ``2x2`` mesh
 (sdm-dsgd, fixedk:8, sigma 0.1), ``STEPS`` steps of ``TokenStream``
 batches; writes the initial parameters (``init/``), the losses, the
 final state (``x/``, ``s/``) and the node-axis collective-permutes of
 the compiled step (per-device payload shapes). ``SLOTS`` > 0 keeps the
-first SLOTS slots of the smoke config's period (one period). ``serve``:
+first SLOTS slots of the smoke config's period (one period); it may
+instead be a JSON object ``{"slots": n, "model": {overrides}}``, as
+``serve``'s meshes may be ``{"meshes": "1x4", "model": {overrides}}``
+(``case_config``: the tests' head-count variants). ``serve``:
 ``make_prefill_fn`` then ``DECODE_STEPS`` of ``make_decode_fn`` on each
 mesh, jitted with the shardings of their rules; writes the parameters
 (``p/``), each step's logits and the caches after prefill and decode.
 ``forward``: for each variant (``VARIANTS``: a JSON object of
 config overrides by name), the unsharded forward's logits, aux,
 ``lm_loss`` and gradients on a seeded batch, with the parameters
-(``<variant>/p/``, ``/g/``). Inputs come from seeded numpy draws that
+(``<variant>/p/``, ``/g/``). ``many``: several cases in one process,
+``JOBS`` a JSON object {name: [kind, arch, arg]}, each case's arrays
+under ``<name>/``. Inputs come from seeded numpy draws that
 the port side repeats; ``conv_b`` / ``dt_bias`` (and rwkv's
 ``decay_bias`` / ``bonus_u``) are redrawn in ``serve`` and ``forward``.
 The audio / vlm families get a seeded context of distinct rows
@@ -68,6 +74,20 @@ def cut(cfg, slots: int):
                                n_layers=slots)
 
 
+def case_config(configs, arch: str, arg, key: str):
+    """(a case's smoke config from ``configs``, its other argument):
+    ``arg`` is that argument (``train``'s SLOTS, ``serve``'s meshes) or a
+    JSON object holding it under ``key`` beside ``"model"``, the config's
+    overrides."""
+    import json
+
+    over = {}
+    if isinstance(arg, str) and arg.startswith("{"):
+        spec = json.loads(arg)
+        arg, over = spec[key], spec.get("model", {})
+    return dataclasses.replace(configs.get_smoke_config(arch), **over), arg
+
+
 def context_input(cfg, batch: int, seed: int = 5):
     """A seeded (batch, context rows, d_model) f32 context of distinct
     rows for the audio / vlm families (None for a text model): the
@@ -103,7 +123,7 @@ def redraw_params(jax, jparams, seed: int = 0):
     return jax.tree_util.tree_map_with_path(one, jparams)
 
 
-def _jax_train(arch: str, slots: int, out_path: str) -> None:
+def _jax_train(arch: str, slots, out_path: str) -> None:
     import jax
     import jax.numpy as jnp
 
@@ -113,7 +133,8 @@ def _jax_train(arch: str, slots: int, out_path: str) -> None:
     from repro.launch.mesh import make_mesh_by_name
     from repro.train import steps
 
-    cfg = cut(configs.get_smoke_config(arch), slots)
+    cfg, slots = case_config(configs, arch, slots, "slots")
+    cfg = cut(cfg, int(slots))
     mesh = make_mesh_by_name(f"{NODES}x{MODEL}")
     tc = steps.DistributedTrainConfig(model=cfg, sdm=SDMConfig(**SDM),
                                       topology="ring", method="sdm-dsgd",
@@ -160,7 +181,7 @@ def _jax_serve(arch: str, meshes: str, out_path: str) -> None:
     from repro.sharding import tree_shardings
     from repro.train import steps
 
-    cfg = configs.get_smoke_config(arch)
+    cfg, meshes = case_config(configs, arch, meshes, "meshes")
     params = redraw_params(jax, transformer.init_params(
         jax.random.PRNGKey(1), cfg))
     out = {f"p/{k}": v for k, v in flat(params).items()}
@@ -255,6 +276,24 @@ def _jax_forward(arch: str, variants: str, out_path: str) -> None:
     np.savez(out_path, **out)
 
 
+def _jax_many(jobs: str, out_path: str) -> None:
+    import json
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, (kind, arch, arg)) in enumerate(
+                json.loads(jobs).items()):
+            path = os.path.join(tmp, f"{i}.npz")
+            CASES[kind](arch, arg, path)
+            with np.load(path) as data:
+                out.update({f"{name}/{k}": data[k] for k in data.files})
+    np.savez(out_path, **out)
+
+
+CASES = {"train": _jax_train, "serve": _jax_serve, "forward": _jax_forward}
+
+
 def forward_inputs(vocab: int):
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, vocab, (2, 24)).astype(np.int32)
@@ -310,6 +349,32 @@ class LastShardDropped:
         return self.axis.all_reduce(x)
 
 
+def reversed_order(params, cfg):
+    """rwkv6's parameters with the heads and the channel mix's d_ff
+    reversed: the same function, whose time-mix ``w_out`` and
+    channel-mix ``w_v`` products sum in another order (chip_smoke's
+    witness of phase 28c)."""
+    import torch
+
+    from repro_torch import tree as tree_mod
+
+    h, n = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    heads = torch.arange(h * n).view(h, n).flip(0).reshape(-1)
+    flat = dict(tree_mod.flatten_with_paths(params))
+    for k, v in flat.items():
+        name = k.rsplit("/", 1)[-1]
+        if "/time_mix/" in k and name in ("w_r", "w_k", "w_v", "w_decay",
+                                          "w_g"):
+            flat[k] = v[..., heads.to(v.device)].contiguous()
+        elif "/time_mix/" in k and name in ("decay_bias", "bonus_u"):
+            flat[k] = v.flip(-2).contiguous()
+        elif "/time_mix/" in k and name == "w_out":
+            flat[k] = v[..., heads.to(v.device), :].contiguous()
+        elif "/channel_mix/" in k and name in ("w_k", "w_v"):
+            flat[k] = v.flip(-1 if name == "w_k" else -2).contiguous()
+    return tree_mod.from_flat(flat)
+
+
 def tp_loss_and_grads(params, cfg, m: int, tokens, labels, axis,
                       context=None):
     """The port's forward, ``lm_loss`` and gradients over ``m`` shards
@@ -335,9 +400,10 @@ def tp_loss_and_grads(params, cfg, m: int, tokens, labels, axis,
     return shards, logits, aux, loss, grads
 
 
-def port_train_2x2(arch: str, slots: int, want: dict):
-    """The port's ``2x2`` run from JAX's initial parameters: (tc,
-    params, transport, axis, the payload shapes sent, the run)."""
+def port_train_2x2(arch: str, slots, want: dict):
+    """The port's ``2x2`` run from JAX's initial parameters (``slots``:
+    as the ``train`` case's argument): (tc, params, transport, axis, the
+    payload shapes sent, the run)."""
     import torch
 
     from repro_torch import configs
@@ -348,10 +414,10 @@ def port_train_2x2(arch: str, slots: int, want: dict):
     from repro_torch.launch.train import TrainRun
     from repro_torch.train import steps
 
+    cfg, slots = case_config(configs, arch, slots, "slots")
     tc = steps.DistributedTrainConfig(
-        model=cut(configs.get_smoke_config(arch), slots),
-        sdm=sdm_dsgd.SDMConfig(**SDM), topology="ring", method="sdm-dsgd",
-        param_dtype=torch.float32)
+        model=cut(cfg, int(slots)), sdm=sdm_dsgd.SDMConfig(**SDM),
+        topology="ring", method="sdm-dsgd", param_dtype=torch.float32)
     init = {k[len("init/"):]: v for k, v in want.items()
             if k.startswith("init/")}
     params = params_from_jax(init, tc.model, device="cpu")
@@ -498,9 +564,10 @@ def check_serving_1xm(arch: str, mesh_name: str, want: dict, rtol: float,
                                             cfg.mamba_d_inner // m,
                                             cfg.mamba_d_state)
             if isinstance(st, rwkv.RWKVState):     # WKV split by heads
-                n = cfg.rwkv_head_size
-                assert st.wkv.shape[1:] == (m, SERVE_BATCH,
-                                            cfg.rwkv_n_heads // m, n, n)
+                n, h = cfg.rwkv_head_size, cfg.rwkv_n_heads
+                assert st.wkv.shape[1:] == (m, SERVE_BATCH) + (
+                    (h // m, n, n) if h % m == 0   # or by columns
+                    else (h * n // m, n))
                 assert st.att_shift.shape[1:] == (SERVE_BATCH, cfg.d_model)
 
     logits, cache = pf(sp, torch.from_numpy(tokens), cache, ctx)
@@ -601,11 +668,9 @@ if __name__ == "__main__":
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     sys.path.insert(0, str(ROOT / "src"))
     kind, arch, arg, out = sys.argv[1:5]
-    if kind == "train":
-        _jax_train(arch, int(arg), out)
-    elif kind == "serve":
-        _jax_serve(arch, arg, out)
-    elif kind == "forward":
-        _jax_forward(arch, arg, out)
+    if kind == "many":
+        _jax_many(arg, out)
+    elif kind in CASES:
+        CASES[kind](arch, arg, out)
     else:
         raise SystemExit(f"unknown case {kind!r}")

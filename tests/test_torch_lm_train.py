@@ -281,19 +281,22 @@ def test_launcher_one_process_per_node_on_gloo():
     assert losses(outs[0]) == losses(outs[1]) == losses(stack.stdout)
 
 
-def test_launcher_targets_cuda_by_default_and_refuses_what_is_not_ported():
+def test_launcher_targets_cuda_by_default_and_refuses_what_is_not_ported(
+        capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     base = ["--arch", ARCH, "--smoke", "--steps", "1"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_mod.main(base)
-    # a model axis across the cards of a pod, and the split inside a head
-    # (rwkv6-smoke's 4 heads over 8 shards), are not ported
+    # a model axis across the cards of a pod is not ported; the split
+    # inside a head is (rwkv6-smoke's 4 heads over 8 shards runs)
     with pytest.raises(ValueError, match="TPU pod mesh.*ROADMAP"):
         train_mod.main(base + ["--device", "cpu", "--mesh", "16x16"])
-    with pytest.raises(NotImplementedError, match="inside a head"):
-        train_mod.main(["--arch", "rwkv6-3b", "--smoke",
-                        "--steps", "1", "--device", "cpu", "--mesh", "1x8"])
+    train_mod.main(["--arch", "rwkv6-3b", "--smoke", "--steps", "1",
+                    "--device", "cpu", "--mesh", "1x8"])
+    loss = re.search(r"^step +0 loss (\S+)", capsys.readouterr().out,
+                     re.MULTILINE)
+    assert loss and math.isfinite(float(loss.group(1)))
 
 
 @pytest.mark.parametrize("name,nodes", [("4", 4), ("4x1", 4), ("2x3x1", 6),
@@ -306,20 +309,27 @@ def test_mesh_specs_name_node_counts(name, nodes):
 def test_mesh_specs_refuse_tensor_parallel_and_pods(name):
     """The pod meshes and malformed names raise. A model axis on one
     device runs every family: ``2x2`` parses (2 nodes, 2 shards), and
-    heads that M does not divide raise (rwkv6-smoke's 4 at M = 8)."""
+    heads that M does not divide split inside a head (rwkv6-smoke's 4 at
+    M = 8, granite-moe's at 2)."""
     if name != "2x2":
         with pytest.raises(ValueError):
             mesh_mod.parse_mesh(name)
         return
     mesh = mesh_mod.parse_mesh(name)
     assert (mesh.n_nodes, mesh.model) == (2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.check_tensor_parallel(
-            configs.get_smoke_config("rwkv6-3b"), 8)
-    transformer.check_tensor_parallel(
-        configs.get_smoke_config("rwkv6-3b"), 2)
-    transformer.check_tensor_parallel(
-        configs.get_smoke_config("granite-moe-1b-a400m"), 2)
+    from repro_torch.convert import shard_params
+    from repro_torch.core.model_axis import StackModelAxis
+
+    tok = torch.zeros(1, 4, dtype=torch.long)
+    for arch, m in (("rwkv6-3b", 8), ("rwkv6-3b", 2),
+                    ("granite-moe-1b-a400m", 2)):
+        cfg = configs.get_smoke_config(arch)
+        params = shard_params(transformer.init_params(cfg, device="cpu"),
+                              cfg, m)
+        with torch.no_grad():
+            logits, _ = transformer.forward(
+                params, cfg, tok, model_axis=StackModelAxis(m, "cpu"))
+        assert logits.shape == (m, 1, 4, cfg.padded_vocab // m)
 
 
 def test_registry_faces_are_callable():

@@ -269,20 +269,40 @@ def test_dryrun_traces_encoder_families_on_nxm(arch, mesh_name, shape):
 
 
 def test_encoder_heads_that_m_does_not_divide_still_raise():
-    """The split inside a head (ROADMAP Queue 1): the smoke configs' 4
-    heads at M = 8; whisper-large-v3's 20 at M = 8 and 16 (its 1280
-    columns split); llama-3.2-vision-11b's 32 heads split whole at 16."""
-    tok = torch.zeros(1, 4, dtype=torch.long)
+    """Heads that M does not divide now split inside a head (their values
+    against JAX: ``test_torch_tp_head_split.py``): the smoke configs' 4
+    heads at M = 8 through the forward (encoder, cross-attention and
+    decoder) and the decode step; whisper-large-v3's 20 at M = 8 and 16
+    through the dry-run. What still raises under such an axis: ragged
+    offsets (ROADMAP Queue 1) and rule overrides (item 5d)."""
+    tok = torch.zeros(2, 4, dtype=torch.long)
     for arch in (WHISPER, VISION):
         cfg = configs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="inside a head"):
-            transformer.forward({}, cfg, tok,
-                                model_axis=StackModelAxis(8, "cpu"))
-        with pytest.raises(NotImplementedError, match="inside a head"):
-            steps.make_decode_fn(cfg, parse_mesh("1x8"), device="cpu")
-    for mesh in ("16x8", "16x16"):
-        with pytest.raises(NotImplementedError, match="20 heads"):
-            dryrun.build_case(WHISPER, "decode_32k", mesh, "sdm-dsgd",
-                              "fixedk_packed", "", verbose=False)
-    transformer.check_tensor_parallel(configs.get_config(WHISPER), 4)
-    transformer.check_tensor_parallel(configs.get_config(VISION), 16)
+        params = shard_params(transformer.init_params(cfg, device="cpu"),
+                              cfg, 8)
+        ctx = torch.from_numpy(tfc.context_input(cfg, 2))
+        axis = StackModelAxis(8, "cpu")
+        with torch.no_grad():
+            logits, _ = transformer.forward(params, cfg, tok, context=ctx,
+                                            model_axis=axis)
+        assert logits.shape == (8, 2, 4, cfg.padded_vocab // 8)
+        assert torch.isfinite(logits).all() and axis.calls["all_gather"]
+        _, rules = steps.make_decode_fn(cfg, parse_mesh("1x8"),
+                                        device="cpu")
+        from repro_torch.convert import shard_cache
+        cache = shard_cache(transformer.init_cache(cfg, 2, 8, torch.float32,
+                                                   "cpu"), cfg, rules)
+        zeros = torch.zeros(2, dtype=torch.long)
+        with torch.no_grad():
+            enc = transformer.encode_context(params, cfg, ctx,
+                                             model_axis=axis)
+        with pytest.raises(NotImplementedError, match="ragged.*ROADMAP"):
+            transformer.decode_step(params, cfg, zeros, cache, context=enc,
+                                    offsets=zeros, model_axis=axis)
+        with pytest.raises(ValueError, match="ROADMAP.*5d"):
+            steps.make_decode_fn(cfg, parse_mesh("1x8"), device="cpu",
+                                 rule_overrides={"seq": "model"})
+    for mesh, n in (("16x8", 128), ("16x16", 256)):
+        rec = dryrun.build_case(WHISPER, "decode_32k", mesh, "sdm-dsgd",
+                                "fixedk_packed", "", verbose=False)
+        assert rec["status"] == "ok" and rec["n_devices"] == n

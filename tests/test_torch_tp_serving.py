@@ -365,10 +365,14 @@ def test_serving_steps_refuse():
                              rule_overrides={"batch": "model"})
     with pytest.raises(ValueError, match="pod mesh"):
         steps.make_decode_fn(cfg, "16x16", device="cpu")
-    for arch in ("rwkv6-3b", "whisper-large-v3"):   # heads M does not split
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for arch in ("rwkv6-3b", "whisper-large-v3"):   # heads M does not split:
+        fn, _ = steps.make_decode_fn(configs.get_smoke_config(arch),
+                                     parse_mesh("1x8"), device="cpu")
+        assert fn.model_axis.size == 8             # split inside a head
+        with pytest.raises(ValueError, match="5d"):
             steps.make_decode_fn(configs.get_smoke_config(arch),
-                                 parse_mesh("1x8"), device="cpu")
+                                 parse_mesh("1x8"), device="cpu",
+                                 rule_overrides={"kv_heads": None})
     params = shard_params(transformer.init_params(cfg, device="cpu"), cfg, 2)
     with pytest.raises(ValueError, match="meta tensors only"):
         unshard_params(shard_params(transformer.init_params(

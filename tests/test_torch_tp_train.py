@@ -357,13 +357,21 @@ def test_no_matmul_takes_a_whole_split_weight(m):
 
 def test_tensor_parallelism_refuses_other_families_and_shapes():
     tok = torch.zeros(1, 4, dtype=torch.long)
-    # every family runs over the model axis; what remains refused is the
-    # split inside a head: the smoke configs' 4 heads at M = 8
-    for arch in ("rwkv6-3b", "whisper-large-v3"):
+    # every family runs over the model axis, heads that M does not divide
+    # split inside a head (the smoke configs' 4 heads at M = 8; values
+    # against JAX in test_torch_tp_head_split.py); what remains refused
+    # is ragged offsets and rule overrides
+    for arch in ("rwkv6-3b", "whisper-large-v3", ARCH):
         cfg = configs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.forward({}, cfg, tok,
-                                model_axis=StackModelAxis(8, "cpu"))
+        ctx = transformer.stub_context(cfg, 1, torch.float32, "cpu")
+        params = shard_params(transformer.init_params(cfg, device="cpu"),
+                              cfg, 8)
+        with torch.no_grad():
+            logits, _ = transformer.forward(
+                params, cfg, tok, context=ctx,
+                model_axis=StackModelAxis(8, "cpu"))
+        assert logits.shape == (8, 1, 4, cfg.padded_vocab // 8)
+        assert torch.isfinite(logits).all()
     # ragged offsets under a model axis: whisper's decode over 2 shards
     from repro_torch.convert import shard_cache
     from repro_torch.launch.mesh import parse_mesh
@@ -379,11 +387,9 @@ def test_tensor_parallelism_refuses_other_families_and_shapes():
             shard_params(transformer.init_params(cfg, device="cpu"), cfg, 2),
             cfg, zeros, cache, offsets=zeros,
             model_axis=StackModelAxis(2, "cpu"))
-    cfg = configs.get_smoke_config(ARCH)
-    params = shard_params(transformer.init_params(cfg, device="cpu"), cfg, 8)
-    with pytest.raises(NotImplementedError, match="split whole"):
-        transformer.forward(params, cfg, tok,
-                            model_axis=StackModelAxis(8, "cpu"))
+    with pytest.raises(ValueError, match="ROADMAP.*5d"):
+        steps_mod.make_decode_fn(cfg, parse_mesh("1x8"), device="cpu",
+                                 rule_overrides={"seq": "model"})
     if not torch.cuda.is_available():       # entry points target the card
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             StackModelAxis(2)
